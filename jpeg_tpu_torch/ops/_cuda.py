@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is one file `jpeg_tpu_torch/csrc/<name>.cu` with a plain C entry
+point. On first use it is compiled with nvcc for sm_90a into
+`jpeg_tpu_torch/build/lib<name>.so` (gitignored) and loaded with ctypes; the
+library is rebuilt when the source is newer. Nothing is built when a module
+is imported. A missing nvcc or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict = {}
+# name -> (build seconds, nvcc/ptxas output) for kernels built by this process.
+BUILD_LOG: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or (
+        "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _build(name: str, src: pathlib.Path, lib_path: pathlib.Path) -> None:
+    with open(_BUILD_DIR / f"{name}.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if lib_path.exists() and lib_path.stat().st_mtime >= src.stat().st_mtime:
+            return
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
+                f"{proc.stderr}{proc.stdout}")
+        os.replace(tmp, lib_path)
+        BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr + proc.stdout)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library of kernel `name`, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = _CSRC / f"{name}.cu"
+        if not src.exists():
+            raise RuntimeError(f"kernel source missing: {src}")
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib_path = _BUILD_DIR / f"lib{name}.so"
+        _build(name, src, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        _libs[name] = lib
+        return lib
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on `device`, as a C pointer."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(name: str, err: int) -> None:
+    """Raise on a nonzero cudaError_t returned by a kernel's C entry."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -1,0 +1,46 @@
+"""YCbCr <-> RGB (BT.601 full-range, JFIF) constants and the decode-side
+colour map."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# y/cb/cr = RGB_TO_YCBCR @ [r, g, b] + [0, 128, 128]
+RGB_TO_YCBCR = np.array(
+    [
+        [0.299, 0.587, 0.114],
+        [-0.168735892, -0.331264108, 0.5],
+        [0.5, -0.418687589, -0.081312411],
+    ],
+    dtype=np.float32,
+)
+YCBCR_OFFSET = np.array([0.0, 128.0, 128.0], dtype=np.float32)
+
+# Inverse map: [r, g, b] = YCBCR_TO_RGB @ [y, cb - 128, cr - 128]
+YCBCR_TO_RGB = np.array(
+    [
+        [1.0, 0.0, 1.402],
+        [1.0, -0.344136286, -0.714136286],
+        [1.0, 1.772, 0.0],
+    ],
+    dtype=np.float32,
+)
+
+
+def ycbcr_to_rgb(ycc: torch.Tensor) -> torch.Tensor:
+    """(..., 3) YCbCr in [0,255] -> (..., 3) float32 RGB, unclipped (the
+    caller rounds and clips).
+
+    Each output channel is one explicit f32 multiply-add chain over
+    (y, cb - 128, cr - 128) in the order of its YCBCR_TO_RGB row, so the
+    association is fixed on every device rather than left to a matmul."""
+    x = ycc.to(torch.float32)
+    terms = [x[..., c] - float(YCBCR_OFFSET[c]) for c in range(3)]
+    out = []
+    for row in YCBCR_TO_RGB:
+        acc = terms[0] * float(row[0])
+        acc = acc + terms[1] * float(row[1])
+        acc = acc + terms[2] * float(row[2])
+        out.append(acc)
+    return torch.stack(out, dim=-1)

@@ -1,0 +1,205 @@
+"""Device Huffman bit packer: coefficient blocks -> per-block word buffers
+(level 1, kernel A) -> one big-endian word stream per restart segment
+(level 2, plain torch).
+
+Counterpart of jpeg_tpu/ops/pack_pallas.py. Level 1 on a CUDA tensor
+launches the hand-written kernel csrc/pack_level1.cu, which replaces the
+Pallas kernel pack_pallas._kernel (pallas_call at pack_pallas.py:237); on a
+CPU tensor it runs the plain twin pack_level1_reference, which follows the
+Pallas kernel's arithmetic step for step and so is bit-identical to it for
+every block. The kernel's source note says what bounds it on the card.
+
+Bit words are carried as int32 tensors holding uint32 bit patterns (torch
+shifts on int32 are arithmetic, so the plain code widens to int64 and masks).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from jpeg_tpu_torch.ops import _cuda
+from jpeg_tpu_torch.ops.bitpack import BLOCK_WORDS
+
+# Kernel launches since the last reset (plus one per launch, nowhere else).
+LAUNCHES = 0
+
+_M32 = 0xFFFFFFFF
+# Blocks per slice of the plain twin: bounds its (blocks, 191) int64
+# intermediates to a few tens of MB.
+_CHUNK = 16384
+
+
+def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _level1_chunk(v, tb, dc_code, dc_len, ac_code, ac_len):
+    """Plain level 1 for one slice of blocks, in int64, mirroring
+    pack_pallas._kernel: size classes by 12 thresholds, amplitudes, zero runs
+    by cummax, direct LUT reads for the codes, the ZRL pair/single split,
+    EOB, offsets from one prefix sum, and the same clamped word placement."""
+    b = v.shape[0]
+    dev = v.device
+    mag = v.abs()
+    size = torch.zeros_like(mag)
+    for k in range(12):
+        size += (mag >= (1 << k)).to(mag.dtype)
+    one = torch.ones_like(size)
+    low = (one << size) - 1
+    amp = torch.where(v >= 0, v, v + low) & low
+
+    idx = torch.arange(64, device=dev).expand(b, 64)
+    nz = (v != 0) & (idx > 0)
+    markers = torch.where(nz, idx, 0)
+    cmax = torch.cummax(markers, dim=1).values
+    prev = torch.cat([torch.zeros((b, 1), dtype=cmax.dtype, device=dev),
+                      cmax[:, :-1]], dim=1)
+    run = torch.where(nz, idx - prev - 1, 0)
+    last_nz = cmax[:, -1:]
+    base = tb[:, None] * 256
+
+    dsize = size[:, :1]
+    dbits = (dc_code[base + dsize] << dsize) | amp[:, :1]
+    dnbits = dc_len[base + dsize] + dsize
+
+    s_ac, nz_ac = size[:, 1:], nz[:, 1:]
+    sym = base + ((run[:, 1:] & 15) << 4) + s_ac
+    ac_c = torch.where(nz_ac, ac_code[sym], 0)
+    ac_l = torch.where(nz_ac, ac_len[sym], 0)
+    cbits = (ac_c << s_ac) | torch.where(nz_ac, amp[:, 1:], 0)
+    cn = ac_l + torch.where(nz_ac, s_ac, 0)
+
+    zrl_code, zrl_len = ac_code[base + 0xF0], ac_len[base + 0xF0]
+    kz = torch.where(nz, run >> 4, 0)[:, 1:]
+    pair = (zrl_code << zrl_len) | zrl_code
+    n0 = torch.clamp(kz, max=2) * zrl_len
+    b0 = torch.where(kz >= 2, pair, torch.where(kz == 1, zrl_code, 0))
+    n1 = torch.clamp(kz - 2, min=0) * zrl_len
+    b1 = torch.where(kz >= 3, zrl_code, 0)
+
+    has_eob = last_nz < 63
+    ebits = torch.where(has_eob, ac_code[base], 0)
+    enbits = torch.where(has_eob, ac_len[base], 0)
+
+    # Records in emission order: [DC | (zrl_pair, zrl_single, code) x 63 | EOB].
+    bits = torch.cat([dbits, torch.stack([b0, b1, cbits], 2).reshape(b, 189),
+                      ebits], dim=1)
+    nbits = torch.cat([dnbits, torch.stack([n0, n1, cn], 2).reshape(b, 189),
+                       enbits], dim=1)
+    starts = torch.cumsum(nbits, dim=1) - nbits
+    total = starts[:, -1] + nbits[:, -1]
+
+    sh = starts & 31
+    over = torch.clamp(sh + nbits - 32, min=0)
+    hi = torch.where(over > 0, bits >> over,
+                     (bits << torch.clamp(32 - sh - nbits, 0, 31)) & _M32)
+    lo = torch.where(over > 0, (bits << torch.clamp(32 - over, 0, 31)) & _M32,
+                     0)
+    w_r = torch.clamp(starts >> 5, 0, BLOCK_WORDS - 1)
+    # Disjoint bit fields: the sum equals the OR (mod 2^32, as in the
+    # Pallas kernel's int32 sum for blocks past the budget).
+    buf = torch.zeros((b, BLOCK_WORDS + 1), dtype=torch.int64, device=dev)
+    buf.scatter_add_(1, w_r, hi)
+    buf.scatter_add_(1, w_r + 1, lo)
+    return _to_int32_bits(buf & _M32), total.to(torch.int32)
+
+
+def pack_level1_reference(blocks, tbl, dc_code, dc_len, ac_code, ac_len):
+    """Plain twin of pack_level1 (any device): the same outputs, for every
+    block bit-identical to pack_pallas.pack_level1_pallas."""
+    dev = blocks.device
+    v = blocks.to(torch.int64)
+    tb = tbl.to(torch.int64).clamp(0, 1)
+    luts = [t.to(device=dev, dtype=torch.int64).reshape(-1)
+            for t in (dc_code, dc_len, ac_code, ac_len)]
+    parts = [_level1_chunk(v[i:i + _CHUNK], tb[i:i + _CHUNK], *luts)
+             for i in range(0, v.shape[0], _CHUNK)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _pack_level1_cuda(blocks, tbl, dc_code, dc_len, ac_code, ac_len):
+    global LAUNCHES
+    if blocks.ndim != 2 or blocks.shape[1] != 64:
+        raise ValueError(f"blocks must be (B, 64), got {tuple(blocks.shape)}")
+    if tbl.shape != (blocks.shape[0],):
+        raise ValueError(f"tbl must be ({blocks.shape[0]},), got {tuple(tbl.shape)}")
+    dev = blocks.device
+    args = [blocks, tbl, dc_code, dc_len, ac_code, ac_len]
+    for t in args:
+        if t.device != dev:
+            raise ValueError(f"all pack_level1 inputs must be on {dev}")
+    blocks, tbl, dc_code, dc_len, ac_code, ac_len = (
+        t.to(torch.int32).contiguous() for t in args)
+    for t in (dc_code, dc_len, ac_code, ac_len):
+        if t.shape != (2, 256):
+            raise ValueError(f"Huffman LUTs must be (2, 256), got {tuple(t.shape)}")
+    b = blocks.shape[0]
+    buf = torch.empty((b, BLOCK_WORDS + 1), dtype=torch.int32, device=dev)
+    totals = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return buf, totals
+    lib = _cuda.load("pack_level1")
+    with torch.cuda.device(dev):
+        err = lib.jt_pack_level1(
+            *(ctypes.c_void_p(t.data_ptr()) for t in
+              (blocks, tbl, dc_code, dc_len, ac_code, ac_len, buf, totals)),
+            ctypes.c_long(b), _cuda.stream_handle(dev))
+    _cuda.check("pack_level1", err)
+    LAUNCHES += 1
+    return buf, totals
+
+
+def pack_level1(blocks, tbl, dc_code, dc_len, ac_code, ac_len):
+    """(B, 64) int32 zig-zag blocks (DC already DPCM'd) + (B,) table ids
+    (0 luma / 1 chroma) + the four (2, 256) code/length LUTs, all tensors on
+    one device -> ((B, BLOCK_WORDS+1) int32 uint32-bit-pattern word buffers,
+    (B,) int32 bit totals).
+
+    CUDA tensors launch kernel A (csrc/pack_level1.cu); CPU tensors run the
+    plain twin. Any other device raises."""
+    kind = blocks.device.type
+    if kind == "cpu":
+        return pack_level1_reference(blocks, tbl, dc_code, dc_len, ac_code,
+                                     ac_len)
+    if kind == "cuda":
+        return _pack_level1_cuda(blocks, tbl, dc_code, dc_len, ac_code, ac_len)
+    raise ValueError(f"pack_level1: unsupported device {blocks.device}")
+
+
+def pack_level2(buf, t_b, nwords: int):
+    """Global assembly (level 2): shift each block's words to its bit offset
+    in its segment and scatter-add them into that segment's stream.
+
+    buf (S, B, BLOCK_WORDS+1) int32 bit patterns and t_b (S, B) bit totals,
+    one row per segment -> (words (S, nwords) int64 holding uint32 values,
+    total_bits (S,), ok (S,)); ok is False when a block exceeds
+    BLOCK_WORDS*32 bits or a segment exceeds nwords*32.
+    Indices past nwords are dropped, as pack_pallas.pack_level2's
+    mode="drop" scatter does."""
+    nseg, nblocks, ncols0 = buf.shape
+    dev = buf.device
+    t = t_b.to(torch.int64)
+    off = torch.cumsum(t, dim=1) - t
+    total = off[:, -1] + t[:, -1]
+    base = off >> 5
+    s2 = (off & 31)[:, :, None]
+
+    w = buf.to(torch.int64) & _M32
+    zero_col = torch.zeros((nseg, nblocks, 1), dtype=torch.int64, device=dev)
+    buf_ext = torch.cat([w, zero_col], dim=2)
+    buf_prev = torch.cat([zero_col, w], dim=2)
+    contrib = (buf_ext >> s2) | torch.where(
+        s2 > 0, (buf_prev << torch.clamp(32 - s2, 0, 31)) & _M32, 0)
+    ncols = ncols0 + 1
+    idx = base[:, :, None] + torch.arange(ncols, device=dev)
+    keep = idx < nwords
+    seg = torch.arange(nseg, device=dev)[:, None, None] * nwords
+    flat_idx = torch.where(keep, idx + seg, 0).reshape(-1)
+    words = torch.zeros(nseg * nwords, dtype=torch.int64, device=dev)
+    words.index_add_(0, flat_idx, torch.where(keep, contrib, 0).reshape(-1))
+    words = (words & _M32).reshape(nseg, nwords)
+    ok = (t.amax(dim=1) <= BLOCK_WORDS * 32) & (total <= nwords * 32)
+    return words, total, ok

@@ -1,0 +1,46 @@
+"""Decode-side chroma upsampling: pixel replication and libjpeg-style
+triangular ("fancy") interpolation, on tensors."""
+
+from __future__ import annotations
+
+import torch
+
+
+def _triangle_axis(plane: torch.Tensor, axis: int) -> torch.Tensor:
+    """Double one axis with libjpeg-style triangular weights: each output
+    sample is (3*near + far) / 4, edges replicated."""
+    x = plane.movedim(axis, 0)
+    prev = torch.cat([x[:1], x[:-1]], dim=0)
+    nxt = torch.cat([x[1:], x[-1:]], dim=0)
+    a = (3.0 * x + prev) * 0.25
+    b = (3.0 * x + nxt) * 0.25
+    out = torch.stack([a, b], dim=1).reshape(2 * x.shape[0], *x.shape[1:])
+    return out.movedim(0, axis)
+
+
+def upsample_factors(plane: torch.Tensor, fv: int, fh: int) -> torch.Tensor:
+    """Nearest-neighbor upsample by integer factors."""
+    if fv > 1:
+        plane = torch.repeat_interleave(plane, fv, dim=0)
+    if fh > 1:
+        plane = torch.repeat_interleave(plane, fh, dim=1)
+    return plane
+
+
+def fancy_upsample_factors(plane: torch.Tensor, fv: int, fh: int) -> torch.Tensor:
+    """Triangular upsample generalized to power-of-two factors (a 4x factor
+    chains two doubling passes; other factors replicate)."""
+    out = plane.to(torch.float32)
+    f = fh
+    while f > 1:
+        if f % 2:
+            return upsample_factors(out, fv, f)  # non-pow2: fall back
+        out = _triangle_axis(out, 1)
+        f //= 2
+    f = fv
+    while f > 1:
+        if f % 2:
+            return upsample_factors(out, f, 1)
+        out = _triangle_axis(out, 0)
+        f //= 2
+    return out

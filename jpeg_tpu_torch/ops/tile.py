@@ -1,0 +1,27 @@
+"""Padding and 8x8 block tiling as tensor reshapes/permutes."""
+
+from __future__ import annotations
+
+import torch
+
+
+def pad_to_multiple(img: torch.Tensor, mult_h: int, mult_w: int) -> torch.Tensor:
+    """Edge-replicate pad an (H, W) or (H, W, C) tensor's two leading
+    spatial dims up to multiples of (mult_h, mult_w). Works for any dtype
+    (uint8 included), on any device."""
+    h, w = img.shape[0], img.shape[1]
+    ph = (-h) % mult_h
+    pw = (-w) % mult_w
+    if ph:
+        img = torch.cat([img, img[-1:].expand(ph, *img.shape[1:])], dim=0)
+    if pw:
+        last = img[:, -1:]
+        img = torch.cat([img, last.expand(img.shape[0], pw, *img.shape[2:])],
+                        dim=1)
+    return img
+
+
+def unblockify(blocks: torch.Tensor) -> torch.Tensor:
+    """(Hb, Wb, 8, 8) -> (Hb*8, Wb*8)."""
+    hb, wb = blocks.shape[0], blocks.shape[1]
+    return blocks.permute(0, 2, 1, 3).reshape(hb * 8, wb * 8)

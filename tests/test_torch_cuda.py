@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+This file imports no jax, so it also runs where only torch is installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(--noconftest skips tests/conftest.py, which imports jax). The tests marked
+`cuda` skip without a CUDA device.
+
+Tolerances: kernel A (packer level 1) is exact under its contract: totals
+equal for every block, words equal for every block of at most 288 bits.
+Kernel B (dequant + IDCT) sums in another f32 order than its twin:
+|diff| <= 1e-2. Encodes on the card must equal CPU encodes byte for byte;
+decodes may differ from CPU decodes by 1 level in <= 0.5% of samples."""
+
+import numpy as np
+import pytest
+import torch
+
+import jpeg_tpu_torch
+from jpeg_tpu_torch.entropy import huffman
+from jpeg_tpu_torch.models import encoder
+from jpeg_tpu_torch.ops import bitpack, fused, pack, quant
+
+from torch_port_util import make_image, random_blocks, require_cuda
+
+BUDGET = bitpack.BLOCK_WORDS * 32
+
+
+def _luts(device):
+    return tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                 for a in bitpack.luts_from_tables(huffman.standard_tables()))
+
+
+def test_wrappers_refuse_other_devices():
+    blocks = torch.zeros((4, 64), dtype=torch.int32, device="meta")
+    tbl = torch.zeros((4,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack.pack_level1(blocks, tbl, *_luts("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.fused_dequant_idct(torch.zeros((8, 8), dtype=torch.int32,
+                                             device="meta"), quant.luma_table(50))
+
+
+@pytest.mark.cuda
+def test_kernel_a_matches_plain():
+    dev = require_cuda()
+    rng = np.random.default_rng(11)
+    luts = _luts(dev)
+    for n, density in ((1000, 0.0), (4099, 0.15), (777, 0.3), (1, 0.5)):
+        blocks = torch.as_tensor(random_blocks(rng, n, density), device=dev)
+        tbl = torch.as_tensor((rng.random(n) < 0.5).astype(np.int32), device=dev)
+        before = pack.LAUNCHES
+        buf, tot = pack.pack_level1(blocks, tbl, *luts)
+        torch.cuda.synchronize()
+        assert pack.LAUNCHES == before + 1
+        ref_buf, ref_tot = pack.pack_level1_reference(blocks, tbl, *luts)
+        tot, ref_tot = tot.cpu().numpy(), ref_tot.cpu().numpy()
+        np.testing.assert_array_equal(tot, ref_tot)
+        fits = ref_tot <= BUDGET
+        np.testing.assert_array_equal(buf.cpu().numpy()[fits],
+                                      ref_buf.cpu().numpy()[fits])
+
+
+@pytest.mark.cuda
+def test_kernel_b_matches_plain():
+    dev = require_cuda()
+    rng = np.random.default_rng(3)
+    for shape in ((64, 128), (8, 64), (48, 40), (1080, 1928)):
+        coeffs = torch.as_tensor(
+            rng.integers(-300, 300, size=shape).astype(np.int32), device=dev)
+        qt = quant.luma_table(50)
+        before = fused.LAUNCHES
+        got = fused.fused_dequant_idct(coeffs, qt)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before + 1
+        ref = fused.fused_dequant_idct_reference(coeffs, qt)
+        torch.testing.assert_close(got, ref, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape,restart", [
+    ("420", (144, 256), 0), ("422", (37, 53), 0), ("444", (101, 77), 0),
+    ("420", (128, 192), 6),
+])
+def test_encode_decode_on_card_match_cpu(mode, shape, restart):
+    require_cuda()
+    img = make_image(*shape, seed=shape[0])
+    spills, launches_a, launches_b = (encoder.HOST_PACK_SPILLS, pack.LAUNCHES,
+                                      fused.LAUNCHES)
+    a = jpeg_tpu_torch.encode(img, 75, mode, restart, device="cuda")
+    b = jpeg_tpu_torch.encode(img, 75, mode, restart, device="cpu")
+    assert a == b
+    assert encoder.HOST_PACK_SPILLS == spills
+    assert pack.LAUNCHES == launches_a + 1
+    got = jpeg_tpu_torch.decode(a, device="cuda")
+    assert fused.LAUNCHES == launches_b + 3
+    ref = jpeg_tpu_torch.decode(a, device="cpu")
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff != 0).sum() <= 0.005 * diff.size

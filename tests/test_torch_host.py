@@ -1,0 +1,171 @@
+"""The PyTorch port's host layer and parameters against the JAX package.
+
+The copied host modules (tables, Huffman, JFIF) and the transform parameters
+(mcu_kernel_int, zigzag_qdiv_int, kernel_to_torch) must equal the JAX
+package's exactly: tolerance 0 throughout. The port must import and run
+where jax cannot be imported, and must name the ROADMAP item for every
+option it does not carry yet."""
+
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import jax.numpy as jnp
+
+from jpeg_tpu import tables as JT
+from jpeg_tpu.config import Subsampling as JS
+from jpeg_tpu.entropy import huffman as JH
+from jpeg_tpu.io import jfif as JF
+from jpeg_tpu.ops import bitpack as JB, color as JC, dct as JD, mcu_conv as JM, quant as JQ
+
+import jpeg_tpu_torch
+from jpeg_tpu_torch import tables as PT
+from jpeg_tpu_torch.config import Subsampling as PS
+from jpeg_tpu_torch.entropy import huffman as PH
+from jpeg_tpu_torch.io import jfif as PF
+from jpeg_tpu_torch.ops import bitpack as PB, color as PC, dct as PD, mcu_conv as PM, quant as PQ
+
+from torch_port_util import make_image
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODES = ("444", "422", "420")
+
+
+@pytest.mark.parametrize("name", [
+    "QUANT_LUMA", "QUANT_CHROMA", "ZIGZAG_ORDER", "INV_ZIGZAG",
+    "DC_LUMA_BITS", "DC_LUMA_VALS", "DC_CHROMA_BITS", "DC_CHROMA_VALS",
+    "AC_LUMA_BITS", "AC_LUMA_VALS", "AC_CHROMA_BITS", "AC_CHROMA_VALS",
+])
+def test_constant_tables_equal(name):
+    np.testing.assert_array_equal(getattr(PT, name), getattr(JT, name))
+
+
+def test_quality_tables_and_constants_equal():
+    for q in (1, 10, 50, 75, 95, 100):
+        np.testing.assert_array_equal(PQ.luma_table(q), JQ.luma_table(q))
+        np.testing.assert_array_equal(PQ.chroma_table(q), JQ.chroma_table(q))
+    np.testing.assert_array_equal(PD.dct_basis(), JD.dct_basis())
+    for name in ("RGB_TO_YCBCR", "YCBCR_OFFSET", "YCBCR_TO_RGB"):
+        np.testing.assert_array_equal(getattr(PC, name), getattr(JC, name))
+
+
+def test_standard_tables_and_luts_equal():
+    pt, jt = PH.standard_tables(), JH.standard_tables()
+    assert pt.keys() == jt.keys()
+    for k in pt:
+        for field in ("bits", "vals", "code", "size"):
+            np.testing.assert_array_equal(getattr(pt[k], field),
+                                          getattr(jt[k], field))
+    for a, b in zip(PB.luts_from_tables(pt), JB.luts_from_tables(jt)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mcu_kernel_int_and_kernel_to_torch_equal(mode):
+    pk, pb = PM.mcu_kernel_int(PS(mode))
+    jk, jb = JM.mcu_kernel_int(JS(mode))
+    np.testing.assert_array_equal(pk, jk)
+    np.testing.assert_array_equal(pb, jb)
+    # The port's tensors built from the JAX package's arrays equal those
+    # built from its own.
+    k1, b1 = PM.kernel_to_torch(jk, jb, "cpu")
+    k2, b2 = PM.kernel_to_torch(pk, pb, "cpu")
+    assert k1.dtype == torch.float32 and b1.dtype == torch.int32
+    assert torch.equal(k1, k2) and torch.equal(b1, b2)
+    np.testing.assert_array_equal(k1.numpy(), jk.reshape(-1, jk.shape[-1]))
+    hv = PS(mode).h_factor * PS(mode).v_factor
+    for q in (1, 75, 100):
+        qy, qc = JQ.luma_table(q), JQ.chroma_table(q)
+        np.testing.assert_array_equal(
+            PM.zigzag_qdiv_int(qy, qc, hv),
+            np.asarray(JM.zigzag_qdiv_int(jnp.asarray(qy), jnp.asarray(qc), hv)))
+
+
+def test_jfif_header_bytes_and_parse_equal():
+    h = PH.standard_tables()
+    comps_p = [PF.ComponentSpec(1, 2, 2, 0, 0, 0), PF.ComponentSpec(2, 1, 1, 1, 1, 1),
+               PF.ComponentSpec(3, 1, 1, 1, 1, 1)]
+    comps_j = [JF.ComponentSpec(1, 2, 2, 0, 0, 0), JF.ComponentSpec(2, 1, 1, 1, 1, 1),
+               JF.ComponentSpec(3, 1, 1, 1, 1, 1)]
+    q = {0: JQ.luma_table(80), 1: JQ.chroma_table(80)}
+    a = PF.write_jpeg(37, 53, comps_p, q, h, b"\x12\x34", restart_interval=3,
+                      comment="port")
+    b = JF.write_jpeg(37, 53, comps_j, q, JH.standard_tables(), b"\x12\x34",
+                      restart_interval=3, comment="port")
+    assert a == b
+    pi, ji = PF.parse_jpeg(a), JF.parse_jpeg(a)
+    assert (pi.width, pi.height, pi.restart_interval, pi.scan_data) == (
+        ji.width, ji.height, ji.restart_interval, ji.scan_data)
+
+
+def test_port_imports_and_runs_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jpeg_tpu'] = None\n"
+        "import numpy as np\n"
+        "import jpeg_tpu_torch as P\n"
+        "img = (np.arange(24 * 40 * 3) % 251).astype(np.uint8).reshape(24, 40, 3)\n"
+        "jpg = P.encode(img, quality=80, device='cpu')\n"
+        "out = P.decode(jpg, device='cpu')\n"
+        "assert out.shape == (24, 40, 3) and out.dtype == np.uint8\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok', len(jpg))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def _pil_jpeg(img, **kw):
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("case", [
+    "gray_encode", "optimize_tables", "unaligned_restart", "gray_decode",
+    "progressive_decode", "cmyk_decode", "scale_denom", "ycbcr_output",
+    "device_output",
+])
+def test_unported_options_name_roadmap(case):
+    img = make_image(24, 40)
+    jpg = jpeg_tpu_torch.encode(img, device="cpu")
+    calls = {
+        "gray_encode": lambda: jpeg_tpu_torch.encode(img[..., 0], device="cpu"),
+        "optimize_tables": lambda: jpeg_tpu_torch.encode(
+            img, optimize_tables=True, device="cpu"),
+        # 24x40 at 4:2:0 is 2x3 = 6 MCUs; 4 does not divide it.
+        "unaligned_restart": lambda: jpeg_tpu_torch.encode(
+            img, restart_interval=4, device="cpu"),
+        "gray_decode": lambda: jpeg_tpu_torch.decode(
+            _pil_jpeg(img[..., 0]), device="cpu"),
+        "progressive_decode": lambda: jpeg_tpu_torch.decode(
+            _pil_jpeg(img, progressive=True), device="cpu"),
+        "cmyk_decode": lambda: jpeg_tpu_torch.decode(_cmyk_jpeg(img),
+                                                     device="cpu"),
+        "scale_denom": lambda: jpeg_tpu_torch.decode(jpg, scale_denom=2,
+                                                     device="cpu"),
+        "ycbcr_output": lambda: jpeg_tpu_torch.decode(jpg, output="ycbcr",
+                                                      device="cpu"),
+        "device_output": lambda: jpeg_tpu_torch.decode(jpg, device_output=True,
+                                                       device="cpu"),
+    }
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        calls[case]()
+
+
+def _cmyk_jpeg(img):
+    cmyk = Image.fromarray(img).convert("CMYK")
+    buf = io.BytesIO()
+    cmyk.save(buf, "JPEG")
+    return buf.getvalue()
