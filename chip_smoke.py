@@ -8,18 +8,34 @@ Usage, from the repository root, on a machine with a CUDA device:
 Phases, each reported on its own line:
   1. require a CUDA device (exit 2 without one, or without the package);
   2. print the card's name and power limit (nvidia-smi);
-  3. build both CUDA kernels from csrc/ with nvcc for sm_90a, and the native
-     entropy runtime, and print the build seconds and ptxas resource use;
+  3. build the three CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc
+     each, all started together) and the native entropy runtime, and print
+     the build seconds and ptxas resource use;
   4. kernel A (packer level 1) against its plain twin on the card: random
      blocks at AC densities 0, 0.15 and 0.3, and the 4K image's blocks;
+     4b: with optimal tables of a skewed histogram (codes of 16 bits, a ZRL
+     code other than the standard one);
   5. kernel B (dequant + IDCT) against its plain twin at the 4K plane shapes;
+     5b: kernel C (level shift + DCT + quantize) against its plain twin on
+     the 4K Y, Cb and Cr planes at q75 and q95 and a uniform-random plane:
+     |diff| <= 1, differing in at most max(8, 5e-4 n) coefficients;
   6. the main path: a 3840x2160 q75 4:2:0 encode and decode through
      jpeg_tpu_torch.encode/decode on the card, with every launch counter
      reset first; the bytes must equal the port's CPU encode, the pixels the
      port's CPU decode to +-1 in <= 0.5% of samples;
+     6b: the same image through encode(use_pallas=True) (kernel C, host
+     pack), counted: kernel C 3 launches, kernel A none; coefficients within
+     kernel C's contract of the CPU's, PSNR within 0.1 dB of 6's;
+     6c: optimize_tables, on the card with the device pack and with the host
+     pack and on the CPU: the same bytes, the optimal tables in the stream;
+     6d: restart interval 7, which does not divide the MCU count: card bytes
+     equal CPU bytes;
+     6e: the image's Y plane as a gray image: card bytes equal CPU bytes,
+     the card decode within +-1 of the CPU decode in <= 0.5% of samples;
   7. smaller encodes (4:4:4 1001x777, 4:2:2, aligned restarts) byte-identical
      to the CPU path;
-  8. median timings over warm runs: encode, decode, each kernel and its
+  8. median timings over warm runs: encode (default, use_pallas,
+     optimize_tables, gray), decode (colour, gray), each kernel and its
      plain twin on the card.
 Then one JSON line of the kernels, and last {"ok": true, "device": ...}.
 Any failed phase exits 1.
@@ -32,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -40,6 +57,8 @@ HEIGHT, WIDTH = 2160, 3840  # bench.py's 4K image
 QUALITY, SUBSAMPLING = 75, "420"
 WARM, RUNS = 2, 7
 DIFF_SHARE = 0.005  # decoded samples allowed to differ by 1 from the CPU path
+KERNELS = ("pack_level1", "idct8", "dct8")
+UNALIGNED_RESTART = 7  # does not divide the 4K 4:2:0 image's 32,400 MCUs
 
 
 class PhaseError(Exception):
@@ -127,32 +146,69 @@ def level1_err(got, ref, budget):
     return err, int(gt.shape[0])
 
 
+def coef_diff(got, ref):
+    """Kernel C's contract: (max |diff|, coefficients differing, bound on
+    that count, n)."""
+    d = (got.cpu().long() - ref.cpu().long()).abs()
+    n = d.numel()
+    return int(d.max()), int((d != 0).sum()), max(8, 5e-4 * n), n
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def build_all():
+    """Phase 3: nvcc for every kernel and the native runtime, in parallel."""
+    from jpeg_tpu_torch.entropy import native
+    from jpeg_tpu_torch.ops import _cuda
+
+    with ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+        nat = ex.submit(timed, native._load)
+        futs = {name: ex.submit(timed, _cuda.load, name) for name in KERNELS}
+        print(f"phase 3: native entropy runtime built/loaded in "
+              f"{nat.result()[1]:.2f} s", flush=True)
+        for name, fut in futs.items():
+            secs = fut.result()[1]
+            log = _cuda.BUILD_LOG.get(name, (secs, "(library up to date)"))[1]
+            usage = [ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "bytes stack" in ln]
+            print(f"phase 3: built {name} in {secs:.2f} s: {' | '.join(usage)}",
+                  flush=True)
+
+
+def skewed_tables(blocks, huffman, symbols, torch):
+    """Optimal tables of the blocks' own symbols with geometrically skewed
+    counts, so that the length limit binds (codes of 16 bits) and ZRL gets
+    a code other than the standard one. Table ids 0 and 1 share them."""
+    dc, ac = (h.numpy().astype(np.int64) for h in
+              symbols.symbol_histogram(torch.as_tensor(blocks)))
+    out = {}
+    for is_ac, hist in ((0, dc), (1, ac)):
+        skew = np.zeros(256, dtype=np.int64)
+        for rank, sym in enumerate(np.flatnonzero(hist)[::-1]):
+            skew[sym] = max(1, int(2 ** 40 * 0.55 ** rank))
+        t = huffman.optimal_table(skew)
+        out[(is_ac, 0)] = out[(is_ac, 1)] = t
+    return out
+
+
 def run(card: str) -> dict:
     import torch
 
     import jpeg_tpu_torch
-    from jpeg_tpu_torch.config import Subsampling
+    from jpeg_tpu_torch.config import EncodeConfig, Subsampling
     from jpeg_tpu_torch.entropy import huffman, native
     from jpeg_tpu_torch.io import jfif
     from jpeg_tpu_torch.models import encoder, layout
-    from jpeg_tpu_torch.ops import _cuda, bitpack, fused, pack, quant, tile, zigzag
+    from jpeg_tpu_torch.ops import (
+        bitpack, fused, pack, quant, symbols, tile, zigzag)
 
     dev = torch.device(DEVICE)
 
-    # Phase 3: builds.
-    t0 = time.perf_counter()
-    native._load()
-    print(f"phase 3: native entropy runtime built/loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for name in ("pack_level1", "idct8"):
-        t0 = time.perf_counter()
-        _cuda.load(name)
-        secs = time.perf_counter() - t0
-        log = _cuda.BUILD_LOG.get(name, (secs, "(library up to date)"))[1]
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "bytes stack" in ln]
-        print(f"phase 3: built {name} in {secs:.2f} s: {' | '.join(usage)}",
-              flush=True)
+    build_all()
 
     img = make_image(HEIGHT, WIDTH)
     mode = Subsampling(SUBSAMPLING)
@@ -196,6 +252,31 @@ def run(card: str) -> dict:
     err_a = max(err_a, e)
     check(err_a == 0, f"kernel A disagrees with its plain twin (max {err_a})")
 
+    # Phase 4b: kernel A with optimal tables whose codes reach 16 bits.
+    blocks_np = random_blocks(rng, 65536, 0.15)
+    blocks_np[::5, 1:40] = 0  # long zero runs: ZRL symbols
+    skew = skewed_tables(blocks_np, huffman, symbols, torch)
+    skew_luts = tuple(torch.as_tensor(a.astype(np.int32), device=dev)
+                      for a in bitpack.luts_from_tables(skew))
+    blocks = torch.as_tensor(blocks_np, device=dev)
+    tbl = torch.as_tensor((rng.random(len(blocks_np)) < 0.5).astype(np.int32),
+                          device=dev)
+    e, n = level1_err(pack.pack_level1(blocks, tbl, *skew_luts),
+                      pack.pack_level1_reference(blocks, tbl, *skew_luts),
+                      budget)
+    max_len = int(max(t.size.max() for t in skew.values()))
+    zrl, zrl_std = skew[(1, 0)], htables[(1, 0)]
+    print(f"phase 4b: kernel A vs plain, skewed optimal tables: {n} blocks, "
+          f"longest code {max_len} bits, ZRL code {int(zrl.code[0xF0]):b} "
+          f"({int(zrl.size[0xF0])} bits; standard "
+          f"{int(zrl_std.code[0xF0]):b}), max |err| {e}", flush=True)
+    check(max_len == 16, f"skewed tables reach only {max_len} bits")
+    check((zrl.code[0xF0], zrl.size[0xF0]) != (zrl_std.code[0xF0],
+                                               zrl_std.size[0xF0]),
+          "the skewed ZRL code is the standard one")
+    check(e == 0, f"kernel A disagrees with its twin on skewed tables ({e})")
+    err_a = max(err_a, e)
+
     # Phase 5: kernel B vs plain at the 4K plane shapes, on the 4K stream's
     # own coefficients.
     info = jfif.parse_jpeg(jpg_cpu)
@@ -226,10 +307,31 @@ def run(card: str) -> dict:
         err_b = max(err_b, e)
     check(err_b <= 1e-2, f"kernel B disagrees with its plain twin ({err_b})")
 
+    # Phase 5b: kernel C vs plain on the planes the use_pallas path feeds it.
+    pallas_planes = encoder._pallas_planes(dimg, mode)
+    cases = [(p, q, name) for q in (QUALITY, 95)
+             for p, name in zip(pallas_planes, ("Y", "Cb", "Cr"))]
+    cases.append((torch.as_tensor(
+        rng.integers(0, 256, size=(HEIGHT, WIDTH)).astype(np.float32),
+        device=dev), QUALITY, "uniform random"))
+    err_c = 0
+    for plane, q, name in cases:
+        qt = quant.luma_table(q) if name in ("Y", "uniform random") else (
+            quant.chroma_table(q))
+        e, nd, bound, n = coef_diff(fused.fused_dct_quantize(plane, qt),
+                                    fused.fused_dct_quantize_reference(plane, qt))
+        print(f"phase 5b: kernel C vs plain, {name} plane "
+              f"{tuple(plane.shape)} q{q}: max |err| {e}, {nd} of {n} "
+              f"coefficients differ (bound {bound:.0f})", flush=True)
+        check(e <= 1 and nd <= bound,
+              f"kernel C disagrees with its plain twin on {name} q{q}")
+        err_c = max(err_c, e)
+
     # Phase 6: the main path, counted.
     torch.cuda.synchronize()
     pack.LAUNCHES = 0
     fused.LAUNCHES = 0
+    fused.DCT_LAUNCHES = 0
     encoder.HOST_PACK_SPILLS = 0
     jpg = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev)
     px = jpeg_tpu_torch.decode(jpg, device=dev)
@@ -252,6 +354,149 @@ def run(card: str) -> dict:
           f"PSNR vs source {psnr(px, img):.2f} dB", flush=True)
     check(int(diff.max()) <= 1, "decode differs from the CPU decode by > 1")
     check(ndiff <= DIFF_SHARE * diff.size, "too many decode differences")
+    psnr_default = psnr(px, img)
+
+    # Phase 6b: encode(use_pallas=True), counted: kernel C then the host pack.
+    cfg = EncodeConfig(quality=QUALITY, subsampling=SUBSAMPLING)
+    qy, qc = quant.luma_table(QUALITY), quant.chroma_table(QUALITY)
+    cimg = tile.pad_to_multiple(torch.as_tensor(img), mode.mcu_height,
+                                mode.mcu_width)
+    coef_cpu, secs = timed(encoder._transform_color, cimg, qy, qc, mode, True)
+    jpg_pallas_cpu, secs2 = timed(lambda: jpeg_tpu_torch.encode(
+        img, QUALITY, SUBSAMPLING, device="cpu", use_pallas=True))
+    print(f"phase 6b: CPU references: use_pallas transform {secs:.2f} s, "
+          f"encode {secs2:.2f} s", flush=True)
+    torch.cuda.synchronize()
+    pack.LAUNCHES = 0
+    fused.LAUNCHES = 0
+    fused.DCT_LAUNCHES = 0
+    encoder.HOST_PACK_SPILLS = 0
+    jpg_pallas = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev,
+                                       use_pallas=True)
+    torch.cuda.synchronize()
+    launches_c, launches_a_pallas = fused.DCT_LAUNCHES, pack.LAUNCHES
+    print(f"phase 6b: use_pallas 4K q{QUALITY} {SUBSAMPLING}: "
+          f"{len(jpg_pallas)} bytes; launches: kernel C {launches_c}, "
+          f"kernel A {launches_a_pallas}", flush=True)
+    check(launches_c == 3, f"kernel C launched {launches_c} times, not 3")
+    check(launches_a_pallas == 0, "kernel A launched on the host-pack path")
+    coef_card = encoder._transform_color(dimg, qy, qc, mode, True)
+    planes_equal = True
+    for name, g, r in zip(("Y", "Cb", "Cr"), coef_card, coef_cpu):
+        e, nd, bound, n = coef_diff(g, r)
+        print(f"phase 6b: {name} coefficients, card vs CPU use_pallas "
+              f"transform: max |diff| {e}, {nd} of {n} differ (bound "
+              f"{bound:.0f})", flush=True)
+        check(e <= 1 and nd <= bound, f"use_pallas {name} coefficients "
+              "outside kernel C's contract")
+        planes_equal = planes_equal and nd == 0
+    if planes_equal:
+        check(jpg_pallas == jpg_pallas_cpu,
+              "use_pallas bytes differ from the CPU's on equal coefficients")
+        print("phase 6b: coefficients equal, bytes equal the CPU "
+              "use_pallas encode", flush=True)
+    else:
+        scan, _ = encoder._host_pack_color(
+            *(c.cpu().numpy() for c in coef_card),
+            HEIGHT // mode.mcu_height, WIDTH // mode.mcu_width, cfg)
+        check(jfif.parse_jpeg(jpg_pallas).scan_data == scan,
+              "use_pallas scan is not the host pack of the card's coefficients")
+        print("phase 6b: scan equals the host pack of the card's own "
+              "coefficients", flush=True)
+    px_pallas = jpeg_tpu_torch.decode(jpg_pallas, device=dev)
+    psnr_pallas = psnr(px_pallas, img)
+    print(f"phase 6b: decode PSNR vs source {psnr_pallas:.3f} dB (default "
+          f"path {psnr_default:.3f} dB); vs the default path's decode "
+          f"{psnr(px_pallas, px):.2f} dB", flush=True)
+    check(abs(psnr_pallas - psnr_default) <= 0.1,
+          "use_pallas PSNR is more than 0.1 dB from the default path's")
+
+    # Phase 6c: optimize_tables, three ways, one set of bytes.
+    opt = dict(optimize_tables=True)
+    jpg_opt_cpu, secs = timed(lambda: jpeg_tpu_torch.encode(
+        img, QUALITY, SUBSAMPLING, device="cpu", **opt))
+    print(f"phase 6c: CPU reference optimize_tables encode {secs:.2f} s",
+          flush=True)
+    pack.LAUNCHES = 0
+    encoder.HOST_PACK_SPILLS = 0
+    jpg_opt = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev,
+                                    **opt)
+    launches_a_opt, spills = pack.LAUNCHES, encoder.HOST_PACK_SPILLS
+    jpg_opt_host = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING,
+                                         device=dev, device_pack=False, **opt)
+    print(f"phase 6c: optimize_tables 4K: {len(jpg_opt)} bytes (standard "
+          f"tables {len(jpg)}); kernel A {launches_a_opt} launches, "
+          f"{spills} spills; device pack == host pack: "
+          f"{jpg_opt == jpg_opt_host}; == CPU: {jpg_opt == jpg_opt_cpu}",
+          flush=True)
+    check(launches_a_opt >= 1, "kernel A did not launch for optimize_tables")
+    check(spills == 0, "optimize_tables spilled to the host packer")
+    check(jpg_opt == jpg_opt_host == jpg_opt_cpu,
+          "optimize_tables bytes differ between card, host pack and CPU")
+    blocks_cpu, tbl_cpu, _, _ = encoder._interleaved_blocks(
+        cimg, qy, qc, mode, 0)
+    freqs = native.count_frequencies(blocks_cpu.numpy(), tbl_cpu.numpy())
+    info_opt = jfif.parse_jpeg(jpg_opt)
+    for key, f in freqs.items():
+        want = huffman.optimal_table(f)
+        got = info_opt.htables[key]
+        check(np.array_equal(got.bits, want.bits)
+              and np.array_equal(got.vals, want.vals),
+              f"DHT table {key} is not the optimal one")
+    print(f"phase 6c: DHT tables are the optimal ones of the native symbol "
+          f"counts; longest code "
+          f"{max(int(t.size.max()) for t in info_opt.htables.values())} bits",
+          flush=True)
+    px_opt = jpeg_tpu_torch.decode(jpg_opt, device=dev)
+    check(np.array_equal(px_opt, px),
+          "optimize_tables decode differs from the standard-table decode")
+
+    # Phase 6d: an unaligned restart interval takes the host pack.
+    r = UNALIGNED_RESTART
+    n_mcu = (HEIGHT // mode.mcu_height) * (WIDTH // mode.mcu_width)
+    check(n_mcu % r != 0, f"restart {r} divides {n_mcu}")
+    jpg_r_cpu, secs = timed(lambda: jpeg_tpu_torch.encode(
+        img, QUALITY, SUBSAMPLING, r, device="cpu"))
+    jpg_r = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, r, device=dev)
+    print(f"phase 6d: restart {r} ({n_mcu} MCUs): {len(jpg_r)} bytes, equal "
+          f"to CPU: {jpg_r == jpg_r_cpu} (CPU reference {secs:.2f} s)",
+          flush=True)
+    check(jpg_r == jpg_r_cpu, "unaligned-restart bytes differ from the CPU's")
+    px_r = jpeg_tpu_torch.decode(jpg_r, device=dev)
+    check(np.array_equal(px_r, px), "restart-7 decode differs from 6's")
+
+    # Phase 6e: gray (the image's Y plane), counted.
+    gray = np.clip(np.rint(img.astype(np.float64) @ [0.299, 0.587, 0.114]),
+                   0, 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    jpg_g_cpu = jpeg_tpu_torch.encode(gray, QUALITY, device="cpu")
+    px_g_cpu = jpeg_tpu_torch.decode(jpg_g_cpu, device="cpu")
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pack.LAUNCHES = 0
+    fused.LAUNCHES = 0
+    encoder.HOST_PACK_SPILLS = 0
+    jpg_g = jpeg_tpu_torch.encode(gray, QUALITY, device=dev)
+    px_g = jpeg_tpu_torch.decode(jpg_g, device=dev)
+    torch.cuda.synchronize()
+    launches_a_g, launches_b_g = pack.LAUNCHES, fused.LAUNCHES
+    spills = encoder.HOST_PACK_SPILLS
+    diff = np.abs(px_g.astype(np.int32) - px_g_cpu.astype(np.int32))
+    ndiff = int((diff != 0).sum())
+    print(f"phase 6e: gray 4K q{QUALITY}: {len(jpg_g)} bytes, equal to CPU: "
+          f"{jpg_g == jpg_g_cpu}; launches: kernel A {launches_a_g}, kernel B "
+          f"{launches_b_g}; {spills} spills; decode vs CPU: max |diff| "
+          f"{int(diff.max())}, {ndiff} of {diff.size} differ; PSNR vs source "
+          f"{psnr(px_g, gray):.2f} dB (CPU reference {secs:.2f} s)",
+          flush=True)
+    check(jpg_g == jpg_g_cpu, "gray bytes differ from the CPU's")
+    check(launches_a_g >= 1 and launches_b_g >= 1,
+          "gray encode/decode did not launch kernels A and B")
+    check(spills == 0, "gray encode spilled to the host packer")
+    check(px_g.shape == gray.shape and px_g.dtype == np.uint8,
+          f"gray decoded {px_g.shape} {px_g.dtype}")
+    check(int(diff.max()) <= 1 and ndiff <= DIFF_SHARE * diff.size,
+          "gray decode differs from the CPU decode")
 
     # Phase 7: smaller encodes, byte-identical to the CPU path.
     for (h, w), sub, r in (((777, 1001), "444", 0), ((480, 640), "422", 0),
@@ -271,6 +516,14 @@ def run(card: str) -> dict:
         torch)
     ms_dec = median_ms_host(lambda: jpeg_tpu_torch.decode(jpg, device=dev),
                             torch)
+    ms_enc_pallas = median_ms_host(lambda: jpeg_tpu_torch.encode(
+        img, QUALITY, SUBSAMPLING, device=dev, use_pallas=True), torch)
+    ms_enc_opt = median_ms_host(lambda: jpeg_tpu_torch.encode(
+        img, QUALITY, SUBSAMPLING, device=dev, optimize_tables=True), torch)
+    ms_enc_gray = median_ms_host(
+        lambda: jpeg_tpu_torch.encode(gray, QUALITY, device=dev), torch)
+    ms_dec_gray = median_ms_host(
+        lambda: jpeg_tpu_torch.decode(jpg_g, device=dev), torch)
     luma, qluma = planes[0]
     ms_a = median_ms_device(lambda: pack.pack_level1(blocks4k, tbl4k, *luts),
                             torch)
@@ -279,15 +532,27 @@ def run(card: str) -> dict:
     ms_b = median_ms_device(lambda: fused.fused_dequant_idct(luma, qluma), torch)
     ms_b_plain = median_ms_device(
         lambda: fused.fused_dequant_idct_reference(luma, qluma), torch)
+    y_plane, qt_y = pallas_planes[0], quant.luma_table(QUALITY)
+    ms_c = median_ms_device(lambda: fused.fused_dct_quantize(y_plane, qt_y),
+                            torch)
+    ms_c_plain = median_ms_device(
+        lambda: fused.fused_dct_quantize_reference(y_plane, qt_y), torch)
     for label, ms in (
         (f"encode 4K q{QUALITY} {SUBSAMPLING} end to end", ms_enc),
         (f"decode 4K q{QUALITY} {SUBSAMPLING} end to end", ms_dec),
+        (f"encode 4K q{QUALITY} {SUBSAMPLING} use_pallas end to end",
+         ms_enc_pallas),
+        (f"encode 4K q{QUALITY} {SUBSAMPLING} optimize_tables end to end",
+         ms_enc_opt),
+        (f"encode 4K q{QUALITY} gray end to end", ms_enc_gray),
+        (f"decode 4K q{QUALITY} gray end to end", ms_dec_gray),
     ):
         print(f"phase 8: {label}: {ms:.3f} ms median of {RUNS} "
               f"({mpix / ms * 1e3:.1f} MPix/s) [{card}]", flush=True)
     for label, ms, plain in (
         (f"kernel A pack_level1, {blocks4k.shape[0]} blocks", ms_a, ms_a_plain),
         (f"kernel B idct8, {tuple(luma.shape)} plane", ms_b, ms_b_plain),
+        (f"kernel C dct8, {tuple(y_plane.shape)} plane", ms_c, ms_c_plain),
     ):
         print(f"phase 8: {label}: {ms:.4f} ms; plain twin on the card "
               f"{plain:.4f} ms; median of {RUNS} [{card}]", flush=True)
@@ -303,6 +568,11 @@ def run(card: str) -> dict:
          "replaces": "jpeg_tpu/ops/fused.py:69",
          "launches": launches_b, "max_abs_err": err_b,
          "ms": ms_b, "plain_ms": ms_b_plain},
+        {"name": "dct8", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/dct8.cu",
+         "replaces": "jpeg_tpu/ops/fused.py:45",
+         "launches": launches_c, "max_abs_err": err_c,
+         "ms": ms_c, "plain_ms": ms_c_plain},
     ]}
 
 

@@ -5,9 +5,13 @@
   (kernel B, ops/fused), round and clip, chroma upsample, YCbCr -> RGB,
   round and clip to uint8; host: crop.
 
-The port covers 3-component, single-scan, interleaved baseline streams whose
-components use Huffman table ids 0/1. Other streams and options raise
-NotImplementedError naming the ROADMAP.md item that will bring them.
+Gray (1-component) baseline streams take the same route with one block per
+MCU and no colour map (jpeg_tpu's dense _finish_gray).
+
+The port covers 1-component and 3-component single-scan (interleaved)
+baseline streams whose components use Huffman table ids 0/1. Other streams
+and options raise NotImplementedError naming the ROADMAP.md item that will
+bring them.
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
     return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
 
 
+def _finish_gray(zz, qy, shape):
+    return _reconstruct_plane(zz, qy, shape).to(torch.uint8)
+
+
 def upsample_choices(width: int, components, hmax: int,
                      fancy_requested: bool) -> tuple:
     """Per-component fancy-vs-replication choice, mirroring libjpeg's
@@ -72,13 +80,10 @@ def upsample_choices(width: int, components, hmax: int,
 
 def _check_supported(info: jfif.FrameInfo) -> None:
     comps = info.components
-    if len(comps) == 1:
-        raise NotImplementedError(
-            "grayscale decode is not ported yet (ROADMAP.md Queue 1 item 1)")
     if len(comps) == 4:
         raise NotImplementedError(
             "CMYK/YCCK decode is not ported yet (ROADMAP.md Queue 1 item 4)")
-    if len(comps) != 3:
+    if len(comps) not in (1, 3):
         raise jfif.JpegFormatError(f"unsupported component count {len(comps)}")
     if info.progressive:
         raise NotImplementedError(
@@ -118,7 +123,8 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
            max_pixels: int | None = 2_000_000_000,
            scale_denom: int = 1, output: str = "rgb",
            device_output: bool = False) -> np.ndarray:
-    """Decode JPEG bytes to (H, W, 3) RGB uint8, running the IDCT, upsample
+    """Decode JPEG bytes to (H, W, 3) RGB uint8 (or (H, W) uint8 for a gray
+    stream), running the IDCT, upsample
     and colour map on `device` ("cuda" by default; "cpu" runs the plain
     twins). Entropy decoding runs in the native C++ runtime on the host.
 
@@ -142,6 +148,21 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         )
     _check_supported(info)
     comps = info.components
+    if len(comps) == 1:
+        # Non-interleaved single-component scan: MCU = one block (spec
+        # A.2.2), so scan order is raster order.
+        c0 = comps[0]
+        mcu_rows = layout.ceil_div(info.height, 8)
+        mcu_cols = layout.ceil_div(info.width, 8)
+        zz = native.decode_scan(
+            info.scan_data, mcu_rows * mcu_cols, [(0, 1, c0.dc_id, c0.ac_id)],
+            info.htables, info.restart_interval,
+        )[0]
+        qy = torch.as_tensor(info.qtables[c0.qtab_id], dtype=torch.float32,
+                             device=device)
+        out = _finish_gray(torch.as_tensor(zz, device=device), qy,
+                           (mcu_rows, mcu_cols))
+        return out[: info.height, : info.width].cpu().numpy()
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     mcu_rows = layout.ceil_div(info.height, 8 * vmax)

@@ -1,14 +1,24 @@
-"""The encoder pipeline: RGB array or BMP -> baseline JFIF JPEG bytes.
+"""The encoder pipeline: RGB or gray array, or BMP -> baseline JFIF JPEG
+bytes.
 
+Device pack (the default):
   device: edge pad -> exact integer transform (ops/mcu_conv) -> DC DPCM ->
-  packer level 1 (kernel A, ops/pack) -> level-2 placement per restart
-  segment; host: native finalize (trim, 1-pad, 0xFF stuffing, RSTn) -> JFIF.
+  [symbol histograms -> optimal tables, for optimize_tables] -> packer
+  level 1 (kernel A, ops/pack) -> level-2 placement per restart segment;
+  host: native finalize (trim, 1-pad, 0xFF stuffing, RSTn) -> JFIF.
+Host pack (device_pack=False, use_pallas=True, or a restart interval that
+does not divide the MCU count):
+  device: edge pad -> exact integer transform, or colour + downsample +
+  fused DCT/quantize (kernel C, ops/fused) for use_pallas -> coefficient
+  download; host: raster -> scan order, DC DPCM, MCU interleave, native
+  packer (native symbol counts -> optimal tables first, for optimize_tables)
+  -> JFIF.
 
-This is the device-pack path of jpeg_tpu/models/encoder.py with the Pallas
-level-1 packer (`use_pallas_pack=True`); it emits the same bytes as the JAX
-package's exact transform + Pallas packer chain. A block over the packer's
-288-bit budget (or a segment over its word capacity) spills the whole scan
-to the native host packer, counted in HOST_PACK_SPILLS.
+The device pack is jpeg_tpu/models/encoder.py's with the Pallas level-1
+packer (`use_pallas_pack=True`); both paths emit the same bytes as the JAX
+package's exact transform chains. A block over the packer's 288-bit budget
+(or a segment over its word capacity) spills the whole scan to the native
+host packer, counted in HOST_PACK_SPILLS.
 """
 
 from __future__ import annotations
@@ -19,7 +29,11 @@ import torch
 from jpeg_tpu_torch.config import EncodeConfig, Subsampling
 from jpeg_tpu_torch.entropy import huffman, native
 from jpeg_tpu_torch.io import bmp, jfif
-from jpeg_tpu_torch.ops import bitpack, dpcm as dpcm_ops, mcu_conv, pack, quant, tile
+from jpeg_tpu_torch.models import layout
+from jpeg_tpu_torch.ops import (
+    bitpack, color, dpcm as dpcm_ops, fused, mcu_conv, pack, quant, subsample,
+    symbols, tile, zigzag,
+)
 
 # Device word-buffer capacity per segment: 8 words (256 bits) per block on
 # average, plus 2. Typical q75 blocks need ~30-100 bits.
@@ -46,23 +60,139 @@ def _interleaved_blocks(rgb, qy, qc, mode: Subsampling, restart_mcus: int):
     return blocks.reshape(-1, 64), tbl_row.repeat(n_mcu), n_mcu, hv
 
 
-def _transform_color_packed(rgb, qy, qc, luts, mode: Subsampling,
-                            restart_mcus: int):
-    """Device half of the encode: pixels -> (words (nseg, nwords) int64
-    holding uint32, totals (nseg,), ok (nseg,), blocks, tbl). Restart
-    segments must tile the MCU count evenly; an interval of at least the
-    MCU count is one segment."""
-    blocks, tbl, n_mcu, hv = _interleaved_blocks(rgb, qy, qc, mode,
-                                                 restart_mcus)
-    r = int(restart_mcus)
-    nblocks = blocks.shape[0]
+def _pack_device(blocks, tbl, luts, n_units: int, restart_units: int):
+    """Device pack of (B, 64) DPCM'd blocks: kernel A (level 1), then level
+    2 per restart segment -> (words (nseg, nwords) int64 holding uint32,
+    totals (nseg,), ok (nseg,)). The segments must tile the n_units MCUs
+    evenly; an interval of 0, or of at least n_units, is one segment."""
+    r = int(restart_units)
     buf, t_b = pack.pack_level1(blocks, tbl, *luts)
-    nseg = 1 if r == 0 or r >= n_mcu else n_mcu // r
-    seg_blocks = nblocks // nseg
+    nseg = 1 if r == 0 or r >= n_units else n_units // r
+    seg_blocks = blocks.shape[0] // nseg
     nwords = seg_blocks * WORDS_PER_BLOCK + 2
-    words, totals, ok = pack.pack_level2(
+    return pack.pack_level2(
         buf.reshape(nseg, seg_blocks, -1), t_b.reshape(nseg, seg_blocks), nwords)
-    return words, totals, ok, blocks, tbl
+
+
+def _optimal_tables(hists) -> dict:
+    """[dc_luma, ac_luma(, dc_chroma, ac_chroma)] symbol histograms ->
+    {(is_ac, id): optimal HuffTable}."""
+    keys = ((0, 0), (1, 0), (0, 1), (1, 1))
+    return {k: huffman.optimal_table(h.cpu().numpy())
+            for k, h in zip(keys, hists)}
+
+
+def _color_hists(blocks, n_mcu: int, hv: int):
+    """Device symbol histograms of the interleaved DPCM'd blocks:
+    [dc_luma, ac_luma, dc_chroma, ac_chroma] (jpeg_tpu's
+    _transform_color_hists)."""
+    per_mcu = blocks.reshape(n_mcu, hv + 2, 64)
+    dc_l, ac_l = symbols.symbol_histogram(per_mcu[:, :hv].reshape(-1, 64))
+    dc_c1, ac_c1 = symbols.symbol_histogram(per_mcu[:, hv])
+    dc_c2, ac_c2 = symbols.symbol_histogram(per_mcu[:, hv + 1])
+    return dc_l, ac_l, dc_c1 + dc_c2, ac_c1 + ac_c2
+
+
+def _device_luts(htables: dict, device) -> tuple:
+    return tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                 for a in bitpack.luts_from_tables(htables))
+
+
+def _finish_device_pack(words, totals, ok, blocks, tbl, htables,
+                        restart_interval: int, bpm: int) -> bytes:
+    """Scan bytes of a device pack: one sliced download of the words and the
+    native finalize, or, when level 2 reported an overflow, the native host
+    packer over the same coefficients (counted in HOST_PACK_SPILLS)."""
+    global HOST_PACK_SPILLS
+    if bool(ok.all()):
+        totals_np = totals.cpu().numpy()
+        maxw = (int(totals_np.max()) + 31) // 32
+        w_host = words[:, :maxw].cpu().numpy().astype(np.uint32)
+        return bitpack.finalize_stream(w_host, totals_np)
+    HOST_PACK_SPILLS += 1
+    return native.encode_scan(
+        blocks.cpu().numpy(), tbl.cpu().numpy(), htables,
+        restart_interval=restart_interval, blocks_per_mcu=bpm)
+
+
+def _pallas_planes(rgb, mode: Subsampling):
+    """uint8 (H, W, 3) tensor, MCU-aligned -> the (y, cb, cr) f32 planes
+    that the use_pallas path hands fused_dct_quantize: colour, the -128
+    shift, chroma downsample, then +128 back, since the fused transform
+    shifts by -128 itself (jpeg_tpu's order)."""
+    y, cb, cr = color.rgb_to_ycbcr_planes(rgb)
+    cb = subsample.downsample_plane(cb - 128.0, mode)
+    cr = subsample.downsample_plane(cr - 128.0, mode)
+    return (y - 128.0) + 128.0, cb + 128.0, cr + 128.0
+
+
+def _transform_color(rgb, qy, qc, mode: Subsampling, use_pallas: bool = False):
+    """uint8 (H, W, 3) tensor, MCU-aligned -> (y_zz, cb_zz, cr_zz) int32
+    (B, 64) zig-zag blocks in raster block order per component.
+
+    The default path is the exact integer transform (ops/mcu_conv), whose
+    luma comes out in MCU scan order and is reordered to raster here.
+    use_pallas routes the level shift + DCT + quantize through
+    fused_dct_quantize (kernel C on the card) instead; its coefficients may
+    differ from the exact path by 1 at .5 boundaries. The f32 arithmetic
+    follows jpeg_tpu's order, (y - 128) + 128 included: that round trip is
+    not the identity in f32."""
+    if use_pallas:
+        y, cb, cr = _pallas_planes(rgb, mode)
+
+        def plane_to_zz(plane, qtab):
+            qp = fused.fused_dct_quantize(plane, qtab)
+            return zigzag.to_zigzag(tile.blockify(qp)).reshape(-1, 64)
+
+        return plane_to_zz(y, qy), plane_to_zz(cb, qc), plane_to_zz(cr, qc)
+
+    hf, vf = mode.h_factor, mode.v_factor
+    hv = hf * vf
+    rows = rgb.shape[0] // mode.mcu_height
+    cols = rgb.shape[1] // mode.mcu_width
+    blocks = mcu_conv._mcu_transform_int(rgb, qy, qc, mode)
+    # Luma: MCU scan order -> plane raster order (one permute).
+    y_zz = blocks[:, :hv].reshape(rows, cols, vf, hf, 64).permute(
+        0, 2, 1, 3, 4).reshape(-1, 64)
+    return y_zz, blocks[:, hv], blocks[:, hv + 1]
+
+
+def _dpcm_host(dc: np.ndarray, reset_every: int) -> np.ndarray:
+    prev = np.concatenate([[0], dc[:-1]])
+    if reset_every:
+        prev[np.arange(len(dc)) % reset_every == 0] = 0
+    return dc - prev
+
+
+def interleave_mcus(y_scan, cb_scan, cr_scan, hv: int):
+    """Merge per-component scan-order blocks into one interleaved (B, 64)
+    int32 array plus the per-block table-id array (0 luma / 1 chroma).
+    int32 is the native packer's ABI, so it reads the array without a copy."""
+    n_mcu = cb_scan.shape[0]
+    bpm = hv + 2
+    blocks = np.empty((n_mcu, bpm, 64), dtype=np.int32)
+    blocks[:, :hv] = y_scan.reshape(n_mcu, hv, 64)
+    blocks[:, hv] = cb_scan
+    blocks[:, hv + 1] = cr_scan
+    tbl = np.zeros((n_mcu, bpm), dtype=np.uint8)
+    tbl[:, hv:] = 1
+    return blocks.reshape(-1, 64), tbl.reshape(-1)
+
+
+def _pack_scan(blocks, tbl, cfg: EncodeConfig, bpm: int):
+    """Entropy-pack one scan on the host with the native packer, with the
+    standard tables or, for optimize_tables, the optimal tables of the
+    native symbol counts -> (scan bytes, tables)."""
+    if cfg.optimize_tables:
+        freqs = native.count_frequencies(blocks, tbl)
+        htables = {k: huffman.optimal_table(v) for k, v in freqs.items()}
+    else:
+        htables = huffman.standard_tables()
+    scan = native.encode_scan(
+        blocks, tbl, htables,
+        restart_interval=cfg.restart_interval, blocks_per_mcu=bpm,
+    )
+    return scan, htables
 
 
 def _normalize_image(image) -> np.ndarray:
@@ -92,46 +222,104 @@ def _color_components(mode: Subsampling):
     ]
 
 
+def _quant_tables(cfg: EncodeConfig, quant_tables):
+    if quant_tables is not None:
+        return quant_tables
+    return quant.luma_table(cfg.quality), quant.chroma_table(cfg.quality)
+
+
+def _host_pack_color(y_zz, cb_scan, cr_scan, mcu_rows: int, mcu_cols: int,
+                     cfg: EncodeConfig):
+    """Host half of the colour encode: the three int32 (B, 64) zig-zag
+    coefficient arrays of _transform_color, downloaded (the caller's own:
+    they are modified in place) -> (scan bytes, tables). Raster -> scan
+    order, DC DPCM, MCU interleave, native packer."""
+    mode = cfg.subsampling
+    r = cfg.restart_interval
+    hv = mode.h_factor * mode.v_factor
+    y_scan = y_zz[layout.mcu_scan_permutation(
+        mcu_rows, mcu_cols, mode.v_factor, mode.h_factor)]
+    # Chroma sampling is (1, 1): raster order is scan order.
+    y_scan[:, 0] = _dpcm_host(y_scan[:, 0], r * hv)
+    cb_scan[:, 0] = _dpcm_host(cb_scan[:, 0], r)
+    cr_scan[:, 0] = _dpcm_host(cr_scan[:, 0], r)
+    blocks, tbl = interleave_mcus(y_scan, cb_scan, cr_scan, hv)
+    return _pack_scan(blocks, tbl, cfg, hv + 2)
+
+
 def _encode_color(image: np.ndarray, cfg: EncodeConfig, comment,
-                  quant_tables, device) -> bytes:
-    global HOST_PACK_SPILLS
+                  quant_tables, device, device_pack: bool,
+                  use_pallas: bool) -> bytes:
     h0, w0 = image.shape[:2]
     mode = cfg.subsampling
     img = tile.pad_to_multiple(
         torch.as_tensor(np.ascontiguousarray(image), device=device),
         mode.mcu_height, mode.mcu_width)
-    if quant_tables is not None:
-        qy_np, qc_np = quant_tables
-    else:
-        qy_np, qc_np = quant.luma_table(cfg.quality), quant.chroma_table(cfg.quality)
-
+    qy_np, qc_np = _quant_tables(cfg, quant_tables)
     r = cfg.restart_interval
-    n_mcu = (img.shape[0] // mode.mcu_height) * (img.shape[1] // mode.mcu_width)
-    if r and r < n_mcu and n_mcu % r:
-        raise NotImplementedError(
-            f"restart_interval={r} does not divide the {n_mcu} MCUs; unaligned "
-            "restart intervals need the host-pack path, not ported yet "
-            "(ROADMAP.md Queue 1 item 2)")
-    htables = huffman.standard_tables()
-    luts = tuple(torch.as_tensor(a.astype(np.int32), device=img.device)
-                 for a in bitpack.luts_from_tables(htables))
-    words, totals, ok, blocks, tbl = _transform_color_packed(
-        img, qy_np, qc_np, luts, mode, r)
-    if bool(ok.all()):
-        totals_np = totals.cpu().numpy()
-        maxw = (int(totals_np.max()) + 31) // 32
-        w_host = words[:, :maxw].cpu().numpy().astype(np.uint32)
-        scan = bitpack.finalize_stream(w_host, totals_np)
+    mcu_rows = img.shape[0] // mode.mcu_height
+    mcu_cols = img.shape[1] // mode.mcu_width
+    n_mcu = mcu_rows * mcu_cols
+    hv = mode.h_factor * mode.v_factor
+    bpm = hv + 2
+
+    if device_pack and not (r and r < n_mcu and n_mcu % r):
+        blocks, tbl, _, _ = _interleaved_blocks(img, qy_np, qc_np, mode, r)
+        if cfg.optimize_tables:
+            # Pass 1: device symbol histograms -> per-image optimal tables.
+            htables = _optimal_tables(_color_hists(blocks, n_mcu, hv))
+        else:
+            htables = huffman.standard_tables()
+        words, totals, ok = _pack_device(
+            blocks, tbl, _device_luts(htables, img.device), n_mcu, r)
+        scan = _finish_device_pack(words, totals, ok, blocks, tbl, htables,
+                                   r, bpm)
     else:
-        # A block or segment overflowed the device budget: host-pack the
-        # same coefficients (the designed spill).
-        HOST_PACK_SPILLS += 1
-        scan = native.encode_scan(
-            blocks.cpu().numpy(), tbl.cpu().numpy(), htables,
-            restart_interval=r, blocks_per_mcu=mode.blocks_per_mcu)
+        # Host pack: download the three coefficient planes and pack them on
+        # the host.
+        scan, htables = _host_pack_color(
+            *(a.cpu().numpy() for a in _transform_color(img, qy_np, qc_np,
+                                                        mode, use_pallas)),
+            mcu_rows, mcu_cols, cfg)
     return jfif.write_jpeg(
         w0, h0, _color_components(mode), {0: qy_np, 1: qc_np},
         htables, scan, restart_interval=r, comment=comment,
+    )
+
+
+def _encode_gray(image: np.ndarray, cfg: EncodeConfig, comment,
+                 quant_tables, device, device_pack: bool) -> bytes:
+    """One component, one block per MCU. The transform is the exact integer
+    one on every device (the port has no staged float CPU path); the device
+    pack is kernel A with every table id 0 and level 2 per segment, under
+    the same 288-bit per-block budget as jpeg_tpu's gray pack."""
+    h0, w0 = image.shape
+    img = tile.pad_to_multiple(
+        torch.as_tensor(np.ascontiguousarray(image), device=device), 8, 8)
+    qy_np = _quant_tables(cfg, quant_tables)[0]
+    r = cfg.restart_interval
+    zz = mcu_conv.gray_transform_int(img, qy_np)  # raster == scan order
+    nblocks = zz.shape[0]
+    if device_pack and not (r and r < nblocks and nblocks % r):
+        zz[:, 0] = dpcm_ops.dpcm(zz[:, 0], r)
+        tbl = torch.zeros(nblocks, dtype=torch.int32, device=zz.device)
+        if cfg.optimize_tables:
+            all_tables = _optimal_tables(symbols.symbol_histogram(zz))
+        else:
+            all_tables = huffman.standard_tables()
+        words, totals, ok = _pack_device(
+            zz, tbl, _device_luts(all_tables, zz.device), nblocks, r)
+        scan = _finish_device_pack(words, totals, ok, zz, tbl, all_tables,
+                                   r, 1)
+    else:
+        blocks = zz.cpu().numpy()
+        blocks[:, 0] = _dpcm_host(blocks[:, 0], r)
+        scan, all_tables = _pack_scan(
+            blocks, np.zeros(nblocks, dtype=np.uint8), cfg, 1)
+    htables = {(0, 0): all_tables[(0, 0)], (1, 0): all_tables[(1, 0)]}
+    return jfif.write_jpeg(
+        w0, h0, [jfif.ComponentSpec(1, 1, 1, 0, 0, 0)], {0: qy_np}, htables,
+        scan, restart_interval=r, comment=comment,
     )
 
 
@@ -142,30 +330,48 @@ def encode(
     restart_interval: int | None = None,
     optimize_tables: bool = False,
     comment: str | None = None,
+    device_pack: bool | None = None,
     quant_tables=None,
+    use_pallas: bool = False,
+    use_pallas_pack: bool = False,
     device="cuda",
 ) -> bytes:
-    """Encode an (H, W, 3) RGB uint8 array (or a .bmp path / BMP bytes) to
-    baseline JFIF JPEG bytes, running the transform and the bit packer on
-    `device` ("cuda" by default; "cpu" runs the plain twins)."""
-    if optimize_tables:
-        raise NotImplementedError(
-            "optimize_tables is not ported yet (ROADMAP.md Queue 1 item 2)")
+    """Encode an (H, W, 3) RGB or (H, W) grayscale uint8 array (or a .bmp
+    path / BMP bytes) to baseline JFIF JPEG bytes, running the transform and
+    the bit packer on `device` ("cuda" by default; "cpu" runs the plain
+    twins).
+
+    device_pack: pack the scan on the device (kernel A + level 2); None means
+    True. False, or a restart interval that does not divide the MCU count,
+    downloads the coefficients and packs on the host (native C++). Both emit
+    the same bytes.
+    use_pallas: run level shift + DCT + quantize through fused_dct_quantize
+    (kernel C) instead of the exact integer transform; forces the host pack.
+    Colour only, as in jpeg_tpu.
+    use_pallas_pack: accepted for parity with jpeg_tpu.encode; the port has
+    one device packer (kernel A), whose bytes equal both of jpeg_tpu's."""
+    del use_pallas_pack
     cfg = EncodeConfig(
         quality=quality,
         subsampling=subsampling,
         restart_interval=0 if restart_interval is None else restart_interval,
+        optimize_tables=optimize_tables,
     )
     if isinstance(image, (str, bytes)):
         image = bmp.read_bmp(image) if isinstance(image, str) else bmp.decode_bmp(image)
     image = _normalize_image(image)
     quant_tables = _normalize_quant_tables(quant_tables)
+    device = torch.device(device)
+    if device_pack is None:
+        device_pack = True
     if image.ndim == 2:
-        raise NotImplementedError(
-            "grayscale encode is not ported yet (ROADMAP.md Queue 1 item 1)")
+        return _encode_gray(image, cfg, comment, quant_tables, device,
+                            device_pack)
     if image.ndim == 3 and image.shape[2] == 3:
-        return _encode_color(image, cfg, comment, quant_tables,
-                             torch.device(device))
+        if use_pallas:
+            device_pack = False  # the fused DCT path feeds the host packer
+        return _encode_color(image, cfg, comment, quant_tables, device,
+                             device_pack, use_pallas)
     raise ValueError(f"expected (H, W, 3) or (H, W) image, got {image.shape}")
 
 

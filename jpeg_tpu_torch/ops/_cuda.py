@@ -27,6 +27,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+_name_locks: dict = {}
 _libs: dict = {}
 # name -> (build seconds, nvcc/ptxas output) for kernels built by this process.
 BUILD_LOG: dict = {}
@@ -62,8 +63,14 @@ def _build(name: str, src: pathlib.Path, lib_path: pathlib.Path) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes library of kernel `name`, built on first use."""
+    """The ctypes library of kernel `name`, built on first use. Threads
+    loading different kernels build them in parallel."""
     with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

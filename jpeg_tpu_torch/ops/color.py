@@ -1,5 +1,5 @@
-"""YCbCr <-> RGB (BT.601 full-range, JFIF) constants and the decode-side
-colour map."""
+"""YCbCr <-> RGB (BT.601 full-range, JFIF) constants, the encode-side planes
+of the fused DCT path and the decode-side colour map."""
 
 from __future__ import annotations
 
@@ -26,6 +26,19 @@ YCBCR_TO_RGB = np.array(
     ],
     dtype=np.float32,
 )
+
+
+def rgb_to_ycbcr_planes(rgb: torch.Tensor):
+    """(H, W, 3) RGB in [0,255] -> three (H, W) float32 planes (y, cb, cr).
+
+    The FMA-chain form of jpeg_tpu's rgb_to_ycbcr_planes: the same f32
+    constants, multiplied and summed left to right in the same order."""
+    x = rgb.to(torch.float32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0
+    return y, cb, cr
 
 
 def ycbcr_to_rgb(ycc: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,19 @@
-"""Fused dequantize + 8x8 IDCT + level unshift over an image-layout plane.
+"""Fused 8x8 transforms over image-layout planes: level shift + DCT +
+quantize (encode) and dequantize + IDCT + level unshift (decode).
 
-Counterpart of jpeg_tpu/ops/fused.py fused_dequant_idct. On a CUDA tensor it
-launches the hand-written kernel csrc/idct8.cu (kernel B), which replaces the
-Pallas kernel fused._idct8_kernel (pallas_call at fused.py:121) and does the
-whole 2-D transform in one pass; on a CPU tensor it runs the plain twin
-fused_dequant_idct_reference. The kernel's source note says what bounds it
-on the card. The f32 summation order differs between the two, so they agree
-to |diff| <= 1e-2 (the bound of tests/test_fused.py), not bit for bit.
+Counterparts of jpeg_tpu/ops/fused.py fused_dct_quantize and
+fused_dequant_idct. On a CUDA tensor each launches a hand-written kernel
+that does the whole 2-D transform in one pass:
+  - kernel C, csrc/dct8.cu, replaces the Pallas kernel fused._dct8_kernel
+    (pallas_call at fused.py:101);
+  - kernel B, csrc/idct8.cu, replaces fused._idct8_kernel (pallas_call at
+    fused.py:121).
+On a CPU tensor each runs its plain twin (fused_dct_quantize_reference,
+fused_dequant_idct_reference). The kernels' source notes say what bounds
+them on the card. The f32 summation order differs between a kernel and its
+twin, so they agree to the bounds of tests/test_fused.py, not bit for bit:
+quantized coefficients within 1 in at most max(8, 5e-4 n) places; IDCT
+samples to |diff| <= 1e-2.
 """
 
 from __future__ import annotations
@@ -16,11 +23,13 @@ import functools
 
 import torch
 
-from jpeg_tpu_torch.ops import _cuda
+from jpeg_tpu_torch.ops import _cuda, mcu_conv, quant
 from jpeg_tpu_torch.ops.dct import dct_basis
 
-# Kernel launches since the last reset (plus one per launch, nowhere else).
+# Kernel B launches since the last reset (plus one per launch, nowhere else).
 LAUNCHES = 0
+# Kernel C launches since the last reset (plus one per launch, nowhere else).
+DCT_LAUNCHES = 0
 
 
 @functools.cache
@@ -29,11 +38,65 @@ def _basis(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(dct_basis(), device=device).reshape(64)
 
 
-def _check_plane(coeffs: torch.Tensor) -> None:
-    if coeffs.ndim != 2 or coeffs.shape[0] % 8 or coeffs.shape[1] % 8:
+def _check_plane(plane: torch.Tensor) -> None:
+    if plane.ndim != 2 or plane.shape[0] % 8 or plane.shape[1] % 8:
         raise ValueError(
-            f"coefficient plane must be (H, W) with H, W multiples of 8, got "
-            f"{tuple(coeffs.shape)}")
+            f"plane must be (H, W) with H, W multiples of 8, got "
+            f"{tuple(plane.shape)}")
+
+
+def fused_dct_quantize_reference(plane: torch.Tensor, qtable) -> torch.Tensor:
+    """Plain twin (any device): -128, D x D^T per block (vertical then
+    horizontal contraction), true division by the (8, 8) table (row =
+    vertical frequency), round half away from zero -> (H, W) int32."""
+    _check_plane(plane)
+    if plane.device.type == "cuda":
+        mcu_conv._require_full_f32()  # the einsums below must not run in TF32
+    h, w = plane.shape
+    d = _basis(plane.device).reshape(8, 8)
+    x = (plane.to(torch.float32) - 128.0).reshape(h // 8, 8, w // 8, 8)
+    t = torch.einsum("uy,aybx->aubx", d, x)
+    coef = torch.einsum("aubx,vx->aubv", t, d).reshape(h, w)
+    return quant.quantize_plane(coef, qtable)
+
+
+def _fused_dct_quantize_cuda(plane: torch.Tensor, qtable) -> torch.Tensor:
+    global DCT_LAUNCHES
+    _check_plane(plane)
+    dev = plane.device
+    h, w = plane.shape
+    x = plane.to(torch.float32).contiguous()
+    q = torch.as_tensor(qtable, dtype=torch.float32, device=dev).reshape(
+        64).contiguous()
+    d = _basis(dev)
+    out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    if h == 0 or w == 0:
+        return out
+    lib = _cuda.load("dct8")
+    with torch.cuda.device(dev):
+        err = lib.jt_dct8(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
+            ctypes.c_void_p(d.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
+    _cuda.check("dct8", err)
+    DCT_LAUNCHES += 1
+    return out
+
+
+def fused_dct_quantize(plane: torch.Tensor, qtable) -> torch.Tensor:
+    """(H, W) pixel plane (float, H and W multiples of 8) + (8, 8) quant
+    table (array, or a tensor on the plane's device) -> (H, W) int32
+    quantized coefficients in image layout: quantize_plane of the 8x8 DCT of
+    plane - 128.
+
+    CUDA tensors launch kernel C (csrc/dct8.cu); CPU tensors run the plain
+    twin. Any other device raises."""
+    kind = plane.device.type
+    if kind == "cpu":
+        return fused_dct_quantize_reference(plane, qtable)
+    if kind == "cuda":
+        return _fused_dct_quantize_cuda(plane, qtable)
+    raise ValueError(f"fused_dct_quantize: unsupported device {plane.device}")
 
 
 def fused_dequant_idct_reference(coeffs: torch.Tensor, qtable) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The whole encoder transform as ONE integer-exact matmul.
+"""The whole encoder transform as ONE integer-exact matmul (colour, and
+the single-plane gray twin).
 
 Color conversion, the -128 level shift, chroma box subsampling, the 2-D DCT
 and the zig-zag permutation are all linear (or affine) maps from an MCU's
@@ -25,7 +26,7 @@ import torch
 
 from jpeg_tpu_torch import tables
 from jpeg_tpu_torch.config import Subsampling
-from jpeg_tpu_torch.ops import color, dct
+from jpeg_tpu_torch.ops import color, dct, tile
 
 
 @functools.cache
@@ -171,3 +172,55 @@ def _mcu_transform_int(rgb: torch.Tensor, qy, qc, mode: Subsampling):
     q0 = (2 * torch.abs(acc) + d) // (2 * d)
     q = torch.where(acc < 0, -q0, q0)
     return q.reshape(-1, hv + 2, 64)
+
+
+@functools.cache
+def gray_kernel_int() -> tuple[np.ndarray, np.ndarray]:
+    """Integer fixed-point kernel of the single-plane (gray) transform:
+    (k_hilo (64, 128) f32-storing-integers, bias_int (64,) int32). Same
+    scale, split and exactness contract as mcu_kernel_int; the -128 level
+    shift folds into the DC bias (-1024 * 2^S)."""
+    d8 = dct.dct_basis().astype(np.float64)
+    zz = np.kron(d8, d8)[np.asarray(tables.ZIGZAG_ORDER)]  # (64k, 64px)
+    k_int = np.rint(zz.T * (1 << _INT_SCALE_BITS))  # (px, k)
+    k_hi = np.rint(k_int / (1 << _HI_SHIFT))
+    k_lo = k_int - k_hi * (1 << _HI_SHIFT)
+    assert np.abs(k_hi).max() <= 256 and np.abs(k_lo).max() <= 1 << (
+        _HI_SHIFT - 1
+    )
+    for half in (k_hi, k_lo):
+        assert np.abs(half).sum(axis=0).max() * 255.0 < 2 ** 24
+    bias = np.zeros(64, dtype=np.float64)
+    bias[0] = -1024.0 * (1 << _INT_SCALE_BITS)
+    return (np.concatenate([k_hi, k_lo], axis=1).astype(np.float32),
+            np.rint(bias).astype(np.int32))
+
+
+@functools.cache
+def _gray_device_kernel(device: torch.device):
+    """kernel_to_torch(*gray_kernel_int(), device), uploaded once."""
+    return kernel_to_torch(*gray_kernel_int(), device)
+
+
+def gray_transform_int(plane: torch.Tensor, qy) -> torch.Tensor:
+    """uint8 (H, W) tensor, 8-aligned, + (8, 8) raster quant table ->
+    (B, 64) int32 quantized zig-zag blocks in raster block order, on the
+    plane's device: the gray twin of _mcu_transform_int (one full-f32
+    matmul of integer operands, exact integer combine and quantizer), so
+    bit-identical to jpeg_tpu's gray_transform_int on every device."""
+    _require_full_f32()
+    device = plane.device
+    kern, bias = _gray_device_kernel(device)
+    flat = tile.blockify(plane).reshape(-1, 64)
+    out = torch.matmul(flat.to(torch.float32), kern)
+    acc = (
+        out[:, :64].to(torch.int32) * (1 << _HI_SHIFT)
+        + out[:, 64:].to(torch.int32)
+        + bias
+    )
+    order = np.asarray(tables.ZIGZAG_ORDER)
+    d = torch.as_tensor(
+        np.asarray(qy).reshape(64)[order].astype(np.int32), device=device
+    ) << _INT_SCALE_BITS
+    q0 = (2 * torch.abs(acc) + d) // (2 * d)
+    return torch.where(acc < 0, -q0, q0)

@@ -1,10 +1,12 @@
 """Quantization tables as pure functions of quality (the IJG scaling in
-jpeg_tpu_torch.tables). Quantization itself is exact integer arithmetic
-inside ops/mcu_conv; dequantization is folded into ops/fused."""
+jpeg_tpu_torch.tables), and the float quantizer of the fused DCT path.
+The default path quantizes in exact integer arithmetic inside ops/mcu_conv;
+dequantization is folded into ops/fused."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from jpeg_tpu_torch import tables
 
@@ -15,3 +17,17 @@ def luma_table(quality: int) -> np.ndarray:
 
 def chroma_table(quality: int) -> np.ndarray:
     return tables.quality_scaled_table(tables.QUANT_CHROMA, quality)
+
+
+def round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """Round to nearest, ties away from zero (the canonical pipeline rounding)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def quantize_plane(coeffs: torch.Tensor, qtable) -> torch.Tensor:
+    """Image-layout (H, W) f32 coefficient plane / (8, 8) table tiled over
+    blocks, true division, round half away -> (H, W) int32."""
+    h, w = coeffs.shape
+    q = torch.as_tensor(qtable, dtype=torch.float32, device=coeffs.device)
+    q = q.reshape(8, 8).repeat(h // 8, w // 8)
+    return round_half_away(coeffs / q).to(torch.int32)

@@ -1,9 +1,34 @@
-"""Decode-side chroma upsampling: pixel replication and libjpeg-style
-triangular ("fancy") interpolation, on tensors."""
+"""Chroma box downsampling (encode side, fused DCT path) and decode-side
+upsampling: pixel replication and libjpeg-style triangular ("fancy")
+interpolation, on tensors."""
 
 from __future__ import annotations
 
 import torch
+
+from jpeg_tpu_torch.config import Subsampling
+
+
+def downsample_plane(plane: torch.Tensor, mode: Subsampling) -> torch.Tensor:
+    """(H, W) chroma plane -> box-averaged (H/v, W/h) f32 plane. H, W must
+    divide the factors.
+
+    The taps are summed one at a time in row-major order, then divided by
+    their count: the f32 order of jpeg_tpu's jnp.mean on the CPU, which
+    torch's own mean does not keep for 2x2 boxes (an ulp apart)."""
+    h, w = plane.shape
+    fh, fw = mode.v_factor, mode.h_factor
+    if fh == 1 and fw == 1:
+        return plane
+    if h % fh or w % fw:
+        raise ValueError(f"plane {(h, w)} does not divide {mode}")
+    x = plane.to(torch.float32).reshape(h // fh, fh, w // fw, fw)
+    acc = x[:, 0, :, 0]
+    for a in range(fh):
+        for b in range(fw):
+            if a or b:
+                acc = acc + x[:, a, :, b]
+    return acc / float(fh * fw)
 
 
 def _triangle_axis(plane: torch.Tensor, axis: int) -> torch.Tensor:

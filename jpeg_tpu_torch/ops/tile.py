@@ -21,6 +21,14 @@ def pad_to_multiple(img: torch.Tensor, mult_h: int, mult_w: int) -> torch.Tensor
     return img
 
 
+def blockify(plane: torch.Tensor) -> torch.Tensor:
+    """(H, W) -> (H//8, W//8, 8, 8) grid of blocks. H, W must be multiples of 8."""
+    h, w = plane.shape
+    if h % 8 or w % 8:
+        raise ValueError(f"plane {(h, w)} is not a multiple of 8")
+    return plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
+
+
 def unblockify(blocks: torch.Tensor) -> torch.Tensor:
     """(Hb, Wb, 8, 8) -> (Hb*8, Wb*8)."""
     hb, wb = blocks.shape[0], blocks.shape[1]

@@ -10,8 +10,12 @@ This file imports no jax, so it also runs where only torch is installed:
 Tolerances: kernel A (packer level 1) is exact under its contract: totals
 equal for every block, words equal for every block of at most 288 bits.
 Kernel B (dequant + IDCT) sums in another f32 order than its twin:
-|diff| <= 1e-2. Encodes on the card must equal CPU encodes byte for byte;
-decodes may differ from CPU decodes by 1 level in <= 0.5% of samples."""
+|diff| <= 1e-2. Kernel C (level shift + DCT + quantize) likewise, so a .5
+boundary may flip: quantized coefficients within 1, and differing in at
+most max(8, 5e-4 n) places (the bound of tests/test_fused.py). Encodes on
+the card must equal CPU encodes byte for byte (optimize_tables, unaligned
+restarts, the host pack and gray included); decodes may differ from CPU
+decodes by 1 level in <= 0.5% of samples."""
 
 import numpy as np
 import pytest
@@ -40,6 +44,9 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused.fused_dequant_idct(torch.zeros((8, 8), dtype=torch.int32,
                                              device="meta"), quant.luma_table(50))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.fused_dct_quantize(torch.zeros((8, 8), device="meta"),
+                                 quant.luma_table(50))
 
 
 @pytest.mark.cuda
@@ -96,6 +103,65 @@ def test_encode_decode_on_card_match_cpu(mode, shape, restart):
     got = jpeg_tpu_torch.decode(a, device="cuda")
     assert fused.LAUNCHES == launches_b + 3
     ref = jpeg_tpu_torch.decode(a, device="cpu")
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff != 0).sum() <= 0.005 * diff.size
+
+
+@pytest.mark.cuda
+def test_kernel_c_matches_plain():
+    dev = require_cuda()
+    rng = np.random.default_rng(5)
+    for shape in ((64, 128), (8, 64), (48, 40), (1080, 1928)):
+        plane = torch.as_tensor(
+            rng.integers(0, 256, size=shape).astype(np.float32), device=dev)
+        for q in (10, 75, 95):
+            qt = quant.luma_table(q)
+            before = fused.DCT_LAUNCHES
+            got = fused.fused_dct_quantize(plane, qt)
+            torch.cuda.synchronize()
+            assert fused.DCT_LAUNCHES == before + 1
+            assert got.dtype == torch.int32 and tuple(got.shape) == shape
+            ref = fused.fused_dct_quantize_reference(plane, qt)
+            diff = (got.long() - ref.long()).abs()
+            assert int(diff.max()) <= 1
+            assert int((diff != 0).sum()) <= max(8, 5e-4 * diff.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape,restart,device_pack", [
+    ("420", (144, 256), 0, True), ("444", (101, 77), 3, True),
+    ("422", (64, 96), 0, False), ("420", (128, 192), 7, None),
+])
+def test_optimize_tables_and_host_pack_on_card_match_cpu(mode, shape,
+                                                          restart,
+                                                          device_pack):
+    require_cuda()
+    img = make_image(*shape, seed=shape[1])
+    kw = dict(quality=80, subsampling=mode, restart_interval=restart,
+              optimize_tables=restart != 7, device_pack=device_pack)
+    spills = encoder.HOST_PACK_SPILLS
+    a = jpeg_tpu_torch.encode(img, device="cuda", **kw)
+    assert a == jpeg_tpu_torch.encode(img, device="cpu", **kw)
+    assert encoder.HOST_PACK_SPILLS == spills
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,restart,optimize", [
+    ((144, 256), 0, False), ((101, 77), 4, True), ((37, 53), 7, False),
+])
+def test_gray_on_card_matches_cpu(shape, restart, optimize):
+    require_cuda()
+    img = make_image(*shape, seed=shape[0])[..., 0]
+    kw = dict(quality=75, restart_interval=restart, optimize_tables=optimize)
+    spills, launches_b = encoder.HOST_PACK_SPILLS, fused.LAUNCHES
+    a = jpeg_tpu_torch.encode(img, device="cuda", **kw)
+    assert a == jpeg_tpu_torch.encode(img, device="cpu", **kw)
+    assert encoder.HOST_PACK_SPILLS == spills
+    got = jpeg_tpu_torch.decode(a, device="cuda")
+    assert fused.LAUNCHES == launches_b + 1
+    ref = jpeg_tpu_torch.decode(a, device="cpu")
+    assert got.shape == shape and got.dtype == np.uint8
     diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
     assert diff.max() <= 1
     assert (diff != 0).sum() <= 0.005 * diff.size
