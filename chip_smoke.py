@@ -12,10 +12,13 @@ Phases, each reported on its own line:
      each, all started together) and the native entropy runtime, and print
      the build seconds and ptxas resource use;
   4. kernel A (packer level 1) against its plain twin on the card: random
-     blocks at AC densities 0, 0.15 and 0.3, and the 4K image's blocks;
+     blocks at AC densities 0, 0.15 and 0.3, the adversarial blocks of
+     tests/torch_port_util.py at five ragged sizes, and the 4K image's
+     blocks at q75 and at q95 (dense);
      4b: with optimal tables of a skewed histogram (codes of 16 bits, a ZRL
      code other than the standard one);
-  5. kernel B (dequant + IDCT) against its plain twin at the 4K plane shapes;
+  5. kernel B (dequant + IDCT) against its plain twin at the 4K plane shapes
+     and on the adversarial planes of tests/torch_port_util.py;
      5b: kernel C (level shift + DCT + quantize) against its plain twin on
      the 4K Y, Cb and Cr planes at q75 and q95 and a uniform-random plane:
      |diff| <= 1, differing in at most max(8, 5e-4 n) coefficients;
@@ -35,8 +38,11 @@ Phases, each reported on its own line:
   7. smaller encodes (4:4:4 1001x777, 4:2:2, aligned restarts) byte-identical
      to the CPU path;
   8. median timings over warm runs: encode (default, use_pallas,
-     optimize_tables, gray), decode (colour, gray), each kernel and its
-     plain twin on the card.
+     optimize_tables, gray), decode (colour, gray); each kernel's wrapper
+     call and its plain twin on the card (CUDA events around one call); and
+     each kernel alone (kernel_only_us: events around a graph of 20 launches
+     on prepared buffers, L2 cold) beside the bytes it must move and the
+     time the card's memory needs for them.
 Then one JSON line of the kernels, and last {"ok": true, "device": ...}.
 Any failed phase exits 1.
 """
@@ -44,6 +50,7 @@ Any failed phase exits 1.
 from __future__ import annotations
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -58,6 +65,9 @@ QUALITY, SUBSAMPLING = 75, "420"
 WARM, RUNS = 2, 7
 DIFF_SHARE = 0.005  # decoded samples allowed to differ by 1 from the CPU path
 KERNELS = ("pack_level1", "idct8", "dct8")
+KERNEL_LAUNCHES = 20  # launches per timed replay of kernel_only_us
+COLD_BYTES = 200_000_000  # moved between two uses of a buffer; the L2 holds 50 MB
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 UNALIGNED_RESTART = 7  # does not divide the 4K 4:2:0 image's 32,400 MCUs
 
 
@@ -133,6 +143,57 @@ def median_ms_device(fn, torch):
     return statistics.median(ts)
 
 
+def rotation(nbytes: int) -> int:
+    """Buffer sets to cycle through so that a launch finds none of its
+    bytes in the L2: at least 4, and at least COLD_BYTES between reuses."""
+    return max(4, -(-COLD_BYTES // nbytes))
+
+
+def kernel_only_us(launch, nbuf: int, torch) -> float:
+    """Kernel-only device time in us. launch(i) enqueues one launch of the
+    kernel on buffer set i (0 <= i < nbuf) through the wrapper module's thin
+    launch helper, with inputs, outputs and tables prepared beforehand.
+    KERNEL_LAUNCHES launches, cycling over the buffer sets so that the L2 is
+    cold, are captured into one CUDA graph (no host time between them);
+    CUDA events time a replay, divided by the launch count; median of RUNS
+    replays."""
+    for i in range(nbuf):
+        launch(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(KERNEL_LAUNCHES):
+            launch(i % nbuf)
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end) * 1e3 / KERNEL_LAUNCHES)
+    return statistics.median(ts)
+
+
+def level1_bytes(nblocks: int) -> int:
+    """Bytes kernel A must move: per block 64 int32 coefficients and a table
+    id in, 10 words and a bit total out."""
+    return nblocks * (64 * 4 + 4 + 10 * 4 + 4)
+
+
+def plane_bytes(h: int, w: int) -> int:
+    """Bytes kernels B and C must move: 4 in and 4 out per sample."""
+    return h * w * 8
+
+
+def bound_us(nbytes: int) -> float:
+    """The least time the card's memory could take to move nbytes."""
+    return nbytes / HBM_BYTES_PER_S * 1e6
+
+
 def level1_err(got, ref, budget):
     """Kernel A's contract: totals equal everywhere, words equal for blocks
     within the budget. Returns (max |diff| over those, blocks compared)."""
@@ -206,6 +267,10 @@ def run(card: str) -> dict:
     from jpeg_tpu_torch.ops import (
         bitpack, fused, pack, quant, symbols, tile, zigzag)
 
+    # The adversarial inputs are shared with the CPU and card tests.
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    import torch_port_util as port_util
+
     dev = torch.device(DEVICE)
 
     build_all()
@@ -216,6 +281,7 @@ def run(card: str) -> dict:
     luts_np = bitpack.luts_from_tables(htables)
     luts = tuple(torch.as_tensor(a.astype(np.int32), device=dev)
                  for a in luts_np)
+    packed = pack.pack_tables(*luts)
     budget = bitpack.BLOCK_WORDS * 32
 
     # The port's own CPU path: the references for the card's bytes/pixels.
@@ -243,13 +309,27 @@ def run(card: str) -> dict:
         print(f"phase 4: kernel A vs plain, {label}: {n} blocks, max |err| {e}",
               flush=True)
         err_a, n_a = max(err_a, e), n_a + n
-    got4k = pack.pack_level1(blocks4k, tbl4k, *luts)
-    e, n = level1_err(got4k, pack.pack_level1_reference(blocks4k, tbl4k, *luts),
-                      budget)
-    over = int((got4k[1] > budget).sum())
-    print(f"phase 4: kernel A vs plain, 4K q{QUALITY} {SUBSAMPLING} blocks: {n} "
-          f"blocks ({over} over {budget} bits), max |err| {e}", flush=True)
-    err_a = max(err_a, e)
+    for n in port_util.LEVEL1_SIZES:
+        blocks_np, tbl_np = port_util.adversarial_level1_case(n, htables)
+        blocks = torch.as_tensor(blocks_np, device=dev)
+        tbl = torch.as_tensor(tbl_np, device=dev)
+        e, _ = level1_err(pack.pack_level1(blocks, tbl, *luts),
+                          pack.pack_level1_reference(blocks, tbl, *luts), budget)
+        print(f"phase 4: kernel A vs plain, adversarial blocks, B = {n}: "
+              f"max |err| {e}", flush=True)
+        err_a, n_a = max(err_a, e), n_a + n
+    blocks4k_q95, _, _, _ = encoder._interleaved_blocks(
+        dimg, quant.luma_table(95), quant.chroma_table(95), mode, 0)
+    for q, blk in ((QUALITY, blocks4k), (95, blocks4k_q95)):
+        got4k = pack.pack_level1(blk, tbl4k, *luts)
+        e, n = level1_err(got4k, pack.pack_level1_reference(blk, tbl4k, *luts),
+                          budget)
+        over = int((got4k[1] > budget).sum())
+        print(f"phase 4: kernel A vs plain, 4K q{q} {SUBSAMPLING} blocks: {n} "
+              f"blocks ({over} over {budget} bits, "
+              f"{float((blk != 0).sum()) / n:.1f} nonzeros per block), "
+              f"max |err| {e}", flush=True)
+        err_a = max(err_a, e)
     check(err_a == 0, f"kernel A disagrees with its plain twin (max {err_a})")
 
     # Phase 4b: kernel A with optimal tables whose codes reach 16 bits.
@@ -305,6 +385,14 @@ def run(card: str) -> dict:
         print(f"phase 5: kernel B vs plain, plane {tuple(coeffs.shape)}: "
               f"max |err| {e:.3g}", flush=True)
         err_b = max(err_b, e)
+    for name, coeffs_np, qt_np in port_util.adversarial_idct_planes():
+        coeffs = torch.as_tensor(coeffs_np, device=dev)
+        e = float((fused.fused_dequant_idct(coeffs, qt_np)
+                   - fused.fused_dequant_idct_reference(coeffs, qt_np)
+                   ).abs().max())
+        print(f"phase 5: kernel B vs plain, {name} {coeffs_np.shape}: "
+              f"max |err| {e:.3g}", flush=True)
+        err_b = max(err_b, e)
     check(err_b <= 1e-2, f"kernel B disagrees with its plain twin ({err_b})")
 
     # Phase 5b: kernel C vs plain on the planes the use_pallas path feeds it.
@@ -334,15 +422,19 @@ def run(card: str) -> dict:
     fused.DCT_LAUNCHES = 0
     encoder.HOST_PACK_SPILLS = 0
     jpg = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev)
+    torch.cuda.synchronize()
+    per_encode = (pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES)
     px = jpeg_tpu_torch.decode(jpg, device=dev)
     torch.cuda.synchronize()
     launches_a, launches_b = pack.LAUNCHES, fused.LAUNCHES
+    per_decode = (launches_a - per_encode[0], launches_b - per_encode[1],
+                  fused.DCT_LAUNCHES - per_encode[2])
     spills = encoder.HOST_PACK_SPILLS
-    print(f"phase 6: 4K q{QUALITY} {SUBSAMPLING}: {len(jpg)} bytes; launches: "
-          f"kernel A {launches_a}, kernel B {launches_b}; host-pack spills "
-          f"{spills}", flush=True)
-    check(launches_a >= 1, "kernel A did not launch on the main path")
-    check(launches_b >= 3, "kernel B launched fewer than 3 times")
+    print(f"phase 6: 4K q{QUALITY} {SUBSAMPLING}: {len(jpg)} bytes; launches "
+          f"(A, B, C): encode {per_encode}, decode {per_decode}; host-pack "
+          f"spills {spills}", flush=True)
+    check(per_encode == (1, 0, 0), "a default encode is one launch of kernel A")
+    check(per_decode == (0, 3, 0), "a colour decode is three launches of kernel B")
     check(spills == 0, f"{spills} host-pack spills on the main path")
     check(jpg == jpg_cpu, "CUDA encode bytes differ from the CPU encode")
     check(px.shape == (HEIGHT, WIDTH, 3) and px.dtype == np.uint8,
@@ -375,6 +467,7 @@ def run(card: str) -> dict:
                                        use_pallas=True)
     torch.cuda.synchronize()
     launches_c, launches_a_pallas = fused.DCT_LAUNCHES, pack.LAUNCHES
+    per_pallas = (launches_a_pallas, fused.LAUNCHES, launches_c)
     print(f"phase 6b: use_pallas 4K q{QUALITY} {SUBSAMPLING}: "
           f"{len(jpg_pallas)} bytes; launches: kernel C {launches_c}, "
           f"kernel A {launches_a_pallas}", flush=True)
@@ -525,8 +618,8 @@ def run(card: str) -> dict:
     ms_dec_gray = median_ms_host(
         lambda: jpeg_tpu_torch.decode(jpg_g, device=dev), torch)
     luma, qluma = planes[0]
-    ms_a = median_ms_device(lambda: pack.pack_level1(blocks4k, tbl4k, *luts),
-                            torch)
+    ms_a = median_ms_device(lambda: pack.pack_level1(
+        blocks4k, tbl4k, *luts, packed=packed), torch)  # as the encoder calls it
     ms_a_plain = median_ms_device(
         lambda: pack.pack_level1_reference(blocks4k, tbl4k, *luts), torch)
     ms_b = median_ms_device(lambda: fused.fused_dequant_idct(luma, qluma), torch)
@@ -537,6 +630,55 @@ def run(card: str) -> dict:
                             torch)
     ms_c_plain = median_ms_device(
         lambda: fused.fused_dct_quantize_reference(y_plane, qt_y), torch)
+    # Each kernel alone, on prepared buffers, beside its bound.
+    qluma_flat = qluma.reshape(64).contiguous()
+    chroma, qchroma = planes[1]
+    qchroma_flat = qchroma.reshape(64).contiguous()
+    cb_plane = pallas_planes[1]
+    qt_y_flat = torch.as_tensor(qt_y, dtype=torch.float32, device=dev).reshape(64)
+    qt_c_flat = torch.as_tensor(quant.chroma_table(QUALITY), dtype=torch.float32,
+                                device=dev).reshape(64)
+
+    def alone(inputs, out_like, launch, nbytes):
+        """kernel_only_us of launch(*inputs[i], *outputs[i]) over rotating
+        clones of the inputs and fresh outputs."""
+        nbuf = rotation(nbytes)
+        ins = [tuple(t.clone() for t in inputs) for _ in range(nbuf)]
+        outs = [tuple(torch.empty_like(t) for t in out_like)
+                for _ in range(nbuf)]
+        return kernel_only_us(lambda i: launch(*ins[i], *outs[i]), nbuf, torch)
+
+    nblk = blocks4k.shape[0]
+    bytes_a = level1_bytes(nblk)
+    bytes_y, bytes_c = plane_bytes(*luma.shape), plane_bytes(*chroma.shape)
+    a_launch = lambda b, t, buf, tot: pack._launch(b, t, packed, buf, tot)  # noqa: E731
+    us_a = alone((blocks4k.contiguous(), tbl4k), got4k, a_launch, bytes_a)
+    us_a_q95 = alone((blocks4k_q95.contiguous(), tbl4k), got4k, a_launch,
+                     bytes_a)
+    us_b = alone((luma.contiguous(),),
+                 (torch.empty_like(luma, dtype=torch.float32),),
+                 lambda c, o: fused._launch_idct(c, qluma_flat, o), bytes_y)
+    us_b_c = alone((chroma.contiguous(),),
+                   (torch.empty_like(chroma, dtype=torch.float32),),
+                   lambda c, o: fused._launch_idct(c, qchroma_flat, o), bytes_c)
+    us_c = alone((y_plane.contiguous(),),
+                 (torch.empty_like(y_plane, dtype=torch.int32),),
+                 lambda x, o: fused._launch_dct(x, qt_y_flat, o), bytes_y)
+    us_c_c = alone((cb_plane.contiguous(),),
+                   (torch.empty_like(cb_plane, dtype=torch.int32),),
+                   lambda x, o: fused._launch_dct(x, qt_c_flat, o), bytes_c)
+    for label, us, nbytes in (
+        (f"kernel A pack_level1, {nblk} blocks q{QUALITY}", us_a, bytes_a),
+        (f"kernel A pack_level1, {nblk} blocks q95", us_a_q95, bytes_a),
+        (f"kernel B idct8, {tuple(luma.shape)} plane", us_b, bytes_y),
+        (f"kernel B idct8, {tuple(chroma.shape)} plane", us_b_c, bytes_c),
+        (f"kernel C dct8, {tuple(y_plane.shape)} plane", us_c, bytes_y),
+        (f"kernel C dct8, {tuple(cb_plane.shape)} plane", us_c_c, bytes_c),
+    ):
+        print(f"phase 8: {label}: kernel-only {us:.2f} us, {nbytes} bytes, "
+              f"bound {bound_us(nbytes):.2f} us, share "
+              f"{bound_us(nbytes) / us:.3f} ({nbytes / us / 1e3:.0f} GB/s) "
+              f"[{card}]", flush=True)
     for label, ms in (
         (f"encode 4K q{QUALITY} {SUBSAMPLING} end to end", ms_enc),
         (f"decode 4K q{QUALITY} {SUBSAMPLING} end to end", ms_dec),
@@ -557,22 +699,35 @@ def run(card: str) -> dict:
         print(f"phase 8: {label}: {ms:.4f} ms; plain twin on the card "
               f"{plain:.4f} ms; median of {RUNS} [{card}]", flush=True)
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms, us, nbytes,
+              launches_per, **more):
+        """One kernel of the JSON line. Every kernel here is bound by the
+        bytes it moves; none has a single PyTorch call that computes the
+        same function, so library_ms is null."""
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_us(nbytes) / 1e3, "bound_by": "bytes",
+                "library_ms": None, "kernel_us": us, "bytes": nbytes,
+                "bound_us": bound_us(nbytes),
+                "bound_share": bound_us(nbytes) / us,
+                "launches_per": dict(zip(
+                    ("default_encode", "default_decode", "use_pallas_encode"),
+                    launches_per)), **more}
+
+    per = list(zip(per_encode, per_decode, per_pallas))  # by kernel A, B, C
     return {"kernels": [
-        {"name": "pack_level1", "route": "cuda",
-         "source": "jpeg_tpu_torch/csrc/pack_level1.cu",
-         "replaces": "jpeg_tpu/ops/pack_pallas.py:82",
-         "launches": launches_a, "max_abs_err": err_a,
-         "ms": ms_a, "plain_ms": ms_a_plain},
-        {"name": "idct8", "route": "cuda",
-         "source": "jpeg_tpu_torch/csrc/idct8.cu",
-         "replaces": "jpeg_tpu/ops/fused.py:69",
-         "launches": launches_b, "max_abs_err": err_b,
-         "ms": ms_b, "plain_ms": ms_b_plain},
-        {"name": "dct8", "route": "cuda",
-         "source": "jpeg_tpu_torch/csrc/dct8.cu",
-         "replaces": "jpeg_tpu/ops/fused.py:45",
-         "launches": launches_c, "max_abs_err": err_c,
-         "ms": ms_c, "plain_ms": ms_c_plain},
+        entry("pack_level1", "jpeg_tpu_torch/csrc/pack_level1.cu",
+              "jpeg_tpu/ops/pack_pallas.py:82", launches_a, err_a, ms_a,
+              ms_a_plain, us_a, bytes_a, per[0], kernel_us_q95=us_a_q95),
+        entry("idct8", "jpeg_tpu_torch/csrc/idct8.cu",
+              "jpeg_tpu/ops/fused.py:69", launches_b, err_b, ms_b, ms_b_plain,
+              us_b, bytes_y, per[1], kernel_us_chroma=us_b_c,
+              bytes_chroma=bytes_c, bound_us_chroma=bound_us(bytes_c)),
+        entry("dct8", "jpeg_tpu_torch/csrc/dct8.cu",
+              "jpeg_tpu/ops/fused.py:45", launches_c, err_c, ms_c, ms_c_plain,
+              us_c, bytes_y, per[2], kernel_us_chroma=us_c_c,
+              bytes_chroma=bytes_c, bound_us_chroma=bound_us(bytes_c)),
     ]}
 
 

@@ -8,76 +8,176 @@
 //
 //   out[8a+y, 8b+x] = sum_v (sum_u D[u,y] * C[8a+u, 8b+v] * Q[u,v]) * D[v,x] + 128
 //
-// Design: a thread block covers one 8-row band, 32 columns wide (four 8x8
-// blocks, 256 threads, one output sample each). Each thread loads and
-// dequantizes one coefficient (a warp reads 128 contiguous bytes of a row),
-// the vertical 8-tap pass writes a shared-memory tile, and the horizontal
-// 8-tap pass reads it back and stores one f32 sample. D (dct_basis()) and
-// the quant table sit in shared memory. A ragged right edge (W not a
-// multiple of 32) is masked.
+// Bound on the H100: memory. Per sample the kernel reads 4 bytes and writes
+// 4 (8 H W bytes per plane: 66.4 MB for the 2160x3840 Y plane, 19.8 us at
+// 3.35 TB/s; 16.6 MB, 5.0 us, for a 1080x1920 chroma plane) and does a few
+// FMAs, far below the card's ratio of FLOPs to bytes. So the design is about
+// keeping many wide loads in flight and nothing else in the way.
 //
-// Bound on the H100: memory. Per sample it reads 4 bytes and writes 4 and
-// does 16 FMAs, far below the card's ratio of FLOPs to bytes, so the design
-// goal is coalesced loads and stores and a single pass over the plane.
+// Design: one thread owns one 8x8 block, in registers, from load to store.
+// - It starts the block's 16 loads of 16 bytes (two int4 per row, 256 B in
+//   flight per thread) before it uses any of them. Neighbouring threads own
+//   neighbouring blocks of a band, so a warp's two loads of a row cover 1 KB
+//   of that row without a gap, whole 128-byte lines.
+// - Dequantization is fused on the load; the 64 table entries sit in shared
+//   memory, read once per thread block from global (one __syncthreads(),
+//   the kernel's only one) and then by warp-wide broadcast.
+// - Both 1-D passes (columns, then rows) run in registers with the basis as
+//   compile-time constants (immediate operands, no table load): 16 FMAs per
+//   sample, a few us of the FP32 pipes against a 19.8 us memory bound. A
+//   factored butterfly would halve them but sums in another order than the
+//   twin; the plain chains keep the two equal where the contract's 1e-2
+//   (tests/test_fused.py's bound) is only 1-2 ulp, on samples near 1e5.
+// - No shared-memory tile, no transpose, no shuffle: a thread never needs
+//   another thread's samples. +128 on the store, two float4 per row.
+// - Blocks are numbered linearly over the plane (row-major), so a ragged
+//   right edge (W a multiple of 8 but not of the warp's 256 columns) costs
+//   nothing: only the last thread block of the grid has idle threads. H and
+//   W are multiples of 8 and the base pointers 16-byte aligned (checked by
+//   the wrapper), so every row segment is.
+// - TMA, wgmma and clusters are not used on purpose: this is a streaming
+//   pass with reuse only inside an 8x8 block, which registers hold; tensor
+//   cores have nothing to multiply that is worth their set-up, and plain
+//   16-byte loads with this many in flight reach the memory's rate.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; kernel_compare.py, kernel-only,
+// L2 cold, this kernel and the one before it in turns in one run): Y plane
+// 26.5 us, 0.75 of its bound (2.50 TB/s), chroma plane 9.3 us, 0.53 of its
+// bound; the kernel before it (one sample per thread, two trips through
+// shared memory, three barriers) took 63.0 us and 17.6 us. 110 registers,
+// no spills: 4 thread blocks of 128 per SM, each thread with 256 bytes in
+// flight. The chroma plane is one partial wave (253 thread blocks on 132
+// SMs), so its time is a load's latency plus the arithmetic plus the store,
+// not a rate. Outputs are bit-identical to the earlier kernel's and to the
+// twin's on the 4K planes. PERF.md section 6 has the table.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef JT_THREADS
+#define JT_THREADS 128
+#endif
+
 namespace {
 
-constexpr int kTileW = 32;  // columns per thread block (four 8x8 blocks)
+constexpr int kThreads = JT_THREADS;  // 8x8 blocks per thread block
+static_assert(kThreads >= 64, "the first 64 threads load the quant table");
 
-__global__ void __launch_bounds__(kTileW * 8)
-idct8_kernel(const int32_t* __restrict__ coeffs, const float* __restrict__ qtab,
-             const float* __restrict__ basis, float* __restrict__ out, int h,
-             int w) {
-  __shared__ float s_d[64];
-  __shared__ float s_q[64];
-  __shared__ float s_c[8][kTileW + 1];
-  __shared__ float s_t[8][kTileW + 1];
+// c_k = cos(k pi / 16) / 2, k = 1..7, written to double precision so that
+// each rounds to the same f32 as dct_basis()'s entry.
+constexpr float kC1 = 0.4903926402016152f;
+constexpr float kC2 = 0.46193976625564337f;
+constexpr float kC3 = 0.4157348061512726f;
+constexpr float kC4 = 0.3535533905932738f;
+constexpr float kC5 = 0.27778511650980114f;
+constexpr float kC6 = 0.19134171618254492f;
+constexpr float kC7 = 0.09754516100806417f;
 
-  const int tx = threadIdx.x;  // column within the tile
-  const int ty = threadIdx.y;  // row within the band
-  const int lin = ty * kTileW + tx;
-  if (lin < 64) {
-    s_d[lin] = basis[lin];
-    s_q[lin] = qtab[lin];
+// The orthonormal DCT-II basis D[u][x] = c(u)/2 cos((2x+1) u pi / 16) as a
+// compile-time constant: with u and x known after unrolling, every use
+// folds into an immediate operand.
+__device__ constexpr float basis(int u, int x) {
+  if (u == 0) return kC4;
+  int k = ((2 * x + 1) * u) % 32;  // angle in units of pi/16
+  if (k > 16) k = 32 - k;          // cos(2 pi - t) = cos t
+  const bool neg = k > 8;          // cos(pi - t) = -cos t
+  if (neg) k = 16 - k;
+  float c = 0.0f;
+  switch (k) {
+    case 1: c = kC1; break;
+    case 2: c = kC2; break;
+    case 3: c = kC3; break;
+    case 4: c = kC4; break;
+    case 5: c = kC5; break;
+    case 6: c = kC6; break;
+    case 7: c = kC7; break;
   }
-  __syncthreads();
+  return neg ? -c : c;
+}
 
-  const long row = static_cast<long>(blockIdx.y) * 8 + ty;
-  const int col = blockIdx.x * kTileW + tx;
-  const bool inside = col < w;
-  const int xi = tx & 7;
-  s_c[ty][tx] = inside
-      ? static_cast<float>(coeffs[row * w + col]) * s_q[ty * 8 + xi]
-      : 0.0f;
-  __syncthreads();
-
-  // Vertical pass: t[y][v] = sum_u D[u][y] * c[u][v].
-  float acc = 0.0f;
+// In-place 8-point inverse DCT of v[0], v[S], ..., v[7 S] (frequency in,
+// samples out): x[n] = sum_u D[u][n] X[u], one FMA chain per sample in the
+// order u = 0..7 from zero. That is the order of the plain twin's matrix
+// products on the card, so the two agree far inside the contract's 1e-2
+// even where samples reach 1e5 (where one f32 ulp is 8e-3).
+template <int S>
+__device__ __forceinline__ void idct8_1d(float* v) {
+  float in[8];
 #pragma unroll
-  for (int u = 0; u < 8; ++u) acc = fmaf(s_d[u * 8 + ty], s_c[u][tx], acc);
-  s_t[ty][tx] = acc;
+  for (int u = 0; u < 8; ++u) in[u] = v[u * S];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = fmaf(basis(u, n), in[u], acc);
+    v[n * S] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+idct8_kernel(const int32_t* __restrict__ coeffs, const float* __restrict__ qtab,
+             float* __restrict__ out, int w, int wb, long nblocks) {
+  __shared__ float s_q[64];
+  if (threadIdx.x < 64) s_q[threadIdx.x] = qtab[threadIdx.x];
   __syncthreads();
 
-  // Horizontal pass: out[y][x] = sum_v t[y][v] * D[v][x], then +128.
-  const int x0 = tx & ~7;
-  acc = 0.0f;
+  const long t = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= nblocks) return;
+  const long brow = t / wb;
+  const int bcol = static_cast<int>(t - brow * wb);
+  const long base = brow * 8 * w + static_cast<long>(bcol) * 8;
+
+  // All 16 loads first: 256 bytes in flight per thread.
+  int4 raw[16];
 #pragma unroll
-  for (int v = 0; v < 8; ++v) acc = fmaf(s_t[ty][x0 + v], s_d[v * 8 + xi], acc);
-  if (inside) out[row * w + col] = acc + 128.0f;
+  for (int u = 0; u < 8; ++u) {
+    const int4* src = reinterpret_cast<const int4*>(coeffs + base + static_cast<long>(u) * w);
+    raw[2 * u] = __ldg(src);
+    raw[2 * u + 1] = __ldg(src + 1);
+  }
+
+  float r[64];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const float4 qa = *reinterpret_cast<const float4*>(s_q + 8 * u);
+    const float4 qb = *reinterpret_cast<const float4*>(s_q + 8 * u + 4);
+    r[8 * u + 0] = static_cast<float>(raw[2 * u].x) * qa.x;
+    r[8 * u + 1] = static_cast<float>(raw[2 * u].y) * qa.y;
+    r[8 * u + 2] = static_cast<float>(raw[2 * u].z) * qa.z;
+    r[8 * u + 3] = static_cast<float>(raw[2 * u].w) * qa.w;
+    r[8 * u + 4] = static_cast<float>(raw[2 * u + 1].x) * qb.x;
+    r[8 * u + 5] = static_cast<float>(raw[2 * u + 1].y) * qb.y;
+    r[8 * u + 6] = static_cast<float>(raw[2 * u + 1].z) * qb.z;
+    r[8 * u + 7] = static_cast<float>(raw[2 * u + 1].w) * qb.w;
+  }
+
+  // Columns: t[y][v] = sum_u D[u][y] c[u][v]. Rows: o[y][x] = sum_v t[y][v] D[v][x].
+#pragma unroll
+  for (int x = 0; x < 8; ++x) idct8_1d<8>(r + x);
+#pragma unroll
+  for (int y = 0; y < 8; ++y) idct8_1d<1>(r + 8 * y);
+
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    float4* dst = reinterpret_cast<float4*>(out + base + static_cast<long>(y) * w);
+    dst[0] = make_float4(r[8 * y + 0] + 128.0f, r[8 * y + 1] + 128.0f,
+                         r[8 * y + 2] + 128.0f, r[8 * y + 3] + 128.0f);
+    dst[1] = make_float4(r[8 * y + 4] + 128.0f, r[8 * y + 5] + 128.0f,
+                         r[8 * y + 6] + 128.0f, r[8 * y + 7] + 128.0f);
+  }
 }
 
 }  // namespace
 
-extern "C" int jt_idct8(const void* coeffs, const void* qtab, const void* basis,
-                        void* out, int h, int w, void* stream) {
+extern "C" int jt_idct8(const void* coeffs, const void* qtab, void* out, int h,
+                        int w, void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  const dim3 block(kTileW, 8);
-  const dim3 grid((w + kTileW - 1) / kTileW, h / 8);
-  idct8_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int wb = w / 8;
+  const long nblocks = static_cast<long>(h / 8) * wb;
+  const long grid = (nblocks + kThreads - 1) / kThreads;
+  idct8_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(coeffs), static_cast<const float*>(qtab),
-      static_cast<const float*>(basis), static_cast<float*>(out), h, w);
+      static_cast<float*>(out), w, wb, nblocks);
   return static_cast<int>(cudaGetLastError());
 }

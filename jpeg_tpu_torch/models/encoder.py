@@ -23,6 +23,8 @@ host packer, counted in HOST_PACK_SPILLS.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -66,7 +68,7 @@ def _pack_device(blocks, tbl, luts, n_units: int, restart_units: int):
     totals (nseg,), ok (nseg,)). The segments must tile the n_units MCUs
     evenly; an interval of 0, or of at least n_units, is one segment."""
     r = int(restart_units)
-    buf, t_b = pack.pack_level1(blocks, tbl, *luts)
+    buf, t_b = pack.pack_level1(blocks, tbl, *luts[:4], packed=luts[4])
     nseg = 1 if r == 0 or r >= n_units else n_units // r
     seg_blocks = blocks.shape[0] // nseg
     nwords = seg_blocks * WORDS_PER_BLOCK + 2
@@ -93,9 +95,33 @@ def _color_hists(blocks, n_mcu: int, hv: int):
     return dc_l, ac_l, dc_c1 + dc_c2, ac_c1 + ac_c2
 
 
+# Table sets whose device LUTs are kept (least recently used goes first):
+# the standard set hits on every encode; each optimize_tables encode adds
+# its own.
+_LUT_CACHE_SIZE = 8
+_lut_cache: collections.OrderedDict = collections.OrderedDict()
+
+
 def _device_luts(htables: dict, device) -> tuple:
-    return tuple(torch.as_tensor(a.astype(np.int32), device=device)
-                 for a in bitpack.luts_from_tables(htables))
+    """{(is_ac, id): HuffTable} -> (dc_code, dc_len, ac_code, ac_len, packed)
+    int32 tensors on `device`: the four (2, 256) LUTs and pack.pack_tables'
+    (2, 2, 256) words for kernel A, built and uploaded once per table set
+    and device."""
+    device = torch.device(device)
+    key = (str(device),) + tuple(
+        (k, t.code.tobytes(), t.size.tobytes())
+        for k, t in sorted(htables.items()))
+    luts = _lut_cache.get(key)
+    if luts is None:
+        luts = tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                     for a in bitpack.luts_from_tables(htables))
+        luts += (pack.pack_tables(*luts),)
+        _lut_cache[key] = luts
+        if len(_lut_cache) > _LUT_CACHE_SIZE:
+            _lut_cache.popitem(last=False)
+    else:
+        _lut_cache.move_to_end(key)
+    return luts
 
 
 def _finish_device_pack(words, totals, ok, blocks, tbl, htables,

@@ -45,13 +45,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _build(name: str, src: pathlib.Path, lib_path: pathlib.Path) -> None:
+def _build(name: str, src: pathlib.Path, lib_path: pathlib.Path,
+           flags=()) -> None:
     with open(_BUILD_DIR / f"{name}.lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if lib_path.exists() and lib_path.stat().st_mtime >= src.stat().st_mtime:
             return
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
@@ -62,9 +63,13 @@ def _build(name: str, src: pathlib.Path, lib_path: pathlib.Path) -> None:
         BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr + proc.stdout)
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, source=None, flags=()) -> ctypes.CDLL:
     """The ctypes library of kernel `name`, built on first use. Threads
-    loading different kernels build them in parallel."""
+    loading different kernels build them in parallel.
+
+    `source` (a path, default csrc/<name>.cu) and extra nvcc `flags` let a
+    measurement build another version of a kernel under another `name`,
+    beside the package's own."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -74,12 +79,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = _CSRC / f"{name}.cu"
+        src = pathlib.Path(source) if source else _CSRC / f"{name}.cu"
         if not src.exists():
             raise RuntimeError(f"kernel source missing: {src}")
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         lib_path = _BUILD_DIR / f"lib{name}.so"
-        _build(name, src, lib_path)
+        _build(name, src, lib_path, flags)
         lib = ctypes.CDLL(str(lib_path))
         _libs[name] = lib
         return lib

@@ -60,26 +60,35 @@ def fused_dct_quantize_reference(plane: torch.Tensor, qtable) -> torch.Tensor:
     return quant.quantize_plane(coef, qtable)
 
 
-def _fused_dct_quantize_cuda(plane: torch.Tensor, qtable) -> torch.Tensor:
+def _launch_dct(plane, q, out) -> None:
+    """Enqueue kernel C on PyTorch's current stream: prepared contiguous
+    CUDA tensors ((H, W) f32 plane, (64,) f32 raster table, (H, W) int32
+    out), no checks and no allocation. Counts the launch."""
     global DCT_LAUNCHES
+    dev = plane.device
+    h, w = plane.shape
+    lib = _cuda.load("dct8")
+    with torch.cuda.device(dev):
+        err = lib.jt_dct8(
+            ctypes.c_void_p(plane.data_ptr()), ctypes.c_void_p(q.data_ptr()),
+            ctypes.c_void_p(_basis(dev).data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
+    _cuda.check("dct8", err)
+    DCT_LAUNCHES += 1
+
+
+def _fused_dct_quantize_cuda(plane: torch.Tensor, qtable) -> torch.Tensor:
     _check_plane(plane)
     dev = plane.device
     h, w = plane.shape
     x = plane.to(torch.float32).contiguous()
     q = torch.as_tensor(qtable, dtype=torch.float32, device=dev).reshape(
         64).contiguous()
-    d = _basis(dev)
     out = torch.empty((h, w), dtype=torch.int32, device=dev)
     if h == 0 or w == 0:
         return out
-    lib = _cuda.load("dct8")
-    with torch.cuda.device(dev):
-        err = lib.jt_dct8(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(d.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
-    _cuda.check("dct8", err)
-    DCT_LAUNCHES += 1
+    _launch_dct(x, q, out)
     return out
 
 
@@ -113,26 +122,41 @@ def fused_dequant_idct_reference(coeffs: torch.Tensor, qtable) -> torch.Tensor:
     return out.reshape(h, w) + 128.0
 
 
-def _fused_dequant_idct_cuda(coeffs: torch.Tensor, qtable) -> torch.Tensor:
+def _launch_idct(coeffs, q, out) -> None:
+    """Enqueue kernel B on PyTorch's current stream: prepared contiguous
+    CUDA tensors ((H, W) int32 coefficients and (H, W) f32 out, both 16-byte
+    aligned, (64,) f32 raster table), no checks and no allocation. Counts
+    the launch."""
     global LAUNCHES
+    dev = coeffs.device
+    h, w = coeffs.shape
+    lib = _cuda.load("idct8")
+    with torch.cuda.device(dev):
+        err = lib.jt_idct8(
+            ctypes.c_void_p(coeffs.data_ptr()), ctypes.c_void_p(q.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
+    _cuda.check("idct8", err)
+    LAUNCHES += 1
+
+
+def _fused_dequant_idct_cuda(coeffs: torch.Tensor, qtable) -> torch.Tensor:
     _check_plane(coeffs)
     dev = coeffs.device
     h, w = coeffs.shape
     c = coeffs.to(torch.int32).contiguous()
     q = torch.as_tensor(qtable, dtype=torch.float32, device=dev).reshape(
         64).contiguous()
-    d = _basis(dev)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     if h == 0 or w == 0:
         return out
-    lib = _cuda.load("idct8")
-    with torch.cuda.device(dev):
-        err = lib.jt_idct8(
-            ctypes.c_void_p(c.data_ptr()), ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(d.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
-    _cuda.check("idct8", err)
-    LAUNCHES += 1
+    # The kernel moves 16 bytes per load and store. W % 8 == 0 keeps every
+    # row aligned once the base is.
+    for name, t in (("coeffs", c), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"fused_dequant_idct: {name} is not 16-byte aligned")
+    _launch_idct(c, q, out)
     return out
 
 

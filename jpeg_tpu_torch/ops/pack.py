@@ -120,52 +120,85 @@ def pack_level1_reference(blocks, tbl, dc_code, dc_len, ac_code, ac_len):
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def _pack_level1_cuda(blocks, tbl, dc_code, dc_len, ac_code, ac_len):
+def pack_tables(dc_code, dc_len, ac_code, ac_len) -> torch.Tensor:
+    """The four (2, 256) code/length LUT tensors -> one (2, 2, 256) int32
+    tensor, [is_ac, table id, symbol] = code << 5 | length: the form kernel
+    A reads. Codes have at most 16 bits and lengths at most 16, so an entry
+    fits 21 bits."""
+    dc, ac = ((c.to(torch.int32) << 5) | (n.to(torch.int32) & 31)
+              for c, n in ((dc_code, dc_len), (ac_code, ac_len)))
+    return torch.stack([dc, ac])
+
+
+def _launch(blocks, tbl, packed, buf, totals) -> None:
+    """Enqueue kernel A on PyTorch's current stream: prepared contiguous
+    int32 CUDA tensors ((B, 64) blocks, (B,) table ids, (2, 2, 256) packed
+    tables, (B, BLOCK_WORDS+1) buf and (B,) totals out), no checks and no
+    allocation. Counts the launch."""
     global LAUNCHES
+    dev = blocks.device
+    lib = _cuda.load("pack_level1")
+    with torch.cuda.device(dev):
+        err = lib.jt_pack_level1(
+            *(ctypes.c_void_p(t.data_ptr()) for t in
+              (blocks, tbl, packed, buf, totals)),
+            ctypes.c_long(blocks.shape[0]), _cuda.stream_handle(dev))
+    _cuda.check("pack_level1", err)
+    LAUNCHES += 1
+
+
+def _pack_level1_cuda(blocks, tbl, dc_code, dc_len, ac_code, ac_len, packed):
     if blocks.ndim != 2 or blocks.shape[1] != 64:
         raise ValueError(f"blocks must be (B, 64), got {tuple(blocks.shape)}")
     if tbl.shape != (blocks.shape[0],):
         raise ValueError(f"tbl must be ({blocks.shape[0]},), got {tuple(tbl.shape)}")
     dev = blocks.device
-    args = [blocks, tbl, dc_code, dc_len, ac_code, ac_len]
-    for t in args:
+    if packed is None:
+        for t in (dc_code, dc_len, ac_code, ac_len):
+            if t.shape != (2, 256):
+                raise ValueError(
+                    f"Huffman LUTs must be (2, 256), got {tuple(t.shape)}")
+            if t.device != dev:
+                raise ValueError(f"all pack_level1 inputs must be on {dev}")
+        packed = pack_tables(dc_code, dc_len, ac_code, ac_len)
+    elif packed.shape != (2, 2, 256):
+        raise ValueError(
+            f"packed tables must be (2, 2, 256), got {tuple(packed.shape)}")
+    for t in (tbl, packed):
         if t.device != dev:
             raise ValueError(f"all pack_level1 inputs must be on {dev}")
-    blocks, tbl, dc_code, dc_len, ac_code, ac_len = (
-        t.to(torch.int32).contiguous() for t in args)
-    for t in (dc_code, dc_len, ac_code, ac_len):
-        if t.shape != (2, 256):
-            raise ValueError(f"Huffman LUTs must be (2, 256), got {tuple(t.shape)}")
+    blocks, tbl, packed = (
+        t.to(torch.int32).contiguous() for t in (blocks, tbl, packed))
     b = blocks.shape[0]
     buf = torch.empty((b, BLOCK_WORDS + 1), dtype=torch.int32, device=dev)
     totals = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return buf, totals
-    lib = _cuda.load("pack_level1")
-    with torch.cuda.device(dev):
-        err = lib.jt_pack_level1(
-            *(ctypes.c_void_p(t.data_ptr()) for t in
-              (blocks, tbl, dc_code, dc_len, ac_code, ac_len, buf, totals)),
-            ctypes.c_long(b), _cuda.stream_handle(dev))
-    _cuda.check("pack_level1", err)
-    LAUNCHES += 1
+    # The kernel loads coefficients and tables 16 bytes at a time.
+    for name, t in (("blocks", blocks), ("packed", packed)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"pack_level1: {name} is not 16-byte aligned")
+    _launch(blocks, tbl, packed, buf, totals)
     return buf, totals
 
 
-def pack_level1(blocks, tbl, dc_code, dc_len, ac_code, ac_len):
+def pack_level1(blocks, tbl, dc_code, dc_len, ac_code, ac_len, packed=None):
     """(B, 64) int32 zig-zag blocks (DC already DPCM'd) + (B,) table ids
     (0 luma / 1 chroma) + the four (2, 256) code/length LUTs, all tensors on
     one device -> ((B, BLOCK_WORDS+1) int32 uint32-bit-pattern word buffers,
     (B,) int32 bit totals).
 
-    CUDA tensors launch kernel A (csrc/pack_level1.cu); CPU tensors run the
-    plain twin. Any other device raises."""
+    CUDA tensors launch kernel A (csrc/pack_level1.cu), which reads the
+    tables as pack_tables' words: pass them as `packed` (a tensor on the
+    blocks' device) to spare their packing on every call. CPU tensors run
+    the plain twin on the four LUTs. Any other device raises."""
     kind = blocks.device.type
     if kind == "cpu":
         return pack_level1_reference(blocks, tbl, dc_code, dc_len, ac_code,
                                      ac_len)
     if kind == "cuda":
-        return _pack_level1_cuda(blocks, tbl, dc_code, dc_len, ac_code, ac_len)
+        return _pack_level1_cuda(blocks, tbl, dc_code, dc_len, ac_code, ac_len,
+                                 packed)
     raise ValueError(f"pack_level1: unsupported device {blocks.device}")
 
 

@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Kernel-only times of the port's CUDA kernels, and of other versions of
+kernels A and B beside them, in turns on one card.
+
+Usage, from the repository root, on a machine with a CUDA device and nvcc:
+
+    python3 kernel_compare.py [--previous DIR] [--candidate-a FILE.cu]...
+                              [--candidate-b FILE.cu]... [--flags-a "..."]...
+                              [--flags-b "..."]... [--previous-only]
+                              [--json FILE]
+
+The package's own kernels A (pack_level1), B (idct8) and C (dct8) are always
+timed. --previous DIR names a directory that holds pack_level1.cu and idct8.cu
+with the C entry points those files had before the tables were pre-packed
+(jt_pack_level1 taking the four LUTs, jt_idct8 taking the basis), e.g. an
+older commit unpacked with `git archive`. --candidate-a / --candidate-b name
+another source with the current entry point; --flags-a / --flags-b build the
+package's own source once more with extra nvcc flags (e.g. "-DJT_THREADS=256")
+as a further contender; each of the four may be given more than once.
+--previous-only times the previous sources and kernel
+C and nothing else (for a tree whose own A and B do not build yet).
+
+Inputs are those of chip_smoke.py's main path: the 3840x2160 4:2:0 image's
+194,400 level-1 blocks at q75 and at q95 (dense), its Y and Cb coefficient
+planes (kernel B) and pixel planes (kernel C). Every contender is first held
+against the plain twin on these inputs. Times come from
+chip_smoke.kernel_only_us (CUDA events around a graph of 20 launches over
+rotating buffers, L2 cold), contenders in turns, forwards then backwards,
+ROUNDS times; each time and the median per contender are printed with the
+card's name and power limit. Last, one warm 4K decode is profiled
+(torch.profiler) to show where kernel B's three launches lie on the device's
+timeline and what runs between them. Then one JSON object on the last line,
+also written to the file --json names, if given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import shlex
+import statistics
+import sys
+
+import numpy as np
+
+import chip_smoke as cs
+
+ROUNDS = 3
+
+
+def _ptrs(*tensors):
+    return [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+
+
+def trace_decode(torch, img, card):
+    """Profile one warm 4K colour decode and report where kernel B's three
+    launches lie on the device's timeline: each launch's duration, and for
+    each gap between two of them its length, the other kernels that ran in
+    it and the time the device was idle in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import jpeg_tpu_torch
+
+    jpg = jpeg_tpu_torch.encode(img, cs.QUALITY, cs.SUBSAMPLING, device="cuda")
+    for _ in range(2):
+        jpeg_tpu_torch.decode(jpg, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        jpeg_tpu_torch.decode(jpg, device="cuda")
+        torch.cuda.synchronize()
+    kernels = sorted(
+        ((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+         if e.device_type == DeviceType.CUDA),
+        key=lambda k: k[0])
+    idct = [i for i, k in enumerate(kernels) if "idct8_kernel" in k[2]]
+    report = {"idct8_us": [kernels[i][1] - kernels[i][0] for i in idct],
+              "gaps": []}
+    for i, j in zip(idct, idct[1:]):
+        between = kernels[i + 1:j]
+        gap = kernels[j][0] - kernels[i][1]
+        busy = sum(k[1] - k[0] for k in between)
+        report["gaps"].append({"gap_us": gap, "kernels_between": len(between),
+                               "busy_us": busy, "idle_us": gap - busy})
+    first, last = kernels[0][0], kernels[-1][1]
+    report["device_span_us"] = last - first
+    report["device_busy_us"] = sum(k[1] - k[0] for k in kernels)
+    print(f"decode trace: kernel B launches "
+          f"{[round(t, 1) for t in report['idct8_us']]} us; gaps between "
+          f"them {report['gaps']}; device span {report['device_span_us']:.0f} "
+          f"us, busy {report['device_busy_us']:.0f} us over {len(kernels)} "
+          f"kernels and copies [{card}]", flush=True)
+    return report
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--previous")
+    ap.add_argument("--candidate-a", action="append", default=[])
+    ap.add_argument("--candidate-b", action="append", default=[])
+    ap.add_argument("--flags-a", action="append", default=[])
+    ap.add_argument("--flags-b", action="append", default=[])
+    ap.add_argument("--previous-only", action="store_true")
+    ap.add_argument("--json")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_compare: no CUDA device", file=sys.stderr)
+        return 2
+    from jpeg_tpu_torch.config import Subsampling
+    from jpeg_tpu_torch.entropy import huffman
+    from jpeg_tpu_torch.models import encoder
+    from jpeg_tpu_torch.ops import (
+        _cuda, bitpack, fused, pack, quant, tile, zigzag)
+
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    stream = lambda: _cuda.stream_handle(dev)  # noqa: E731
+
+    def build(name, source=None, flags=()):
+        lib = _cuda.load(name, source, flags)
+        log = _cuda.BUILD_LOG.get(name, (0.0, ""))[1]
+        for ln in log.splitlines():
+            if "registers" in ln or "bytes stack" in ln or "Compiling" in ln:
+                print(f"build {name}: {ln.strip()}", flush=True)
+        return lib
+
+    # Inputs.
+    mode = Subsampling(cs.SUBSAMPLING)
+    img = cs.make_image(cs.HEIGHT, cs.WIDTH)
+    dimg = tile.pad_to_multiple(torch.as_tensor(img, device=dev),
+                                mode.mcu_height, mode.mcu_width)
+    luts_np = bitpack.luts_from_tables(huffman.standard_tables())
+    luts = tuple(torch.as_tensor(a.astype(np.int32), device=dev)
+                 for a in luts_np)
+    packed = pack.pack_tables(*luts)
+    budget = bitpack.BLOCK_WORDS * 32
+    level1_inputs = {}
+    for q in (cs.QUALITY, 95):
+        blocks, tbl, _, _ = encoder._interleaved_blocks(
+            dimg, quant.luma_table(q), quant.chroma_table(q), mode, 0)
+        level1_inputs[f"q{q}"] = (blocks.contiguous(), tbl.contiguous())
+    qy, qc = quant.luma_table(cs.QUALITY), quant.chroma_table(cs.QUALITY)
+    y_zz, cb_zz, _ = encoder._transform_color(dimg, qy, qc, mode)
+    hb, wb = dimg.shape[0] // 8, dimg.shape[1] // 8
+    coef_planes = {
+        "Y": (tile.unblockify(zigzag.from_zigzag(
+            y_zz.reshape(hb, wb, 64))).contiguous(), qy),
+        "Cb": (tile.unblockify(zigzag.from_zigzag(
+            cb_zz.reshape(hb // 2, wb // 2, 64))).contiguous(), qc),
+    }
+    y_px, cb_px, _ = encoder._pallas_planes(dimg, mode)
+    pixel_planes = {"Y": (y_px.contiguous(), qy), "Cb": (cb_px.contiguous(), qc)}
+    basis = fused._basis(dev)
+
+    # Contenders: name -> function(inputs, outputs) that enqueues one launch.
+    a_launchers, b_launchers = {}, {}
+    if args.previous:
+        prev = pathlib.Path(args.previous)
+        lib_a = build("previous_pack_level1", prev / "pack_level1.cu")
+        lib_b = build("previous_idct8", prev / "idct8.cu")
+
+        def prev_a(blocks, tbl, buf, totals):
+            _cuda.check("previous A", lib_a.jt_pack_level1(
+                *_ptrs(blocks, tbl, *luts, buf, totals),
+                ctypes.c_long(blocks.shape[0]), stream()))
+
+        def prev_b(coeffs, q, out):
+            _cuda.check("previous B", lib_b.jt_idct8(
+                *_ptrs(coeffs, q, basis, out), ctypes.c_int(coeffs.shape[0]),
+                ctypes.c_int(coeffs.shape[1]), stream()))
+
+        a_launchers["previous"], b_launchers["previous"] = prev_a, prev_b
+
+    def current_abi_a(lib, label):
+        def launch(blocks, tbl, buf, totals):
+            _cuda.check(label, lib.jt_pack_level1(
+                *_ptrs(blocks, tbl, packed, buf, totals),
+                ctypes.c_long(blocks.shape[0]), stream()))
+        return launch
+
+    def current_abi_b(lib, label):
+        def launch(coeffs, q, out):
+            _cuda.check(label, lib.jt_idct8(
+                *_ptrs(coeffs, q, out), ctypes.c_int(coeffs.shape[0]),
+                ctypes.c_int(coeffs.shape[1]), stream()))
+        return launch
+
+    if not args.previous_only:
+        build("pack_level1")
+        build("idct8")
+        a_launchers["current"] = lambda b, t, buf, tot: pack._launch(
+            b, t, packed, buf, tot)
+        b_launchers["current"] = fused._launch_idct
+        for i, flags in enumerate(args.flags_a):
+            a_launchers[f"current {flags}"] = current_abi_a(build(
+                f"flags{i}_pack_level1", _cuda._CSRC / "pack_level1.cu",
+                shlex.split(flags)), "flags A")
+        for i, flags in enumerate(args.flags_b):
+            b_launchers[f"current {flags}"] = current_abi_b(build(
+                f"flags{i}_idct8", _cuda._CSRC / "idct8.cu",
+                shlex.split(flags)), "flags B")
+        for i, src in enumerate(args.candidate_a):
+            a_launchers[f"candidate {src}"] = current_abi_a(
+                build(f"candidate{i}_pack_level1", src), "candidate A")
+        for i, src in enumerate(args.candidate_b):
+            b_launchers[f"candidate {src}"] = current_abi_b(
+                build(f"candidate{i}_idct8", src), "candidate B")
+    build("dct8")
+
+    results = []
+    failed = False
+
+    def run_case(kernel, case, launchers, inputs, make_out, nbytes, check):
+        """Check every contender against the twin, then time them in turns."""
+        nonlocal failed
+        nbuf = cs.rotation(nbytes)
+        ins = [tuple(t.clone() for t in inputs) for _ in range(nbuf)]
+        outs = [make_out() for _ in range(nbuf)]
+        times = {name: [] for name in launchers}
+        first = None
+        for name, fn in launchers.items():
+            fn(*ins[0], *outs[0])
+            torch.cuda.synchronize()
+            err = check(outs[0])
+            if first is None:
+                first = (name, outs[0][0].clone())
+            same = "" if first[0] == name else (
+                f"; vs [{first[0]}]: max |diff| "
+                f"{float((outs[0][0].double() - first[1].double()).abs().max()):.3g}")
+            print(f"{kernel} {case} [{name}]: vs plain twin: {err}{same}",
+                  flush=True)
+            if not err.startswith("ok"):
+                failed = True
+        order = list(launchers) + list(launchers)[::-1]
+        for _ in range(ROUNDS):
+            for name in order:
+                fn = launchers[name]
+                times[name].append(cs.kernel_only_us(
+                    lambda i: fn(*ins[i], *outs[i]), nbuf, torch))
+        bound = cs.bound_us(nbytes)
+        for name, ts in times.items():
+            med = statistics.median(ts)
+            print(f"{kernel} {case} [{name}]: kernel-only {med:.2f} us (each: "
+                  f"{', '.join(f'{t:.2f}' for t in ts)}); {nbytes} bytes, "
+                  f"bound {bound:.2f} us, share {bound / med:.3f}, "
+                  f"{nbytes / med / 1e3:.0f} GB/s [{card}]", flush=True)
+            results.append({"kernel": kernel, "case": case, "version": name,
+                            "kernel_us": med, "each_us": ts, "bytes": nbytes,
+                            "bound_us": bound, "bound_share": bound / med,
+                            "buffers": nbuf})
+
+    for case, (blocks, tbl) in level1_inputs.items():
+        n = blocks.shape[0]
+        ref = pack.pack_level1_reference(blocks, tbl, *luts)
+        over = int((ref[1] > budget).sum())
+        print(f"A {case}: {n} blocks, {over} over {budget} bits, mean "
+              f"{float(ref[1].float().mean()):.1f} bits, "
+              f"{float((blocks != 0).sum()) / n:.2f} nonzeros per block",
+              flush=True)
+
+        def check_a(out, ref=ref):
+            e, _ = cs.level1_err(out, ref, budget)
+            return "ok (max |err| 0)" if e == 0 else f"DISAGREES (max {e})"
+
+        run_case(
+            "A", case, a_launchers, (blocks, tbl),
+            lambda n=n: (torch.empty((n, bitpack.BLOCK_WORDS + 1),
+                                     dtype=torch.int32, device=dev),
+                         torch.empty((n,), dtype=torch.int32, device=dev)),
+            cs.level1_bytes(n), check_a)
+
+    for case, (coeffs, qt) in coef_planes.items():
+        q = torch.as_tensor(qt, dtype=torch.float32, device=dev).reshape(64)
+        ref = fused.fused_dequant_idct_reference(coeffs, qt)
+
+        def check_b(out, ref=ref):
+            e = float((out[0] - ref).abs().max())
+            return f"ok (max |err| {e:.3g})" if e <= 1e-2 else f"DISAGREES ({e})"
+
+        run_case("B", f"{case} {tuple(coeffs.shape)}", b_launchers,
+                 (coeffs, q),
+                 lambda c=coeffs: (torch.empty(c.shape, dtype=torch.float32,
+                                               device=dev),),
+                 cs.plane_bytes(*coeffs.shape), check_b)
+
+    for case, (plane, qt) in pixel_planes.items():
+        q = torch.as_tensor(qt, dtype=torch.float32, device=dev).reshape(64)
+        ref = fused.fused_dct_quantize_reference(plane, qt)
+
+        def check_c(out, ref=ref):
+            e, nd, bound, _ = cs.coef_diff(out[0], ref)
+            ok = e <= 1 and nd <= bound
+            return f"{'ok' if ok else 'DISAGREES'} (max |err| {e}, {nd} differ)"
+
+        run_case("C", f"{case} {tuple(plane.shape)}",
+                 {"current": fused._launch_dct}, (plane, q),
+                 lambda p=plane: (torch.empty(p.shape, dtype=torch.int32,
+                                              device=dev),),
+                 cs.plane_bytes(*plane.shape), check_c)
+
+    trace = None
+    if not args.previous_only:
+        trace = trace_decode(torch, img, card)
+    out = {"card": card, "results": results, "decode_trace": trace}
+    if args.json:
+        path = pathlib.Path(args.json)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(out, indent=1))
+    print(json.dumps(out))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,7 +26,9 @@ from jpeg_tpu_torch.entropy import huffman
 from jpeg_tpu_torch.models import encoder
 from jpeg_tpu_torch.ops import bitpack, fused, pack, quant
 
-from torch_port_util import make_image, random_blocks, require_cuda
+from torch_port_util import (
+    LEVEL1_SIZES, adversarial_idct_planes, adversarial_level1_case,
+    make_image, random_blocks, require_cuda)
 
 BUDGET = bitpack.BLOCK_WORDS * 32
 
@@ -54,9 +56,15 @@ def test_kernel_a_matches_plain():
     dev = require_cuda()
     rng = np.random.default_rng(11)
     luts = _luts(dev)
-    for n, density in ((1000, 0.0), (4099, 0.15), (777, 0.3), (1, 0.5)):
-        blocks = torch.as_tensor(random_blocks(rng, n, density), device=dev)
-        tbl = torch.as_tensor((rng.random(n) < 0.5).astype(np.int32), device=dev)
+    htables = huffman.standard_tables()
+    cases = [(random_blocks(rng, n, density),
+              (rng.random(n) < 0.5).astype(np.int32))
+             for n, density in ((1000, 0.0), (4099, 0.15), (777, 0.3), (1, 0.5))]
+    # The adversarial blocks of the CPU tests, at the same ragged sizes.
+    cases += [adversarial_level1_case(n, htables) for n in LEVEL1_SIZES]
+    for blocks_np, tbl_np in cases:
+        blocks = torch.as_tensor(blocks_np, device=dev)
+        tbl = torch.as_tensor(tbl_np, device=dev)
         before = pack.LAUNCHES
         buf, tot = pack.pack_level1(blocks, tbl, *luts)
         torch.cuda.synchronize()
@@ -67,22 +75,43 @@ def test_kernel_a_matches_plain():
         fits = ref_tot <= BUDGET
         np.testing.assert_array_equal(buf.cpu().numpy()[fits],
                                       ref_buf.cpu().numpy()[fits])
+        # Pre-packed tables give the same launch the same answer.
+        buf2, tot2 = pack.pack_level1(blocks, tbl, *luts,
+                                      packed=pack.pack_tables(*luts))
+        assert torch.equal(buf2, buf) and np.array_equal(tot2.cpu().numpy(), tot)
 
 
 @pytest.mark.cuda
 def test_kernel_b_matches_plain():
     dev = require_cuda()
     rng = np.random.default_rng(3)
-    for shape in ((64, 128), (8, 64), (48, 40), (1080, 1928)):
-        coeffs = torch.as_tensor(
-            rng.integers(-300, 300, size=shape).astype(np.int32), device=dev)
-        qt = quant.luma_table(50)
+    cases = [(rng.integers(-300, 300, size=shape).astype(np.int32),
+              quant.luma_table(50))
+             for shape in ((64, 128), (8, 64), (48, 40), (1080, 1928))]
+    # The adversarial planes of the CPU tests.
+    cases += [(coeffs, qt) for _, coeffs, qt in adversarial_idct_planes()]
+    for coeffs_np, qt in cases:
+        coeffs = torch.as_tensor(coeffs_np, device=dev)
         before = fused.LAUNCHES
         got = fused.fused_dequant_idct(coeffs, qt)
         torch.cuda.synchronize()
         assert fused.LAUNCHES == before + 1
         ref = fused.fused_dequant_idct_reference(coeffs, qt)
         torch.testing.assert_close(got, ref, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_unaligned_tensors():
+    """Kernels A and B move 16 bytes per load and store: a base pointer
+    off a 16-byte boundary raises instead of launching."""
+    dev = require_cuda()
+    flat = torch.zeros(2 * 64 + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused.fused_dequant_idct(flat[1:65].reshape(8, 8), quant.luma_table(50))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pack.pack_level1(flat[1:].reshape(2, 64),
+                         torch.zeros(2, dtype=torch.int32, device=dev),
+                         *_luts(dev))
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ from jpeg_tpu.ops import fused as JF, quant as JQ
 import jpeg_tpu_torch
 from jpeg_tpu_torch.ops import fused as PF
 
-from torch_port_util import make_image
+from torch_port_util import adversarial_idct_planes, make_image
 
 
 def _assert_close_to_reference(jpg):
@@ -83,4 +83,17 @@ def test_plain_idct_matches_pallas(shape):
         got = PF.fused_dequant_idct(torch.as_tensor(coeffs), qt)
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-2)
+
+
+@pytest.mark.parametrize(
+    "case", adversarial_idct_planes(), ids=lambda c: c[0])
+def test_plain_idct_matches_pallas_adversarial(case):
+    """The smallest plane, ragged widths, DC only, and single coefficients
+    of +-2047 under a table of 255s (samples near 1e5)."""
+    _, coeffs, qt = case
+    ref = np.asarray(JF.fused_dequant_idct(jnp.asarray(coeffs),
+                                           jnp.asarray(qt), interpret=True))
+    got = PF.fused_dequant_idct(torch.as_tensor(coeffs), qt)
+    assert got.shape == coeffs.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-2)
 

@@ -5,8 +5,10 @@ pack_pallas.pack_level1_pallas(interpret=True): per-block bit totals equal
 for every block, word buffers equal for every block of at most 288 bits
 (BLOCK_WORDS * 32). Level 2 must equal pack_pallas.pack_level2 word for word
 on the same level-1 output. A finalized scan must equal the native host
-packer's bytes. Tolerance 0 throughout. Kernel A against this plain twin
-is in test_torch_cuda.py."""
+packer's bytes. The packed tables kernel A reads (code << 5 | length) must
+hold luts_from_tables' codes and lengths. Tolerance 0 throughout. Kernel A
+against this plain twin, on the same adversarial blocks, is in
+test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -19,7 +21,11 @@ from jpeg_tpu.ops import bitpack as JB, pack_pallas as JP
 
 from jpeg_tpu_torch.ops import bitpack as PB, pack as PP
 
-from torch_port_util import random_blocks
+from jpeg_tpu_torch.entropy import huffman as PH
+from jpeg_tpu_torch.models import encoder as PE
+
+from torch_port_util import (
+    LEVEL1_SIZES, adversarial_level1_case, level1_bits, random_blocks)
 
 BUDGET = PB.BLOCK_WORDS * 32
 
@@ -122,4 +128,69 @@ def test_finalized_scan_matches_native_encode_scan(restart_blocks):
     expect = JN.encode_scan(blocks, tbl, JH.standard_tables(),
                             restart_interval=restart_blocks, blocks_per_mcu=1)
     assert got == expect
+
+
+@pytest.mark.parametrize("n", LEVEL1_SIZES)
+def test_level1_plain_matches_pallas_adversarial(n):
+    """The adversarial blocks (long zero runs, every magnitude category,
+    blocks at and over the 288-bit budget, mixed table ids) at ragged
+    sizes: the twin against the Pallas kernel, and both totals against a
+    position-by-position count."""
+    blocks, tbl = adversarial_level1_case(n, JH.standard_tables())
+    ref_buf, ref_tot = _pallas_level1(blocks, tbl)
+    buf, tot = PP.pack_level1(torch.as_tensor(blocks), torch.as_tensor(tbl),
+                              *_luts_torch())
+    _assert_level1_contract(buf.numpy().view(np.uint32), tot.numpy(),
+                            ref_buf, ref_tot)
+    want = [level1_bits(b, int(t), JH.standard_tables())
+            for b, t in zip(blocks, tbl)]
+    np.testing.assert_array_equal(tot.numpy(), want)
+
+
+def _skewed_tables():
+    """Optimal tables of geometrically skewed counts: the 16-bit length
+    limit binds, and ZRL gets another code than the standard one."""
+    out = {}
+    for is_ac, nsym in ((0, 12), (1, 162)):
+        std = PH.standard_tables()[(is_ac, 0)]
+        freq = np.zeros(256, dtype=np.int64)
+        for rank, sym in enumerate(np.flatnonzero(std.size)[::-1][:nsym]):
+            freq[sym] = max(1, int(2 ** 40 * 0.55 ** rank))
+        out[(is_ac, 0)] = out[(is_ac, 1)] = PH.optimal_table(freq)
+    return out
+
+
+@pytest.mark.parametrize("tables", ["standard", "skewed"])
+def test_packed_tables_hold_codes_and_lengths(tables):
+    htables = PH.standard_tables() if tables == "standard" else _skewed_tables()
+    if tables == "skewed":
+        assert max(int(t.size.max()) for t in htables.values()) == 16
+    dc_code, dc_len, ac_code, ac_len = PB.luts_from_tables(htables)
+    packed = PP.pack_tables(*(torch.as_tensor(a.astype(np.int32)) for a in
+                              (dc_code, dc_len, ac_code, ac_len)))
+    assert packed.shape == (2, 2, 256) and packed.dtype == torch.int32
+    for half, code, length in ((0, dc_code, dc_len), (1, ac_code, ac_len)):
+        np.testing.assert_array_equal(packed[half].numpy() >> 5, code)
+        np.testing.assert_array_equal(packed[half].numpy() & 31, length)
+
+
+def test_device_luts_cache_follows_the_table_set():
+    """The standard set is built once; another set (the optimize_tables
+    path) gets its own entry, with its own packed words."""
+    std = PE._device_luts(PH.standard_tables(), "cpu")
+    assert PE._device_luts(PH.standard_tables(), "cpu") is std
+    skew = PE._device_luts(_skewed_tables(), "cpu")
+    assert skew is not std
+    assert not torch.equal(skew[4], std[4])
+    for luts in (std, skew):
+        assert torch.equal(luts[4], PP.pack_tables(*luts[:4]))
+    # More table sets than the cache holds: the oldest goes, the newest stays.
+    for seed in range(PE._LUT_CACHE_SIZE + 1):
+        freq = np.random.default_rng(seed).integers(1, 1000, size=256)
+        t = PH.optimal_table(freq)
+        last = PE._device_luts({(0, 0): t, (1, 0): t, (0, 1): t, (1, 1): t},
+                               "cpu")
+    assert len(PE._lut_cache) == PE._LUT_CACHE_SIZE
+    assert PE._device_luts({(0, 0): t, (1, 0): t, (0, 1): t, (1, 1): t},
+                           "cpu") is last
 

@@ -38,3 +38,137 @@ def require_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def level1_bits(block, tid: int, htables) -> int:
+    """Bits of one zig-zag block (DC already DPCM'd) under the baseline
+    Huffman procedure, counted position by position in plain Python: an
+    oracle for the packers' totals that shares no code with them. Magnitude
+    categories are capped at 12, as the packers cap them."""
+    dc, ac = htables[(0, tid)], htables[(1, tid)]
+
+    def size(v):
+        return min(int(abs(int(v))).bit_length(), 12)
+
+    bits = int(dc.size[size(block[0])]) + size(block[0])
+    run = 0
+    for k in range(1, 64):
+        if block[k] == 0:
+            run += 1
+            continue
+        bits += (run >> 4) * int(ac.size[0xF0])
+        s = size(block[k])
+        bits += int(ac.size[((run & 15) << 4) + s]) + s
+        run = 0
+    if block[63] == 0:
+        bits += int(ac.size[0])
+    return bits
+
+
+def _block_of_bits(rng, target: int, tid: int, htables) -> np.ndarray:
+    """A dense block whose level-1 record is exactly `target` bits: random
+    dense blocks, the last coefficients adjusted until the count fits."""
+    while True:
+        block = np.zeros(64, dtype=np.int32)
+        n = int(rng.integers(30, 64))
+        block[:n] = rng.integers(-63, 64, size=n)
+        for _ in range(200):
+            bits = level1_bits(block, tid, htables)
+            if bits == target:
+                return block
+            k = int(rng.integers(1, 64))
+            block[k] = 0 if bits > target else int(rng.integers(-7, 8))
+
+
+def adversarial_level1_blocks(htables):
+    """(blocks (N, 64) int32, tbl (N,) int32): the cases a level-1 packer
+    gets wrong first. An all-zero block; only coefficient 63 nonzero; zero
+    runs of exactly 15, 16, 17, 31, 32, 33, 47, 48 and 62 before a nonzero
+    (alone, and followed by more); every magnitude category 1-12 with both
+    signs at its smallest and largest value (+-1 ... +-2047, and +-4095 and
+    beyond for the cap) as DC and as AC; blocks of exactly 288 and 289 bits
+    under each table; blocks far over the 288-bit budget (all +-1023, all
+    +-2047); table ids 0 and 1 alternating, so both meet within a warp."""
+    rng = np.random.default_rng(2024)
+    blocks = [np.zeros(64, dtype=np.int32)]
+    b = np.zeros(64, dtype=np.int32)
+    b[63] = -3
+    blocks.append(b)
+    for run in (15, 16, 17, 31, 32, 33, 47, 48, 62):
+        b = np.zeros(64, dtype=np.int32)
+        b[0] = 5
+        b[run + 1] = 2
+        blocks.append(b)
+        b = b.copy()
+        b[1 + run + 1:] = rng.integers(-4, 5, size=64 - (run + 2))
+        blocks.append(b)
+    # Two long runs in one block (16 + 32 zeros), and a run that ends at 63.
+    b = np.zeros(64, dtype=np.int32)
+    b[[0, 17, 50, 63]] = (-1, 1, -1, 7)
+    blocks.append(b)
+    for s in range(1, 13):
+        for v in (1 << (s - 1), (1 << s) - 1):
+            for sign in (1, -1):
+                b = np.zeros(64, dtype=np.int32)
+                b[0] = sign * v
+                b[1 + s] = -sign * v
+                b[40] = sign * v
+                blocks.append(b)
+    for v in (4096, -4096, 20000, -32768):
+        b = np.zeros(64, dtype=np.int32)
+        b[[0, 2]] = v
+        blocks.append(b)
+    for tid in (0, 1):
+        for target in (288, 289):
+            blocks.append(_block_of_bits(rng, target, tid, htables))
+    for v in (1023, 2047):
+        b = np.full(64, v, dtype=np.int32)
+        b[1::2] = -v
+        blocks.append(b)
+    blocks = np.stack(blocks)
+    tbl = (np.arange(len(blocks)) % 2).astype(np.int32)
+    # The exact-size blocks were fitted to their own table id.
+    fitted = len(blocks) - 6
+    tbl[fitted:fitted + 4] = (0, 0, 1, 1)
+    return blocks, tbl
+
+
+LEVEL1_SIZES = (1, 31, 33, 127, 129)
+
+
+def adversarial_level1_case(n: int, htables):
+    """The adversarial blocks cycled (and, past one cycle, shuffled by a
+    seeded permutation) to exactly n blocks."""
+    blocks, tbl = adversarial_level1_blocks(htables)
+    idx = np.arange(n) % len(blocks)
+    if n > len(blocks):
+        idx = np.random.default_rng(n).permutation(idx)
+    elif n < len(blocks):
+        # Short cases still see the hardest blocks: take them from the end.
+        idx = np.arange(len(blocks) - n, len(blocks))
+    return blocks[idx], tbl[idx]
+
+
+def adversarial_idct_planes():
+    """[(name, coefficient plane (H, W) int32, (8, 8) quant table)]: the
+    smallest plane, a ragged width (40 = 5 blocks), a wide one that is not
+    a multiple of 128 columns (1008), DC only, and one coefficient at
+    +-2047 under a table of 255s (samples near 1e5, where an f32 ulp is
+    8e-3, close to the 1e-2 tolerance)."""
+    rng = np.random.default_rng(77)
+    flat = np.full((8, 8), 16, dtype=np.int32)
+    steep = np.full((8, 8), 255, dtype=np.int32)
+    cases = []
+    for shape in ((8, 8), (8, 40), (16, 1008)):
+        cases.append((f"random{shape}",
+                      rng.integers(-100, 101, size=shape).astype(np.int32),
+                      flat))
+    dc_only = np.zeros((16, 40), dtype=np.int32)
+    dc_only[::8, ::8] = rng.integers(-1024, 1024, size=(2, 5))
+    cases.append(("dc_only", dc_only, flat))
+    for sign, (u, v) in ((1, (0, 0)), (-1, (7, 7)), (1, (1, 6)), (-1, (4, 3))):
+        one = np.zeros((8, 40), dtype=np.int32)
+        one[u, 16 + v] = sign * 2047
+        cases.append((f"one_{'p' if sign > 0 else 'm'}2047_at_{u}{v}", one,
+                      steep))
+    return cases
