@@ -20,8 +20,9 @@ Phases, each reported on its own line:
   5. kernel B (dequant + IDCT) against its plain twin at the 4K plane shapes
      and on the adversarial planes of tests/torch_port_util.py;
      5b: kernel C (level shift + DCT + quantize) against its plain twin on
-     the 4K Y, Cb and Cr planes at q75 and q95 and a uniform-random plane:
-     |diff| <= 1, differing in at most max(8, 5e-4 n) coefficients;
+     the 4K Y, Cb and Cr planes at q75 and q95, a uniform-random plane and a
+     ragged width (2160x3848): 0 coefficients apart, and within the
+     kernel's contract of the twin run on the CPU (a second witness);
   6. the main path: a 3840x2160 q75 4:2:0 encode and decode through
      jpeg_tpu_torch.encode/decode on the card, with every launch counter
      reset first; the bytes must equal the port's CPU encode, the pixels the
@@ -35,10 +36,21 @@ Phases, each reported on its own line:
      equal CPU bytes;
      6e: the image's Y plane as a gray image: card bytes equal CPU bytes,
      the card decode within +-1 of the CPU decode in <= 0.5% of samples;
+     6f: the decode options on the 4K colour and gray streams, counted:
+     entropy="sparse" and "native" (kernel B 3 launches each, 1 for gray,
+     kernels A and C none, all three counts read after every decode here),
+     pixels exactly equal; the payload's bytes beside the dense grids';
+     scale_denom 2, 4, 8 against the CPU decode; output="ycbcr" +
+     finish_ycbcr == decode() exactly; device_output a tensor on cuda:0
+     equal to the host result;
+     6g: the committed fixture streams (tests/data/torch_port: progressive,
+     non-interleaved, CMYK, YCCK), card decode against CPU decode;
   7. smaller encodes (4:4:4 1001x777, 4:2:2, aligned restarts) byte-identical
      to the CPU path;
   8. median timings over warm runs: encode (default, use_pallas,
-     optimize_tables, gray), decode (colour, gray); each kernel's wrapper
+     optimize_tables, gray), decode (colour, gray; sparse and native, each
+     also by stage; scaled; ycbcr planes + host finish; the host cost of
+     packing dense grids into the sparse payload); each kernel's wrapper
      call and its plain twin on the card (CUDA events around one call); and
      each kernel alone (kernel_only_us: events around a graph of 20 launches
      on prepared buffers, L2 cold) beside the bytes it must move and the
@@ -215,6 +227,36 @@ def coef_diff(got, ref):
     return int(d.max()), int((d != 0).sum()), max(8, 5e-4 * n), n
 
 
+def decode_diff(got, ref):
+    """The decode contract against the CPU path: (max |diff|, samples
+    differing, samples); raises unless within +-1 in <= DIFF_SHARE."""
+    check(got.shape == ref.shape and got.dtype == np.uint8,
+          f"decoded {got.shape} {got.dtype}, expected {ref.shape}")
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    worst, ndiff = int(diff.max(initial=0)), int((diff != 0).sum())
+    check(worst <= 1, f"decode differs from the CPU decode by {worst}")
+    check(ndiff <= DIFF_SHARE * diff.size,
+          f"{ndiff} of {diff.size} samples differ from the CPU decode")
+    return worst, ndiff, diff.size
+
+
+def stage_medians(stages, torch):
+    """stages: [(name, fn)], each fn taking the previous stage's result.
+    Runs the chain WARM + RUNS times with a synchronize after every stage;
+    returns {name: median ms} (host clock)."""
+    times = {name: [] for name, _ in stages}
+    for run in range(WARM + RUNS):
+        value = None
+        for name, fn in stages:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = fn(value)
+            torch.cuda.synchronize()
+            if run >= WARM:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
 def timed(fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -261,14 +303,15 @@ def run(card: str) -> dict:
 
     import jpeg_tpu_torch
     from jpeg_tpu_torch.config import EncodeConfig, Subsampling
-    from jpeg_tpu_torch.entropy import huffman, native
+    from jpeg_tpu_torch.entropy import decode_device, huffman, native
     from jpeg_tpu_torch.io import jfif
-    from jpeg_tpu_torch.models import encoder, layout
+    from jpeg_tpu_torch.models import decoder, encoder, layout
     from jpeg_tpu_torch.ops import (
         bitpack, fused, pack, quant, symbols, tile, zigzag)
 
     # The adversarial inputs are shared with the CPU and card tests.
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    import torch_port_fixtures as port_fixtures
     import torch_port_util as port_util
 
     dev = torch.device(DEVICE)
@@ -402,18 +445,33 @@ def run(card: str) -> dict:
     cases.append((torch.as_tensor(
         rng.integers(0, 256, size=(HEIGHT, WIDTH)).astype(np.float32),
         device=dev), QUALITY, "uniform random"))
+    # A width that is a multiple of 8 but not of a warp's 256 columns.
+    cases.append((torch.as_tensor(
+        rng.integers(0, 256, size=(HEIGHT, WIDTH + 8)).astype(np.float32),
+        device=dev), QUALITY, "uniform random, ragged width"))
     err_c = 0
     for plane, q, name in cases:
-        qt = quant.luma_table(q) if name in ("Y", "uniform random") else (
-            quant.chroma_table(q))
-        e, nd, bound, n = coef_diff(fused.fused_dct_quantize(plane, qt),
-                                    fused.fused_dct_quantize_reference(plane, qt))
+        qt = quant.chroma_table(q) if name in ("Cb", "Cr") else (
+            quant.luma_table(q))
+        got = fused.fused_dct_quantize(plane, qt)
+        e, nd, _, n = coef_diff(
+            got, fused.fused_dct_quantize_reference(plane, qt))
+        # A second witness, the twin on the CPU: if the card's twin ever
+        # orders its matrix products differently, this says which side moved.
+        e_cpu, nd_cpu, bound, _ = coef_diff(
+            got, fused.fused_dct_quantize_reference(plane.cpu(), qt))
         print(f"phase 5b: kernel C vs plain, {name} plane "
               f"{tuple(plane.shape)} q{q}: max |err| {e}, {nd} of {n} "
-              f"coefficients differ (bound {bound:.0f})", flush=True)
-        check(e <= 1 and nd <= bound,
-              f"kernel C disagrees with its plain twin on {name} q{q}")
+              f"coefficients differ; vs the twin on the CPU: max |err| "
+              f"{e_cpu}, {nd_cpu} differ (bound {bound:.0f})", flush=True)
+        check(nd == 0,
+              f"kernel C disagrees with its plain twin on {name} q{q} "
+              f"({nd} coefficients; {nd_cpu} against the twin on the CPU)")
+        check(e_cpu <= 1 and nd_cpu <= bound,
+              f"kernel C is outside its contract against the twin on the "
+              f"CPU on {name} q{q}")
         err_c = max(err_c, e)
+    del cases
 
     # Phase 6: the main path, counted.
     torch.cuda.synchronize()
@@ -591,6 +649,105 @@ def run(card: str) -> dict:
     check(int(diff.max()) <= 1 and ndiff <= DIFF_SHARE * diff.size,
           "gray decode differs from the CPU decode")
 
+    # Phase 6f: the decode options at 4K, colour then gray, counted.
+    def counted(fn):
+        """fn() with every kernel's count set to 0 just before and read just
+        after: (result, (A, B, C) launches)."""
+        torch.cuda.synchronize()
+        pack.LAUNCHES = 0
+        fused.LAUNCHES = 0
+        fused.DCT_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES)
+
+    per_sparse = per_native = None
+    for label, stream, px_card, px_ref, nb in (
+            ("colour", jpg, px, px_cpu, 3), ("gray", jpg_g, px_g, px_g_cpu, 1)):
+        px_sparse, n_sparse = counted(lambda: jpeg_tpu_torch.decode(
+            stream, device=dev, entropy="sparse"))
+        px_native, n_native = counted(lambda: jpeg_tpu_torch.decode(
+            stream, device=dev, entropy="native"))
+        args = port_util.scan_args(stream)
+        payload = decode_device.sparse_payload(*args)[0]
+        dense_bytes = args[1] * sum(bpm for _, bpm, _, _ in args[2]) * 64 * 4
+        print(f"phase 6f: {label} 4K decode: launches (A, B, C) sparse "
+              f"{n_sparse}, native {n_native}; sparse == native: "
+              f"{np.array_equal(px_sparse, px_native)}; == the default "
+              f"decode: {np.array_equal(px_sparse, px_card)}; payload "
+              f"{payload.nbytes} bytes, dense coefficient grids "
+              f"{dense_bytes} bytes", flush=True)
+        check(n_sparse == (0, nb, 0) and n_native == (0, nb, 0),
+              f"{label} decode: launches {n_sparse} / {n_native}, not "
+              f"{(0, nb, 0)}")
+        check(np.array_equal(px_sparse, px_native),
+              f"{label}: sparse and native decodes differ")
+        check(np.array_equal(px_sparse, px_card),
+              f"{label}: the default decode differs from the sparse one")
+        if label == "colour":
+            per_sparse, per_native = n_sparse, n_native
+        for d in (2, 4, 8):
+            ref_d, secs = timed(lambda: jpeg_tpu_torch.decode(
+                stream, device="cpu", scale_denom=d))
+            got_d, n_b = counted(lambda: jpeg_tpu_torch.decode(
+                stream, device=dev, scale_denom=d))
+            worst, ndiff, n = decode_diff(got_d, ref_d)
+            print(f"phase 6f: {label} scale_denom {d}: {got_d.shape}, "
+                  f"launches {n_b}; vs CPU decode: max |diff| {worst}, "
+                  f"{ndiff} of {n} differ (CPU reference {secs:.2f} s)",
+                  flush=True)
+            check(got_d.shape[:2] == (layout.ceil_div(HEIGHT, d),
+                                      layout.ceil_div(WIDTH, d)),
+                  f"scale_denom {d} gave {got_d.shape}")
+            check(n_b == (0, 0, 0), f"a scaled decode launched {n_b}")
+        out_dev, n_b = counted(lambda: jpeg_tpu_torch.decode(
+            stream, device=dev, device_output=True))
+        check(n_b == (0, nb, 0), f"{label} device_output: launches {n_b}")
+        check(isinstance(out_dev, torch.Tensor)
+              and str(out_dev.device) == "cuda:0",
+              f"{label}: device_output is not a tensor on cuda:0")
+        check(np.array_equal(out_dev.cpu().numpy(), px_card),
+              f"{label}: device_output differs from the host result")
+        print(f"phase 6f: {label} device_output: {tuple(out_dev.shape)} "
+              f"{out_dev.dtype} on {out_dev.device}, equal to the host "
+              f"result", flush=True)
+    for d in (1, 2):
+        planes_d, n_b = counted(lambda: jpeg_tpu_torch.decode(
+            jpg, device=dev, output="ycbcr", scale_denom=d))
+        rgb_d = px if d == 1 else jpeg_tpu_torch.decode(jpg, device=dev,
+                                                        scale_denom=d)
+        fin = jpeg_tpu_torch.finish_ycbcr(planes_d)
+        fin1 = jpeg_tpu_torch.finish_ycbcr(planes_d, threads=1)
+        print(f"phase 6f: output='ycbcr' scale_denom {d}: planes "
+              f"{[p.shape for p in planes_d.planes]} "
+              f"({sum(p.nbytes for p in planes_d.planes)} bytes, RGB "
+              f"{rgb_d.nbytes}); launches {n_b}; finish_ycbcr == "
+              f"decode(): {np.array_equal(fin, rgb_d)} (1 thread: "
+              f"{np.array_equal(fin1, rgb_d)})", flush=True)
+        check(n_b == (0, 3 if d == 1 else 0, 0),
+              f"ycbcr output at scale_denom {d}: launches {n_b}")
+        check(np.array_equal(fin, rgb_d) and np.array_equal(fin1, rgb_d),
+              f"finish_ycbcr differs from decode() at scale_denom {d}")
+    planes_dev = jpeg_tpu_torch.decode(jpg, device=dev, output="ycbcr",
+                                       device_output=True)
+    check(all(str(p.device) == "cuda:0" for p in planes_dev.planes),
+          "ycbcr device_output planes are not on cuda:0")
+    check(np.array_equal(jpeg_tpu_torch.finish_ycbcr(planes_dev), px),
+          "finish_ycbcr of device planes differs from decode()")
+
+    # Phase 6g: the stream types only the host walkers read, on the card.
+    for name, (_build, shape) in sorted(port_fixtures.FIXTURES.items()):
+        data = port_fixtures.read(name)
+        ref = jpeg_tpu_torch.decode(data, device="cpu")
+        got, n_b = counted(lambda: jpeg_tpu_torch.decode(data, device=dev))
+        worst, ndiff, n = decode_diff(got, ref)
+        print(f"phase 6g: {name}: {got.shape}, launches {n_b}; vs "
+              f"CPU decode: max |diff| {worst}, {ndiff} of {n} differ",
+              flush=True)
+        check(got.shape == shape, f"{name} decoded to {got.shape}")
+        check(n_b == (0, shape[2] if len(shape) == 3 else 1, 0),
+              f"{name}: launches {n_b}")
+
     # Phase 7: smaller encodes, byte-identical to the CPU path.
     for (h, w), sub, r in (((777, 1001), "444", 0), ((480, 640), "422", 0),
                            ((768, 1024), "420", 4)):
@@ -617,6 +774,78 @@ def run(card: str) -> dict:
         lambda: jpeg_tpu_torch.encode(gray, QUALITY, device=dev), torch)
     ms_dec_gray = median_ms_host(
         lambda: jpeg_tpu_torch.decode(jpg_g, device=dev), torch)
+    # Decode by backend, end to end and by stage. "native" uploads the three
+    # dense int32 grids, "sparse" one payload of the nonzeros.
+    ms_dec_by = {}
+    ms_dec_by["native"] = median_ms_host(
+        lambda: jpeg_tpu_torch.decode(jpg, device=dev, entropy="native"),
+        torch)
+    ms_dec_by["sparse"] = median_ms_host(
+        lambda: jpeg_tpu_torch.decode(jpg, device=dev, entropy="sparse"),
+        torch)
+    ms_dec_by["auto"] = ms_dec
+    ms_dec_scaled = {d: median_ms_host(
+        lambda: jpeg_tpu_torch.decode(jpg, device=dev, scale_denom=d), torch)
+        for d in (2, 4, 8)}
+    ms_dec_planes = median_ms_host(
+        lambda: jpeg_tpu_torch.decode(jpg, device=dev, output="ycbcr"), torch)
+    planes_4k = jpeg_tpu_torch.decode(jpg, device=dev, output="ycbcr")
+    ms_finish_host = median_ms_host(
+        lambda: jpeg_tpu_torch.finish_ycbcr(planes_4k), torch)
+    ms_finish_host_1 = median_ms_host(
+        lambda: jpeg_tpu_torch.finish_ycbcr(planes_4k, threads=1), torch)
+    ms_dec_dev_out = median_ms_host(
+        lambda: jpeg_tpu_torch.decode(jpg, device=dev, device_output=True),
+        torch)
+    # What re-encoding dense host grids as the sparse payload would cost on
+    # the host, beside the dense upload it would save (the "dense upload"
+    # stage below): the decoder uploads such grids dense for this reason.
+    ms_from_blocks = median_ms_host(
+        lambda: decode_device.sparse_payload_from_blocks(scans), torch)
+
+    n_mcu_4k = mcu_rows * mcu_cols
+    lay_4k = [(i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)]
+    geo_4k = [(mcu_rows, mcu_cols, c.v, c.h) if c.h * c.v > 1 else None
+              for c in comps]
+    sizes_4k = [mcu_rows * c.v * mcu_cols * c.h for c in comps]
+    shapes_4k = tuple((mcu_rows * c.v, mcu_cols * c.h) for c in comps)
+    factors_4k = tuple((hmax // c.h, vmax // c.v) for c in comps)
+    qtabs_4k = [qt for _, qt in planes]
+
+    def reorder(zz):
+        return [layout.scan_to_raster(z, *g).contiguous() if g else z
+                for z, g in zip(zz, geo_4k)]
+
+    def densify(p):
+        words, nb, sp, ep, edp = p
+        return list(torch.split(
+            decode_device.densify_body(words, nb, sp, ep, edp), sizes_4k))
+
+    tail = [
+        ("scan -> raster on the card", reorder),
+        ("finish (kernel B x3, upsample, colour)",
+         lambda zz: decoder._finish_color(*zz, *qtabs_4k, shapes_4k,
+                                          factors_4k)),
+        ("download", lambda out: out[:HEIGHT, :WIDTH].cpu().numpy()),
+    ]
+    stage_ms = {
+        "sparse": stage_medians([
+            ("host sparse walk + pack", lambda _: decode_device.sparse_payload(
+                info.scan_data, n_mcu_4k, lay_4k, info.htables,
+                info.restart_interval)),
+            ("payload upload", lambda p: (
+                decode_device.payload_tensor(p[0], dev), *p[1:])),
+            ("densify on the card", densify),
+        ] + tail, torch),
+        "native": stage_medians([
+            ("host dense walk", lambda _: native.decode_scan(
+                info.scan_data, n_mcu_4k, lay_4k, info.htables,
+                info.restart_interval)),
+            ("dense upload", lambda host: [
+                torch.as_tensor(z, device=dev) for z in host]),
+        ] + tail, torch),
+    }
+
     luma, qluma = planes[0]
     ms_a = median_ms_device(lambda: pack.pack_level1(
         blocks4k, tbl4k, *luts, packed=packed), torch)  # as the encoder calls it
@@ -691,6 +920,24 @@ def run(card: str) -> dict:
     ):
         print(f"phase 8: {label}: {ms:.3f} ms median of {RUNS} "
               f"({mpix / ms * 1e3:.1f} MPix/s) [{card}]", flush=True)
+    for label, ms in (
+        *((f"decode 4K, entropy {k!r}", v) for k, v in ms_dec_by.items()),
+        *((f"decode 4K, scale_denom {d}", v) for d, v in ms_dec_scaled.items()),
+        ("decode 4K, output='ycbcr' (planes to the host)", ms_dec_planes),
+        ("finish_ycbcr on the host, 4K planes, default threads",
+         ms_finish_host),
+        ("finish_ycbcr on the host, 4K planes, 1 thread", ms_finish_host_1),
+        ("decode 4K, device_output (no download)", ms_dec_dev_out),
+        ("sparse_payload_from_blocks on the host, 4K dense grids (no caller "
+         "in decode)", ms_from_blocks),
+    ):
+        print(f"phase 8: {label}: {ms:.3f} ms median of {RUNS} [{card}]",
+              flush=True)
+    for path, stages in stage_ms.items():
+        print(f"phase 8: decode 4K stages, {path} (sum "
+              f"{sum(stages.values()):.3f} ms): "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+              + f" [{card}]", flush=True)
     for label, ms, plain in (
         (f"kernel A pack_level1, {blocks4k.shape[0]} blocks", ms_a, ms_a_plain),
         (f"kernel B idct8, {tuple(luma.shape)} plane", ms_b, ms_b_plain),
@@ -712,10 +959,13 @@ def run(card: str) -> dict:
                 "bound_us": bound_us(nbytes),
                 "bound_share": bound_us(nbytes) / us,
                 "launches_per": dict(zip(
-                    ("default_encode", "default_decode", "use_pallas_encode"),
+                    ("default_encode", "default_decode", "use_pallas_encode",
+                     "sparse_decode", "native_decode"),
                     launches_per)), **more}
 
-    per = list(zip(per_encode, per_decode, per_pallas))  # by kernel A, B, C
+    # By kernel A, B, C: each path's counts as read just after it ran.
+    per = list(zip(per_encode, per_decode, per_pallas, per_sparse,
+                   per_native))
     return {"kernels": [
         entry("pack_level1", "jpeg_tpu_torch/csrc/pack_level1.cu",
               "jpeg_tpu/ops/pack_pallas.py:82", launches_a, err_a, ms_a,

@@ -1,8 +1,11 @@
 """ctypes binding for the native (C++) entropy runtime.
 
 Compiles the JAX package's jpeg_tpu/native/entropy.cc (read by path, never
-imported) on first use with g++ -O3 into jpeg_tpu_torch/build/. The port has
-no NumPy entropy codec: a missing compiler or a failed build raises.
+imported) on first use with g++ -O3 into jpeg_tpu_torch/build/. A missing
+compiler or a failed build raises, in the encoder and in the decoder alike:
+the NumPy walkers (entropy/decode_np, entropy/progressive_np) are for
+entropy="numpy" and for scan layouts the native runtime does not take, never
+a silent stand-in for a runtime that did not build.
 """
 
 from __future__ import annotations

@@ -1,55 +1,84 @@
-"""The decoder pipeline: JFIF JPEG bytes -> RGB pixels.
+"""The decoder pipeline: JFIF JPEG bytes -> RGB/gray/CMYK pixels.
 
-  host: JFIF parse, native C++ Huffman decode to dense zig-zag coefficients,
-  scan -> raster block order; device: de-zigzag, dequant + IDCT + unshift
-  (kernel B, ops/fused), round and clip, chroma upsample, YCbCr -> RGB,
-  round and clip to uint8; host: crop.
+  host: JFIF parse, Huffman scan decode (native C++ or NumPy walkers; for
+  baseline single-scan streams the sparse walk, which yields only the
+  nonzero coefficients) -> one upload -> device: densify (sparse payloads),
+  scan -> raster block order, de-zigzag, dequant + IDCT + unshift (kernel B,
+  ops/fused; the DCT-domain scaled IDCT for scale_denom 2/4/8), round and
+  clip, chroma upsample, YCbCr -> RGB, round and clip to uint8 -> crop.
 
-Gray (1-component) baseline streams take the same route with one block per
-MCU and no colour map (jpeg_tpu's dense _finish_gray).
+Sequential (SOF0/SOF1) and progressive (SOF2) Huffman modes, 8-bit, 1, 3 or
+4 components (gray / YCbCr / RGB / Adobe CMYK+YCCK), arbitrary per-component
+sampling factors 1-4 with integer upsampling ratios, interleaved or
+non-interleaved multi-scan, any Huffman table ids: everything
+jpeg_tpu.decode takes. Not ported: the device entropy decoders
+(entropy="device" / "indexed", ROADMAP.md Queue 1 item 8) and decode_batched
+(Queue 1 item 5).
 
-The port covers 1-component and 3-component single-scan (interleaved)
-baseline streams whose components use Huffman table ids 0/1. Other streams
-and options raise NotImplementedError naming the ROADMAP.md item that will
-bring them.
+Full-size planes (k = 8) always run kernel B on a CUDA device and its plain
+twin on the CPU; there is no use_pallas switch.
 """
 
 from __future__ import annotations
 
+import os
+import typing
+
 import numpy as np
 import torch
 
-from jpeg_tpu_torch.entropy import native
+from jpeg_tpu_torch.entropy import (
+    decode_device, decode_np, native, progressive_np)
 from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import layout
-from jpeg_tpu_torch.ops import color, fused, subsample, tile, zigzag
+from jpeg_tpu_torch.ops import (
+    color, dct, fused, mcu_conv, quant, subsample, tile, zigzag)
+
+ENTROPY_BACKENDS = ("auto", "native", "numpy", "device", "indexed", "sparse")
 
 
-def _reconstruct_plane(zz, qtab, blocks_shape):
-    """(N, 64) zig-zag quantized blocks in plane raster order -> (H, W)
-    float plane of integer samples in [0, 255].
+def _reconstruct_plane(zz, qtab, blocks_shape, k: int = 8):
+    """(N, 64) zig-zag quantized blocks in plane raster order ->
+    (H*k/8, W*k/8) float plane of integer samples in [0, 255]. k < 8 runs
+    the DCT-domain scaled IDCT (libjpeg "draft"/jidctred semantics,
+    dct.idct_scaled_basis): each 8x8 block reconstructs as k x k pixels from
+    its lowest k x k frequencies, as two full-f32 contractions (no kernel:
+    the reference runs it as an einsum outside Pallas too).
 
     The samples are rounded and range-limited *before* any upsampling or
     colour math, matching libjpeg's post-IDCT range_limit: clamping order is
     observable through the triangular chroma upsample at extreme
-    quantization."""
+    quantization. Integer samples also make every later f32 op exact enough
+    that the host finish (finish_ycbcr) reproduces the device's bytes."""
     hb, wb = blocks_shape
     blocks = zigzag.from_zigzag(zz.reshape(hb, wb, 64))
-    plane = fused.fused_dequant_idct(tile.unblockify(blocks), qtab)
+    if k != 8:
+        if zz.device.type == "cuda":
+            mcu_conv._require_full_f32()  # the einsums must not run in TF32
+        coeff = quant.dequantize(blocks, qtab)
+        b = torch.as_tensor(dct.idct_scaled_basis(k), device=zz.device)
+        if k == 1:
+            # One sample per block, from the DC alone: DC * (b00 * b00), the
+            # two basis entries multiplied first, as jnp.einsum orders
+            # "yu,abuv,xv->abyx" for a (1, 8) basis. The order matters here:
+            # b00 * b00 is 0.12499999 in f32, samples land on .5 boundaries
+            # often, and (DC * b00) * b00 rounds many of them the other way.
+            plane = coeff[..., 0, 0] * (b[0, 0] * b[0, 0]) + 128.0
+        else:
+            t = torch.einsum("yu,abuv->abyv", b, coeff)
+            small = torch.einsum("abyv,xv->abyx", t, b)
+            plane = small.permute(0, 2, 1, 3).reshape(hb * k, wb * k) + 128.0
+    else:
+        plane = fused.fused_dequant_idct(tile.unblockify(blocks), qtab)
     return torch.clamp(torch.round(plane), 0.0, 255.0)
 
 
-def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
-                  fancy=(True, True, True), is_rgb: bool = False):
-    """shapes: per-component block grids (hb, wb); factors: per-component
-    (fh, fv) upsampling ratios to the max-sampled grid. fancy: per-component
-    triangular-vs-replication choice (upsample_choices). is_rgb: components
-    are stored as R/G/B, so the YCbCr matrix is skipped."""
+def _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k: int = 8):
+    """Per-component reconstructed planes, each upsampled to the
+    max-sampled grid (triangular or replication per `fancy`)."""
     planes = []
-    for zz, q, shape, (fh, fv), fan in zip(
-        (y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes, factors, fancy
-    ):
-        p = _reconstruct_plane(zz, q, shape)
+    for zz, q, shape, (fh, fv), fan in zip(zzs, qtabs, shapes, factors, fancy):
+        p = _reconstruct_plane(zz, q, shape, k)
         if fh > 1 or fv > 1:
             up = (
                 subsample.fancy_upsample_factors
@@ -57,13 +86,181 @@ def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
             )
             p = up(p, fv, fh)
         planes.append(p)
+    return planes
+
+
+def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
+                  fancy=(True, True, True), is_rgb: bool = False, k: int = 8):
+    """shapes: per-component block grids (hb, wb); factors: per-component
+    (fh, fv) upsampling ratios to the max-sampled grid. fancy: per-component
+    triangular-vs-replication choice (upsample_choices). is_rgb: components
+    are stored as R/G/B, so the YCbCr matrix is skipped."""
+    planes = _upsampled_planes((y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes,
+                               factors, fancy, k)
     ycc = torch.stack(planes, dim=-1)
     rgb = ycc if is_rgb else color.ycbcr_to_rgb(ycc)
     return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
 
 
-def _finish_gray(zz, qy, shape):
-    return _reconstruct_plane(zz, qy, shape).to(torch.uint8)
+def _finish_gray(zz, qy, shape, k: int = 8):
+    return _reconstruct_plane(zz, qy, shape, k).to(torch.uint8)
+
+
+class YCbCrPlanes(typing.NamedTuple):
+    """decode(output="ycbcr") result: per-component uint8 sample planes at
+    their PADDED block-grid sizes (the full padded planes are required for
+    an exact host finish: the triangular upsample's edge samples read the
+    block-padding columns that the device RGB path also reads before its
+    crop). `finish_ycbcr` reproduces decode(output="rgb") bit-exactly.
+
+    For 4:2:0 the three planes total 1.5 bytes/pixel against 3 for RGB:
+    half the device->host transfer."""
+
+    planes: tuple       # per-component 2-D uint8 arrays (np, or tensors)
+    height: int         # true output frame height (after scale_denom)
+    width: int
+    factors: tuple      # per-component (fh, fv) upsample ratios
+    fancy: tuple        # per-component triangular-vs-replication choice
+
+
+def _finish_planes(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, k: int = 8,
+                   flat: bool = False):
+    """Device half of the ycbcr output: per-component integer sample planes
+    (the exact values _finish_color would feed its upsample/colour tail),
+    as uint8. flat=True returns ONE concatenated 1-D buffer instead of a
+    tuple: the to-host case fetches it in a single copy."""
+    planes = tuple(
+        _reconstruct_plane(zz, q, shape, k).to(torch.uint8)
+        for zz, q, shape in zip(
+            (y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes)
+    )
+    if flat:
+        return torch.cat([p.reshape(-1) for p in planes])
+    return planes
+
+
+def _split_flat_planes(buf: np.ndarray, shapes, k: int):
+    """Host inverse of _finish_planes(flat=True)."""
+    out = []
+    off = 0
+    for hb, wb in shapes:
+        h, w = hb * k, wb * k
+        out.append(buf[off:off + h * w].reshape(h, w))
+        off += h * w
+    return tuple(out)
+
+
+def _np_triangle_axis(x: np.ndarray, axis: int) -> np.ndarray:
+    """NumPy mirror of subsample._triangle_axis (same f32 expression order,
+    so results are bit-identical for integer-valued inputs)."""
+    x = np.moveaxis(x, axis, 0)
+    prev = np.concatenate([x[:1], x[:-1]], axis=0)
+    nxt = np.concatenate([x[1:], x[-1:]], axis=0)
+    a = (np.float32(3.0) * x + prev) * np.float32(0.25)
+    b = (np.float32(3.0) * x + nxt) * np.float32(0.25)
+    out = np.stack([a, b], axis=1).reshape(2 * x.shape[0], *x.shape[1:])
+    return np.moveaxis(out, 0, axis)
+
+
+def _np_upsample(x: np.ndarray, fv: int, fh: int, fan: bool) -> np.ndarray:
+    if not fan:
+        return x.repeat(fv, axis=0).repeat(fh, axis=1)
+    f = fh
+    while f > 1:
+        if f % 2:
+            return x.repeat(fv, axis=0).repeat(f, axis=1)
+        x = _np_triangle_axis(x, 1)
+        f //= 2
+    f = fv
+    while f > 1:
+        if f % 2:
+            return x.repeat(f, axis=0)
+        x = _np_triangle_axis(x, 0)
+        f //= 2
+    return x
+
+
+def _finish_ycbcr_rows(p: YCbCrPlanes, r0: int, r1: int) -> np.ndarray:
+    """finish_ycbcr for output rows [r0, r1): each component upsamples a
+    halo-padded row slice and crops to the stripe, so the result is
+    bit-identical to the full-array computation (the triangular filter has
+    1-row support per doubling; the 4-row halo covers factors <= 4, and
+    true top/bottom edges keep their replication semantics because the
+    slice reaches the array edge there)."""
+    planes = []
+    for plane, (fh, fv), fan in zip(p.planes, p.factors, p.fancy):
+        lo = max(0, r0 // fv - 4)
+        hi = min(plane.shape[0], -(-r1 // fv) + 4)
+        x = plane[lo:hi].astype(np.float32)
+        if fh > 1 or fv > 1:
+            x = _np_upsample(x, fv, fh, fan)
+        planes.append(x[r0 - lo * fv: r1 - lo * fv])
+    w = min(pl.shape[1] for pl in planes)
+    # color.ycbcr_to_rgb's chain, term for term: a BLAS product may sum in
+    # another order and break equality with the device's bytes.
+    terms = [pl[:, :w] - color.YCBCR_OFFSET[c] for c, pl in enumerate(planes)]
+    rgb = np.empty((terms[0].shape[0], w, 3), dtype=np.float32)
+    for c, row in enumerate(color.YCBCR_TO_RGB):
+        acc = terms[0] * row[0]
+        acc = acc + terms[1] * row[1]
+        rgb[..., c] = acc + terms[2] * row[2]
+    return np.clip(np.round(rgb), 0, 255).astype(np.uint8)
+
+
+def finish_ycbcr(p: YCbCrPlanes, threads: int | None = None) -> np.ndarray:
+    """Host finish for decode(output="ycbcr"): upsample + YCbCr->RGB +
+    round/clip + crop, bit-identical to decode(output="rgb") on the same
+    stream. All host f32 ops mirror the device finish expression for
+    expression: integer uint8 samples make the triangle weights exact
+    quarter-integers and each colour channel is one f32 multiply-add chain
+    in the order of color.ycbcr_to_rgb.
+
+    Runs in row stripes on a thread pool (NumPy releases the GIL).
+    threads=1 forces the serial path; stripes are halo-exact, so the thread
+    count never changes bytes."""
+    # Bring device planes to the host ONCE up front; the stripes slice them.
+    p = p._replace(planes=tuple(
+        pl.cpu().numpy() if isinstance(pl, torch.Tensor) else np.asarray(pl)
+        for pl in p.planes))
+    y_rows = max(int(p.planes[0].shape[0]), p.height)
+    if threads is None:
+        threads = min(8, os.cpu_count() or 1)
+    if threads <= 1 or y_rows < 256:
+        return _finish_ycbcr_rows(p, 0, p.height)[:, : p.width]
+    from concurrent.futures import ThreadPoolExecutor
+
+    step = -(-p.height // threads)
+    # Stripe boundaries on even rows: keeps every chroma doubling's
+    # a/b sample pairing identical to the full computation.
+    step += step % 2
+    spans = [(r, min(r + step, p.height))
+             for r in range(0, p.height, step)]
+    with ThreadPoolExecutor(len(spans)) as pool:
+        parts = list(pool.map(
+            lambda s: _finish_ycbcr_rows(p, s[0], s[1]), spans))
+    return np.concatenate(parts, axis=0)[:, : p.width]
+
+
+def _finish_cmyk(zzs, qtabs, shapes, factors, fancy, ycck: bool,
+                 invert: bool):
+    """Four-component (Adobe CMYK / YCCK) finish.
+
+    ycck: components 1-3 are YCbCr-coded (APP14 transform=2): run the
+    inverse colour matrix, then complement into stored-CMY space (libjpeg
+    jdcolor.c ycck_cmyk_convert). invert: an Adobe APP14 marker is present,
+    so match PIL's convention of returning the complement of the stored
+    samples (JpegImagePlugin rawmode "CMYK;I")."""
+    planes = _upsampled_planes(zzs, qtabs, shapes, factors, fancy)
+    if ycck:
+        rgb = color.ycbcr_to_rgb(torch.stack(planes[:3], dim=-1), clip=True)
+        stored = torch.stack(
+            [255.0 - rgb[..., 0], 255.0 - rgb[..., 1], 255.0 - rgb[..., 2],
+             planes[3]], dim=-1,
+        )
+    else:
+        stored = torch.stack(planes, dim=-1)
+    out = 255.0 - stored if invert else stored
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
 
 def upsample_choices(width: int, components, hmax: int,
@@ -78,20 +275,254 @@ def upsample_choices(width: int, components, hmax: int,
     return tuple(out)
 
 
-def _check_supported(info: jfif.FrameInfo) -> None:
+def _progressive_backend(entropy: str) -> str:
+    """Map decode()'s entropy selector onto the progressive scan walkers.
+    Progressive has host backends only (numpy / native C++); the other
+    selectors take the best host one."""
+    if entropy == "numpy":
+        return "numpy"
+    if entropy == "native":
+        return "native"
+    return "auto"
+
+
+def _auto_takes_sparse(device: torch.device) -> bool:
+    """Whether entropy="auto" takes the sparse backend for a baseline
+    single-scan stream on `device` (when the native runtime fits the
+    layout): on a card, not on the CPU, where densify would only add work
+    to the native dense walk.
+
+    Decided by measurement (chip_smoke.py phase 8, 3840x2160 q75 4:2:0,
+    NVIDIA H100 80GB HBM3 at 700 W, medians of 7 end to end): sparse
+    46.2 ms against 74.7 ms for the native walk with the dense upload. The
+    sparse walk + pack is shorter than the dense walk (37.7 against 55.0 ms)
+    and 1.3 MB go up instead of 50 MB (0.5 against 12.5 ms)."""
+    return device.type != "cpu"
+
+
+def _native_ok(mcu_layout: list) -> bool:
+    """The native walkers index one joint table set 0/1 per component.
+    Only the layout decides: a native runtime that fails to build raises
+    where it is first called, it does not send the decode to NumPy."""
+    return all(
+        dc == ac and dc in (0, 1) for (_, _, dc, ac) in mcu_layout
+    )
+
+
+def _check_tables(htables: dict, mcu_layout: list) -> None:
+    for (_comp, _bpm, dc, ac) in mcu_layout:
+        for key in ((0, dc), (1, ac)):
+            if key not in htables:
+                raise jfif.JpegFormatError(
+                    f"scan references undefined Huffman table "
+                    f"{'AC' if key[0] else 'DC'} {key[1]}"
+                )
+
+
+def _decode_scan_host(info: jfif.FrameInfo, n_mcu: int, mcu_layout: list,
+                      entropy: str):
+    """Entropy-decode one baseline scan on the host to dense per-component
+    (N, 64) int32 zig-zag blocks in scan order: the native C++ walker when
+    the layout allows ("auto", "native"), else the NumPy one."""
+    _check_tables(info.htables, mcu_layout)
+    ok = _native_ok(mcu_layout)
+    if entropy == "native" and not ok:
+        raise jfif.JpegFormatError(
+            f"{entropy} entropy backend unavailable for this scan layout"
+        )
+    if ok and entropy != "numpy":
+        return native.decode_scan(
+            info.scan_data, n_mcu, mcu_layout, info.htables,
+            info.restart_interval,
+        )
+    luts = {k: decode_np.make_decode_lut(t) for k, t in info.htables.items()}
+    return decode_np.decode_scan(
+        info.scan_data, n_mcu, mcu_layout, luts, info.restart_interval
+    )
+
+
+def _decode_noninterleaved(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
+                           entropy: str = "auto"):
+    """Multi-scan baseline: one component per scan, MCU = one block (A.2.2).
+
+    Returns per-component (N, 64) zig-zag blocks in plane raster order, padded
+    to the interleaved MCU grid the finish expects.
+    """
     comps = info.components
-    if len(comps) == 4:
-        raise NotImplementedError(
-            "CMYK/YCCK decode is not ported yet (ROADMAP.md Queue 1 item 4)")
-    if len(comps) not in (1, 3):
-        raise jfif.JpegFormatError(f"unsupported component count {len(comps)}")
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    by_id = {c.comp_id: (i, c) for i, c in enumerate(comps)}
+    out = [None] * len(comps)
+
+    for scan in info.scans:
+        if len(scan.comp_ids) != 1:
+            raise jfif.JpegFormatError(
+                "partially interleaved scans are not supported"
+            )
+        cid, dc_id, ac_id = scan.comp_ids[0]
+        ci, c = by_id[cid]
+        # Component dimensions (T.81 A.1.1) and its own block grid.
+        cw = layout.ceil_div(info.width * c.h, hmax)
+        ch = layout.ceil_div(info.height * c.v, vmax)
+        bw, bh = layout.ceil_div(cw, 8), layout.ceil_div(ch, 8)
+        sub_info = jfif.FrameInfo(
+            width=info.width, height=info.height, components=comps,
+            qtables=info.qtables, htables=scan.htables,
+            restart_interval=scan.restart_interval, scan_data=scan.data,
+        )
+        blocks = _decode_scan_host(sub_info, bh * bw, [(0, 1, dc_id, ac_id)],
+                                   entropy)[0]
+        # Pad the raster grid up to the interleaved-MCU geometry.
+        gh, gw = mcu_rows * c.v, mcu_cols * c.h
+        grid = np.zeros((gh, gw, 64), dtype=blocks.dtype)
+        grid[:bh, :bw] = blocks.reshape(bh, bw, 64)
+        out[ci] = grid.reshape(gh * gw, 64)
+
+    for ci, arr in enumerate(out):
+        if arr is None:
+            raise jfif.JpegFormatError(
+                f"component {comps[ci].comp_id} has no scan"
+            )
+    return out
+
+
+def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
+                   entropy: str, device: torch.device):
+    """Entropy-decode every scan and bring the coefficients to `device`:
+    per-component (N, 64) int32 zig-zag tensors in plane raster order.
+
+    Baseline single-scan streams whose table ids fit the native runtime take
+    the sparse walk ("sparse", or "auto" on a card): one payload upload,
+    densify on the device. Every other case decodes to dense host grids
+    (progressive and multi-scan walkers give them in raster order already),
+    which go up as they are. (The reference re-encodes them as the sparse
+    payload first; on this card that costs more than the dense upload, see
+    PERF.md section 5, so decode_device.sparse_payload_from_blocks has no
+    caller here.) Scan order -> raster order (spec A.2.3)
+    happens on the device either way, as a reshape + permute."""
+    comps = info.components
+    n_mcu = mcu_rows * mcu_cols
+    raster = [None] * len(comps)  # per component: (rows, cols, v, h) to reorder
+    single_scan = not info.progressive and (len(comps) == 1 or (
+        len(info.scans) <= 1 and len(info.scans[0].comp_ids) == len(comps)))
+    payload = None
     if info.progressive:
+        host = progressive_np.decode_progressive(
+            info, backend=_progressive_backend(entropy))
+    elif single_scan:
+        # A one-component scan is one block per MCU in raster order already.
+        if len(comps) == 1:
+            mcu_layout = [(0, 1, comps[0].dc_id, comps[0].ac_id)]
+        else:
+            mcu_layout = [
+                (i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)
+            ]
+            raster = [(mcu_rows, mcu_cols, c.v, c.h) if c.h * c.v > 1
+                      else None for c in comps]
+        ok = _native_ok(mcu_layout)
+        if entropy == "sparse" or (
+                entropy == "auto" and ok and _auto_takes_sparse(device)):
+            _check_tables(info.htables, mcu_layout)
+            if not ok:
+                raise jfif.JpegFormatError(
+                    f"{entropy} entropy backend unavailable for this scan "
+                    "layout")
+            payload = decode_device.sparse_payload(
+                info.scan_data, n_mcu, mcu_layout, info.htables,
+                info.restart_interval)
+        else:
+            host = _decode_scan_host(info, n_mcu, mcu_layout, entropy)
+    else:
+        host = _decode_noninterleaved(info, mcu_rows, mcu_cols, entropy)
+
+    if payload is not None:
+        words, B, Sp, Ep, Edp = payload
+        rows = decode_device.densify_body(
+            decode_device.payload_tensor(words, device), B, Sp, Ep, Edp)
+        sizes = [mcu_rows * c.v * mcu_cols * c.h for c in comps] if (
+            len(comps) > 1) else [B]
+        zz = list(torch.split(rows, sizes))
+    else:
+        zz = [torch.as_tensor(np.ascontiguousarray(z, dtype=np.int32),
+                              device=device) for z in host]
+    return [layout.scan_to_raster(z, *geo) if geo is not None else z
+            for z, geo in zip(zz, raster)]
+
+
+def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
+           max_pixels: int | None = 2_000_000_000,
+           scale_denom: int = 1, output: str = "rgb",
+           device_output: bool = False, entropy: str = "auto"):
+    """Decode JPEG bytes to (H, W, 3) RGB, (H, W) gray, or, for Adobe
+    4-component CMYK/YCCK streams, (H, W, 4) CMYK uint8 samples, running
+    everything after the entropy decode on `device` ("cuda" by default;
+    "cpu" runs the plain twins).
+
+    fancy_upsample: triangular chroma interpolation (libjpeg-style) instead
+    of pixel doubling.
+    max_pixels: allocation guard against adversarial headers (a 32-byte file
+    can declare a 12.9-gigapixel frame); None disables.
+    scale_denom: 1, 2, 4 or 8: DCT-domain scaled decode (libjpeg "draft"
+    mode): each block reconstructs at 8/scale_denom points per axis from its
+    lowest frequencies; output is ceil(H/scale_denom) x ceil(W/scale_denom).
+    The entropy decode is unchanged; the finish and the download shrink by
+    scale_denom^2.
+    output: "rgb" (default) or "ycbcr": return a YCbCrPlanes of the
+    per-component uint8 sample planes instead of finished RGB (3-component
+    YCbCr streams only). finish_ycbcr(planes) reproduces the RGB result
+    bit-exactly on the host; for 4:2:0 the planes are half the download.
+    device_output: return the pixels as a torch.Tensor on `device` (and
+    device planes inside YCbCrPlanes) instead of downloading them.
+    entropy: Huffman scan decode backend: "auto" (on a card the sparse
+    backend when the table ids fit the native runtime; on the CPU the native
+    dense walker; the NumPy walker when the native one does not fit),
+    "native", "numpy", or "sparse" (host sparse-coefficient walk + device
+    densify). All give the same coefficients. "device" and "indexed" (the
+    reference's device Huffman decoders) are not ported yet and raise
+    NotImplementedError (ROADMAP.md Queue 1 item 8)."""
+    if entropy not in ENTROPY_BACKENDS:
+        raise ValueError(f"unknown entropy backend {entropy!r}")
+    if output not in ("rgb", "ycbcr"):
+        raise ValueError(f"unknown output {output!r}")
+    if scale_denom not in (1, 2, 4, 8):
+        raise ValueError(f"scale_denom must be 1, 2, 4 or 8, got {scale_denom}")
+    if entropy in ("device", "indexed"):
         raise NotImplementedError(
-            "progressive decode is not ported yet (ROADMAP.md Queue 1 item 4)")
-    if len(info.scans) != 1 or len(info.scans[0].comp_ids) != len(comps):
-        raise NotImplementedError(
-            "non-interleaved multi-scan decode is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
+            f"entropy={entropy!r}: the device Huffman decoders are not "
+            "ported yet (ROADMAP.md Queue 1 item 8)")
+    k = 8 // scale_denom
+    device = torch.device(device)
+    info = jfif.parse_jpeg(data)
+    if max_pixels is not None and info.width * info.height > max_pixels:
+        raise jfif.JpegFormatError(
+            f"frame {info.width}x{info.height} exceeds max_pixels={max_pixels}"
+        )
+    comps = info.components
+    if output == "ycbcr" and len(comps) != 3:
+        raise ValueError(
+            f"output='ycbcr' needs a 3-component stream, got {len(comps)}")
+    hlim = layout.ceil_div(info.height, scale_denom)
+    wlim = layout.ceil_div(info.width, scale_denom)
+
+    def deliver(out: torch.Tensor):
+        out = out[:hlim, :wlim]
+        return out if device_output else out.cpu().numpy()
+
+    def qtab(c):
+        return torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
+                               device=device)
+
+    if len(comps) == 1:
+        # Non-interleaved single-component scan: MCU = one block (spec
+        # A.2.2), so scan order is raster order.
+        mcu_rows = layout.ceil_div(info.height, 8)
+        mcu_cols = layout.ceil_div(info.width, 8)
+        zz = _device_blocks(info, mcu_rows, mcu_cols, entropy, device)[0]
+        return deliver(_finish_gray(zz, qtab(comps[0]), (mcu_rows, mcu_cols),
+                                    k))
+
+    if len(comps) not in (3, 4):
+        raise jfif.JpegFormatError(f"unsupported component count {len(comps)}")
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     for c in comps:
@@ -106,93 +537,41 @@ def _check_supported(info: jfif.FrameInfo) -> None:
             )
     if sum(c.h * c.v for c in comps) > 10:
         raise jfif.JpegFormatError("more than 10 blocks per MCU (spec B.2.3)")
-    for c in comps:
-        for key in ((0, c.dc_id), (1, c.ac_id)):
-            if key not in info.htables:
-                raise jfif.JpegFormatError(
-                    f"scan references undefined Huffman table "
-                    f"{'AC' if key[0] else 'DC'} {key[1]}"
-                )
-        if c.dc_id != c.ac_id or c.dc_id not in (0, 1):
-            raise NotImplementedError(
-                "streams whose components use Huffman table ids other than a "
-                "shared 0 or 1 are not ported yet (ROADMAP.md Queue 1 item 4)")
-
-
-def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
-           max_pixels: int | None = 2_000_000_000,
-           scale_denom: int = 1, output: str = "rgb",
-           device_output: bool = False) -> np.ndarray:
-    """Decode JPEG bytes to (H, W, 3) RGB uint8 (or (H, W) uint8 for a gray
-    stream), running the IDCT, upsample
-    and colour map on `device` ("cuda" by default; "cpu" runs the plain
-    twins). Entropy decoding runs in the native C++ runtime on the host.
-
-    fancy_upsample: triangular chroma interpolation (libjpeg-style) instead
-    of pixel doubling. max_pixels: allocation guard against adversarial
-    headers; None disables. scale_denom, output="ycbcr" and device_output
-    are not ported yet and raise NotImplementedError."""
-    if output not in ("rgb", "ycbcr"):
-        raise ValueError(f"unknown output {output!r}")
-    if scale_denom not in (1, 2, 4, 8):
-        raise ValueError(f"scale_denom must be 1, 2, 4 or 8, got {scale_denom}")
-    if scale_denom != 1 or output != "rgb" or device_output:
-        raise NotImplementedError(
-            "scale_denom, output='ycbcr' and device_output are not ported "
-            "yet (ROADMAP.md Queue 1 item 4)")
-    device = torch.device(device)
-    info = jfif.parse_jpeg(data)
-    if max_pixels is not None and info.width * info.height > max_pixels:
+    if len(comps) == 4 and scale_denom != 1:
         raise jfif.JpegFormatError(
-            f"frame {info.width}x{info.height} exceeds max_pixels={max_pixels}"
+            "scaled decode of 4-component streams is not supported"
         )
-    _check_supported(info)
-    comps = info.components
-    if len(comps) == 1:
-        # Non-interleaved single-component scan: MCU = one block (spec
-        # A.2.2), so scan order is raster order.
-        c0 = comps[0]
-        mcu_rows = layout.ceil_div(info.height, 8)
-        mcu_cols = layout.ceil_div(info.width, 8)
-        zz = native.decode_scan(
-            info.scan_data, mcu_rows * mcu_cols, [(0, 1, c0.dc_id, c0.ac_id)],
-            info.htables, info.restart_interval,
-        )[0]
-        qy = torch.as_tensor(info.qtables[c0.qtab_id], dtype=torch.float32,
-                             device=device)
-        out = _finish_gray(torch.as_tensor(zz, device=device), qy,
-                           (mcu_rows, mcu_cols))
-        return out[: info.height, : info.width].cpu().numpy()
-    hmax = max(c.h for c in comps)
-    vmax = max(c.v for c in comps)
-    mcu_rows = layout.ceil_div(info.height, 8 * vmax)
-    mcu_cols = layout.ceil_div(info.width, 8 * hmax)
-    n_mcu = mcu_rows * mcu_cols
-
-    mcu_layout = [
-        (i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)
-    ]
-    scans = native.decode_scan(
-        info.scan_data, n_mcu, mcu_layout, info.htables, info.restart_interval,
-    )
-    # Scan order -> plane raster order per component (spec A.2.3).
-    zz = [
-        layout.scan_to_raster(s, mcu_rows, mcu_cols, c.v, c.h)
-        if c.h * c.v > 1 else s
-        for c, s in zip(comps, scans)
-    ]
-    shapes = tuple((mcu_rows * c.v, mcu_cols * c.h) for c in comps)
-    factors = tuple((hmax // c.h, vmax // c.v) for c in comps)
-    qtabs = [torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
-                             device=device) for c in comps]
-    fancy = upsample_choices(info.width, comps, hmax, fancy_upsample)
     # Components stored as RGB (no color transform): Adobe APP14 with
     # transform=0, or literal 'R','G','B' component ids (libjpeg convention).
-    is_rgb = info.adobe_transform == 0 or (
+    is_rgb = len(comps) == 3 and (info.adobe_transform == 0 or (
         info.adobe_transform is None
         and tuple(c.comp_id for c in comps) == (0x52, 0x47, 0x42)
-    )
-    planes = [torch.as_tensor(np.ascontiguousarray(z), device=device)
-              for z in zz]
-    out = _finish_color(*planes, *qtabs, shapes, factors, fancy, is_rgb)
-    return out[: info.height, : info.width].cpu().numpy()
+    ))
+    if output == "ycbcr" and is_rgb:
+        raise ValueError(
+            "output='ycbcr' requires a YCbCr-coded stream (this one "
+            "stores RGB components)")
+
+    mcu_rows = layout.ceil_div(info.height, 8 * vmax)
+    mcu_cols = layout.ceil_div(info.width, 8 * hmax)
+    zz = _device_blocks(info, mcu_rows, mcu_cols, entropy, device)
+    shapes = tuple((mcu_rows * c.v, mcu_cols * c.h) for c in comps)
+    factors = tuple((hmax // c.h, vmax // c.v) for c in comps)
+    qtabs = [qtab(c) for c in comps]
+    fancy = upsample_choices(info.width, comps, hmax, fancy_upsample)
+
+    if len(comps) == 4:
+        # Adobe CMYK (transform 0/absent) or YCCK (transform 2); returns
+        # (H, W, 4) samples matching PIL's CMYK mode (complemented when the
+        # Adobe APP14 marker is present: PIL rawmode "CMYK;I").
+        return deliver(_finish_cmyk(
+            zz, qtabs, shapes, factors, fancy, info.adobe_transform == 2,
+            info.adobe_transform is not None))
+    if output == "ycbcr":
+        flat = not device_output  # one copy to the host
+        planes = _finish_planes(*zz, *qtabs, shapes, k, flat)
+        if flat:
+            planes = _split_flat_planes(planes.cpu().numpy(), shapes, k)
+        return YCbCrPlanes(tuple(planes), hlim, wlim, factors, fancy)
+    return deliver(_finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb,
+                                 k))

@@ -10,6 +10,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -40,10 +41,11 @@ def inverse_permutation(mcu_rows: int, mcu_cols: int, v: int, h: int) -> np.ndar
 
 def scan_to_raster(blocks, mcu_rows: int, mcu_cols: int, v: int, h: int):
     """Scan-order (mcu_rows*mcu_cols*v*h, ...) component blocks -> plane
-    raster block order, as a reshape+transpose (works on NumPy and JAX arrays
-    alike; equals blocks[inverse_permutation(...)] without the gather — TPU
-    row gathers cost real HBM time, a transpose is pure layout)."""
-    lead = blocks.shape[1:]
+    raster block order, as a reshape + axis swap (NumPy arrays on the host,
+    tensors on their device; equals blocks[inverse_permutation(...)] without
+    the gather)."""
+    lead = tuple(blocks.shape[1:])
     x = blocks.reshape(mcu_rows, mcu_cols, v, h, *lead)
-    x = x.transpose(0, 2, 1, 3, *range(4, 4 + len(lead)))
+    axes = (0, 2, 1, 3, *range(4, 4 + len(lead)))
+    x = x.permute(*axes) if isinstance(x, torch.Tensor) else x.transpose(*axes)
     return x.reshape(mcu_rows * mcu_cols * v * h, *lead)

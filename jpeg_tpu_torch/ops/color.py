@@ -41,9 +41,10 @@ def rgb_to_ycbcr_planes(rgb: torch.Tensor):
     return y, cb, cr
 
 
-def ycbcr_to_rgb(ycc: torch.Tensor) -> torch.Tensor:
-    """(..., 3) YCbCr in [0,255] -> (..., 3) float32 RGB, unclipped (the
-    caller rounds and clips).
+def ycbcr_to_rgb(ycc: torch.Tensor, clip: bool = False) -> torch.Tensor:
+    """(..., 3) YCbCr in [0,255] -> (..., 3) float32 RGB, unclipped unless
+    `clip` (the RGB decode rounds and clips itself; YCCK clips here, before
+    the complement).
 
     Each output channel is one explicit f32 multiply-add chain over
     (y, cb - 128, cr - 128) in the order of its YCBCR_TO_RGB row, so the
@@ -56,4 +57,5 @@ def ycbcr_to_rgb(ycc: torch.Tensor) -> torch.Tensor:
         acc = acc + terms[1] * float(row[1])
         acc = acc + terms[2] * float(row[2])
         out.append(acc)
-    return torch.stack(out, dim=-1)
+    rgb = torch.stack(out, dim=-1)
+    return torch.clamp(rgb, 0.0, 255.0) if clip else rgb

@@ -10,10 +10,13 @@ that does the whole 2-D transform in one pass:
     fused.py:121).
 On a CPU tensor each runs its plain twin (fused_dct_quantize_reference,
 fused_dequant_idct_reference). The kernels' source notes say what bounds
-them on the card. The f32 summation order differs between a kernel and its
-twin, so they agree to the bounds of tests/test_fused.py, not bit for bit:
-quantized coefficients within 1 in at most max(8, 5e-4 n) places; IDCT
-samples to |diff| <= 1e-2.
+them on the card. A kernel and its twin sum in f32 and are held to the bounds
+of tests/test_fused.py: quantized coefficients within 1 in at most
+max(8, 5e-4 n) places; IDCT samples to |diff| <= 1e-2. Kernel C's FMA chains
+follow the order the twin's contractions take on the CPU and, at the 4K
+plane shapes, on the card, where the two come out equal in every
+coefficient; at small shapes cuBLAS sums the twin in another order and a few
+.5 boundaries flip.
 """
 
 from __future__ import annotations
@@ -45,6 +48,14 @@ def _check_plane(plane: torch.Tensor) -> None:
             f"{tuple(plane.shape)}")
 
 
+def _require_aligned(fn: str, **tensors) -> None:
+    """Kernels B and C move 16 bytes per load and store. W % 8 == 0 keeps
+    every row aligned once the base is."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
 def fused_dct_quantize_reference(plane: torch.Tensor, qtable) -> torch.Tensor:
     """Plain twin (any device): -128, D x D^T per block (vertical then
     horizontal contraction), true division by the (8, 8) table (row =
@@ -62,8 +73,9 @@ def fused_dct_quantize_reference(plane: torch.Tensor, qtable) -> torch.Tensor:
 
 def _launch_dct(plane, q, out) -> None:
     """Enqueue kernel C on PyTorch's current stream: prepared contiguous
-    CUDA tensors ((H, W) f32 plane, (64,) f32 raster table, (H, W) int32
-    out), no checks and no allocation. Counts the launch."""
+    CUDA tensors ((H, W) f32 plane and (H, W) int32 out, both 16-byte
+    aligned, (64,) f32 raster table), no checks and no allocation. Counts
+    the launch."""
     global DCT_LAUNCHES
     dev = plane.device
     h, w = plane.shape
@@ -71,7 +83,6 @@ def _launch_dct(plane, q, out) -> None:
     with torch.cuda.device(dev):
         err = lib.jt_dct8(
             ctypes.c_void_p(plane.data_ptr()), ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(_basis(dev).data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
     _cuda.check("dct8", err)
@@ -88,6 +99,7 @@ def _fused_dct_quantize_cuda(plane: torch.Tensor, qtable) -> torch.Tensor:
     out = torch.empty((h, w), dtype=torch.int32, device=dev)
     if h == 0 or w == 0:
         return out
+    _require_aligned("fused_dct_quantize", plane=x, out=out)
     _launch_dct(x, q, out)
     return out
 
@@ -150,12 +162,7 @@ def _fused_dequant_idct_cuda(coeffs: torch.Tensor, qtable) -> torch.Tensor:
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     if h == 0 or w == 0:
         return out
-    # The kernel moves 16 bytes per load and store. W % 8 == 0 keeps every
-    # row aligned once the base is.
-    for name, t in (("coeffs", c), ("out", out)):
-        if t.data_ptr() % 16:
-            raise ValueError(
-                f"fused_dequant_idct: {name} is not 16-byte aligned")
+    _require_aligned("fused_dequant_idct", coeffs=c, out=out)
     _launch_idct(c, q, out)
     return out
 

@@ -1,7 +1,8 @@
 """Quantization tables as pure functions of quality (the IJG scaling in
 jpeg_tpu_torch.tables), and the float quantizer of the fused DCT path.
 The default path quantizes in exact integer arithmetic inside ops/mcu_conv;
-dequantization is folded into ops/fused."""
+the full-size decode dequantizes inside ops/fused (kernel B), the scaled
+decode with dequantize below."""
 
 from __future__ import annotations
 
@@ -31,3 +32,9 @@ def quantize_plane(coeffs: torch.Tensor, qtable) -> torch.Tensor:
     q = torch.as_tensor(qtable, dtype=torch.float32, device=coeffs.device)
     q = q.reshape(8, 8).repeat(h // 8, w // 8)
     return round_half_away(coeffs / q).to(torch.int32)
+
+
+def dequantize(qcoeffs: torch.Tensor, qtable) -> torch.Tensor:
+    """(..., 8, 8) quantized raster blocks * (8, 8) table -> f32."""
+    q = torch.as_tensor(qtable, dtype=torch.float32, device=qcoeffs.device)
+    return qcoeffs.to(torch.float32) * q

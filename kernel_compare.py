@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
 """Kernel-only times of the port's CUDA kernels, and of other versions of
-kernels A and B beside them, in turns on one card.
+them beside them, in turns on one card.
 
 Usage, from the repository root, on a machine with a CUDA device and nvcc:
 
-    python3 kernel_compare.py [--previous DIR] [--candidate-a FILE.cu]...
-                              [--candidate-b FILE.cu]... [--flags-a "..."]...
-                              [--flags-b "..."]... [--previous-only]
-                              [--json FILE]
+    python3 kernel_compare.py [--previous DIR] [--previous-c DIR]
+                              [--candidate-a FILE.cu]... [--flags-a "..."]...
+                              [--candidate-b FILE.cu]... [--flags-b "..."]...
+                              [--candidate-c FILE.cu]... [--flags-c "..."]...
+                              [--previous-only] [--json FILE]
 
 The package's own kernels A (pack_level1), B (idct8) and C (dct8) are always
 timed. --previous DIR names a directory that holds pack_level1.cu and idct8.cu
 with the C entry points those files had before the tables were pre-packed
 (jt_pack_level1 taking the four LUTs, jt_idct8 taking the basis), e.g. an
-older commit unpacked with `git archive`. --candidate-a / --candidate-b name
-another source with the current entry point; --flags-a / --flags-b build the
+older commit unpacked with `git archive`. --previous-c DIR names a directory
+that holds a dct8.cu whose jt_dct8 still takes the basis (kernel C's first
+design). --candidate-a / -b / -c name
+another source with the current entry point; --flags-a / -b / -c build the
 package's own source once more with extra nvcc flags (e.g. "-DJT_THREADS=256")
-as a further contender; each of the four may be given more than once.
---previous-only times the previous sources and kernel
+as a further contender; each of the six may be given more than once.
+--previous-only times the previous sources and the package's kernel
 C and nothing else (for a tree whose own A and B do not build yet).
 
 Inputs are those of chip_smoke.py's main path: the 3840x2160 4:2:0 image's
@@ -98,10 +101,13 @@ def trace_decode(torch, img, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--previous")
+    ap.add_argument("--previous-c")
     ap.add_argument("--candidate-a", action="append", default=[])
     ap.add_argument("--candidate-b", action="append", default=[])
     ap.add_argument("--flags-a", action="append", default=[])
     ap.add_argument("--flags-b", action="append", default=[])
+    ap.add_argument("--candidate-c", action="append", default=[])
+    ap.add_argument("--flags-c", action="append", default=[])
     ap.add_argument("--previous-only", action="store_true")
     ap.add_argument("--json")
     args = ap.parse_args()
@@ -159,7 +165,17 @@ def main() -> int:
     basis = fused._basis(dev)
 
     # Contenders: name -> function(inputs, outputs) that enqueues one launch.
-    a_launchers, b_launchers = {}, {}
+    a_launchers, b_launchers, c_launchers = {}, {}, {}
+    if args.previous_c:
+        lib_c = build("previous_dct8",
+                      pathlib.Path(args.previous_c) / "dct8.cu")
+
+        def prev_c(plane, q, out):
+            _cuda.check("previous C", lib_c.jt_dct8(
+                *_ptrs(plane, q, basis, out), ctypes.c_int(plane.shape[0]),
+                ctypes.c_int(plane.shape[1]), stream()))
+
+        c_launchers["previous"] = prev_c
     if args.previous:
         prev = pathlib.Path(args.previous)
         lib_a = build("previous_pack_level1", prev / "pack_level1.cu")
@@ -191,6 +207,13 @@ def main() -> int:
                 ctypes.c_int(coeffs.shape[1]), stream()))
         return launch
 
+    def current_abi_c(lib, label):
+        def launch(plane, q, out):
+            _cuda.check(label, lib.jt_dct8(
+                *_ptrs(plane, q, out), ctypes.c_int(plane.shape[0]),
+                ctypes.c_int(plane.shape[1]), stream()))
+        return launch
+
     if not args.previous_only:
         build("pack_level1")
         build("idct8")
@@ -212,6 +235,14 @@ def main() -> int:
             b_launchers[f"candidate {src}"] = current_abi_b(
                 build(f"candidate{i}_idct8", src), "candidate B")
     build("dct8")
+    c_launchers["current"] = fused._launch_dct
+    for i, flags in enumerate(args.flags_c):
+        c_launchers[f"current {flags}"] = current_abi_c(build(
+            f"flags{i}_dct8", _cuda._CSRC / "dct8.cu", shlex.split(flags)),
+            "flags C")
+    for i, src in enumerate(args.candidate_c):
+        c_launchers[f"candidate {src}"] = current_abi_c(
+            build(f"candidate{i}_dct8", src), "candidate C")
 
     results = []
     failed = False
@@ -294,12 +325,10 @@ def main() -> int:
         ref = fused.fused_dct_quantize_reference(plane, qt)
 
         def check_c(out, ref=ref):
-            e, nd, bound, _ = cs.coef_diff(out[0], ref)
-            ok = e <= 1 and nd <= bound
-            return f"{'ok' if ok else 'DISAGREES'} (max |err| {e}, {nd} differ)"
+            e, nd, _, _ = cs.coef_diff(out[0], ref)
+            return f"{'ok' if nd == 0 else 'DISAGREES'} (max |err| {e}, {nd} differ)"
 
-        run_case("C", f"{case} {tuple(plane.shape)}",
-                 {"current": fused._launch_dct}, (plane, q),
+        run_case("C", f"{case} {tuple(plane.shape)}", c_launchers, (plane, q),
                  lambda p=plane: (torch.empty(p.shape, dtype=torch.int32,
                                               device=dev),),
                  cs.plane_bytes(*plane.shape), check_c)

@@ -40,6 +40,30 @@ def require_cuda():
     return torch.device("cuda")
 
 
+def scan_args(jpg: bytes):
+    """(scan bytes, MCU count, mcu_layout, Huffman tables, restart interval)
+    of a baseline single-scan stream: the arguments of the port's scan
+    walkers (native.decode_scan, native.sparse_scan,
+    decode_device.sparse_payload)."""
+    from jpeg_tpu_torch.io import jfif
+    from jpeg_tpu_torch.models import layout
+
+    info = jfif.parse_jpeg(jpg)
+    comps = info.components
+    if len(comps) == 1:  # one block per MCU whatever the sampling factors
+        hmax = vmax = 1
+        mcu_layout = [(0, 1, comps[0].dc_id, comps[0].ac_id)]
+    else:
+        hmax = max(c.h for c in comps)
+        vmax = max(c.v for c in comps)
+        mcu_layout = [(i, c.h * c.v, c.dc_id, c.ac_id)
+                      for i, c in enumerate(comps)]
+    n_mcu = (layout.ceil_div(info.height, 8 * vmax)
+             * layout.ceil_div(info.width, 8 * hmax))
+    return (info.scan_data, n_mcu, mcu_layout, info.htables,
+            info.restart_interval)
+
+
 def level1_bits(block, tid: int, htables) -> int:
     """Bits of one zig-zag block (DC already DPCM'd) under the baseline
     Huffman procedure, counted position by position in plain Python: an
