@@ -45,6 +45,27 @@ Phases, each reported on its own line:
      equal to the host result;
      6g: the committed fixture streams (tests/data/torch_port: progressive,
      non-interleaved, CMYK, YCCK), card decode against CPU decode;
+     6h: encode_batched, K = 8 distinct 4K images (the image rolled by
+     k * 97 columns): every stream equals encode() of its image on the card,
+     kernel A launched once for the batch, kernel C never, no spill; K = 3
+     at 1001x777 4:4:4 with a restart interval of one MCU row; K = 2 with
+     device_pack=False; kernel A against its plain twin on the blocks those
+     two device-packed batches give it (1,555,200 for K = 8);
+     6i: decode_batched, K = 4 of those streams: "fused", "pipelined" and
+     "auto" each equal the stacked per-image decode() exactly, kernel B 3
+     launches fused and 12 pipelined; scale_denom=2; device_output a tensor
+     on cuda:0; a stream of another size raises ValueError; kernel B
+     against its plain twin on the batch's stacked planes (8640x3840 and
+     4320x1920);
+     6j: encode_stream, 64 distinct 4K images from a generator, depth 2:
+     every stream equals encode() of its image (by hash), kernel A 64
+     launches; then 4 images of mixed sizes with optimize_tables;
+     6k: decode_stream, 16 of those streams at depth 2 and 4: pixels equal
+     per-image decode() exactly and in order, kernel B 48 launches counted
+     under the workers' threads; a stream of another geometry in the middle;
+     6l: encode_noninterleaved at 4K and encode_progressive at 1024x768
+     4:2:0 and 640x480 gray: card bytes equal CPU bytes, the card decode
+     equals the decode of the baseline stream of the same image exactly;
   7. smaller encodes (4:4:4 1001x777, 4:2:2, aligned restarts) byte-identical
      to the CPU path;
   8. median timings over warm runs: encode (default, use_pallas,
@@ -54,13 +75,18 @@ Phases, each reported on its own line:
      call and its plain twin on the card (CUDA events around one call); and
      each kernel alone (kernel_only_us: events around a graph of 20 launches
      on prepared buffers, L2 cold) beside the bytes it must move and the
-     time the card's memory needs for them.
+     time the card's memory needs for them; encode_batched (K = 8, with its
+     peak device memory), decode_batched (K = 4, fused and pipelined in
+     turns), encode_stream (64 images) and decode_stream (16 streams) at
+     depth 1, 2 and 4 (encode_stream with and without its pinned staging
+     buffer, in turns), each in ms per image beside the single call's.
 Then one JSON line of the kernels, and last {"ok": true, "device": ...}.
 Any failed phase exits 1.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import statistics
@@ -81,6 +107,10 @@ KERNEL_LAUNCHES = 20  # launches per timed replay of kernel_only_us
 COLD_BYTES = 200_000_000  # moved between two uses of a buffer; the L2 holds 50 MB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 UNALIGNED_RESTART = 7  # does not divide the 4K 4:2:0 image's 32,400 MCUs
+BATCH_ENCODE, BATCH_DECODE = 8, 4  # images per encode_batched / decode_batched
+STREAM_ENCODE, STREAM_DECODE = 64, 16  # images per encode_stream / decode_stream
+STREAM_RUNS = 5  # timed runs of each encode_stream form (1 warm run before)
+ROLL = 97  # columns between two frames of a batch or a stream
 
 
 class PhaseError(Exception):
@@ -306,6 +336,7 @@ def run(card: str) -> dict:
     from jpeg_tpu_torch.entropy import decode_device, huffman, native
     from jpeg_tpu_torch.io import jfif
     from jpeg_tpu_torch.models import decoder, encoder, layout
+    from jpeg_tpu_torch.parallel import pipeline
     from jpeg_tpu_torch.ops import (
         bitpack, fused, pack, quant, symbols, tile, zigzag)
 
@@ -408,18 +439,26 @@ def run(card: str) -> dict:
     vmax = max(c.v for c in comps)
     mcu_rows = layout.ceil_div(info.height, 8 * vmax)
     mcu_cols = layout.ceil_div(info.width, 8 * hmax)
-    scans = native.decode_scan(
-        info.scan_data, mcu_rows * mcu_cols,
-        [(i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)],
-        info.htables, info.restart_interval)
-    planes = []
-    for c, s in zip(comps, scans):
-        raster = layout.scan_to_raster(s, mcu_rows, mcu_cols, c.v, c.h)
-        zz = torch.as_tensor(raster, device=dev).reshape(
-            mcu_rows * c.v, mcu_cols * c.h, 64)
-        qt = torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
-                             device=dev)
-        planes.append((tile.unblockify(zigzag.from_zigzag(zz)), qt))
+
+    def coefficient_planes(parsed):
+        """A 4K stream's dense scans from the native walk, and per component
+        the (coefficient plane on the card, quantization table) pair that
+        decode() hands to kernel B."""
+        dense = native.decode_scan(
+            parsed.scan_data, mcu_rows * mcu_cols,
+            [(i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)],
+            parsed.htables, parsed.restart_interval)
+        out = []
+        for c, s in zip(comps, dense):
+            raster = layout.scan_to_raster(s, mcu_rows, mcu_cols, c.v, c.h)
+            zz = torch.as_tensor(raster, device=dev).reshape(
+                mcu_rows * c.v, mcu_cols * c.h, 64)
+            qt = torch.as_tensor(parsed.qtables[c.qtab_id],
+                                 dtype=torch.float32, device=dev)
+            out.append((tile.unblockify(zigzag.from_zigzag(zz)), qt))
+        return dense, out
+
+    scans, planes = coefficient_planes(info)
     err_b = 0.0
     for coeffs, qt in planes:
         got = fused.fused_dequant_idct(coeffs, qt)
@@ -748,6 +787,249 @@ def run(card: str) -> dict:
         check(n_b == (0, shape[2] if len(shape) == 3 else 1, 0),
               f"{name}: launches {n_b}")
 
+
+    # Phases 6h-6l: the serving entry points, counted like the rest. Frames
+    # are the 4K image rolled by a multiple of ROLL columns.
+    def frame(i):
+        return np.roll(img, i * ROLL, axis=1)
+
+    def frames(n):
+        return (frame(i) for i in range(n))
+
+    def digest(data) -> str:
+        return hashlib.sha256(data).hexdigest()
+
+    # Phase 6h: encode_batched.
+    batch8 = np.stack(list(frames(BATCH_ENCODE)))
+    jpgs8 = [jpeg_tpu_torch.encode(im, QUALITY, SUBSAMPLING, device=dev)
+             for im in batch8]
+    check(jpgs8[0] == jpg and len(set(jpgs8)) == BATCH_ENCODE,
+          "the batch's frames are not distinct images")
+    encoder.HOST_PACK_SPILLS = 0
+    got8, per_batch_enc = counted(lambda: jpeg_tpu_torch.encode_batched(
+        batch8, QUALITY, SUBSAMPLING, device=dev))
+    spills = encoder.HOST_PACK_SPILLS
+    print(f"phase 6h: encode_batched K={BATCH_ENCODE} 4K q{QUALITY} "
+          f"{SUBSAMPLING}: {[len(j) for j in got8]} bytes; equal to "
+          f"encode() per image: {got8 == jpgs8}; launches (A, B, C) "
+          f"{per_batch_enc}; host-pack spills {spills}", flush=True)
+    check(got8 == jpgs8, "encode_batched bytes differ from encode()'s")
+    check(per_batch_enc == (1, 0, 0),
+          f"encode_batched launched {per_batch_enc}, not one kernel A")
+    check(spills == 0, f"{spills} host-pack spills in encode_batched")
+    small = np.stack([make_image(777, 1001, seed=s) for s in range(3)])
+    row_mcus = layout.ceil_div(1001, 8)
+    for label, kw, want in (
+            (f"K=3 1001x777 444 restart {row_mcus}",
+             dict(subsampling="444", restart_interval=row_mcus), (1, 0, 0)),
+            ("K=2 1001x777 420 device_pack=False",
+             dict(subsampling="420", device_pack=False), (0, 0, 0))):
+        imgs = small[:2] if "device_pack" in kw else small
+        got, n_b = counted(lambda: jpeg_tpu_torch.encode_batched(
+            imgs, QUALITY, device=dev, **kw))
+        ref = [jpeg_tpu_torch.encode(im, QUALITY, device=dev, **kw)
+               for im in imgs]
+        print(f"phase 6h: encode_batched {label}: equal to encode() per "
+              f"image: {got == ref}; launches {n_b}", flush=True)
+        check(got == ref, f"encode_batched {label}: bytes differ")
+        check(n_b == want, f"encode_batched {label}: launches {n_b}")
+    check(encoder.HOST_PACK_SPILLS == 0, "host-pack spill in phase 6h")
+    # Kernel A against its twin on the blocks the two device-packed batches
+    # give it: the padded batch through the transform, the prediction
+    # restarting at every image (and at every restart interval).
+    for label, imgs, sub, seg in (
+            (f"K={BATCH_ENCODE} 4K {SUBSAMPLING}", batch8, mode, n_mcu),
+            ("K=3 1001x777 444", small, Subsampling("444"), row_mcus)):
+        dbatch = tile.pad_batch_to_multiple(
+            torch.as_tensor(imgs, device=dev), sub.mcu_height, sub.mcu_width)
+        blk, tb, _, _ = encoder._interleaved_blocks(dbatch, qy, qc, sub, seg)
+        del dbatch
+        e, n = level1_err(pack.pack_level1(blk, tb, *luts, packed=packed),
+                          pack.pack_level1_reference(blk, tb, *luts), budget)
+        print(f"phase 6h: kernel A vs plain, the blocks of encode_batched "
+              f"{label}: {n} blocks, max |err| {e}", flush=True)
+        check(e == 0, f"kernel A disagrees with its twin on the {label} "
+              f"batch's blocks ({e})")
+        err_a = max(err_a, e)
+        del blk, tb
+
+    # Phase 6i: decode_batched.
+    jpgs4 = jpgs8[:BATCH_DECODE]
+    px4 = np.stack([jpeg_tpu_torch.decode(j, device=dev) for j in jpgs4])
+    check(np.array_equal(px4[0], px), "decode() is not repeatable")
+    per_batch_dec = {}
+    for bm in ("fused", "pipelined", "auto"):
+        got, per_batch_dec[bm] = counted(
+            lambda: jpeg_tpu_torch.decode_batched(jpgs4, batch_mode=bm,
+                                                  device=dev))
+        print(f"phase 6i: decode_batched K={BATCH_DECODE} {bm!r}: "
+              f"{got.shape} {got.dtype}; equal to decode() per image: "
+              f"{np.array_equal(got, px4)}; launches {per_batch_dec[bm]}",
+              flush=True)
+        check(got.shape == px4.shape and got.dtype == np.uint8
+              and np.array_equal(got, px4),
+              f"decode_batched {bm!r} differs from decode() per image")
+    auto_mode = decoder.AUTO_BATCH_MODE
+    check(per_batch_dec["fused"] == (0, 3, 0),
+          f"fused decode_batched launched {per_batch_dec['fused']}")
+    check(per_batch_dec["pipelined"] == (0, 3 * BATCH_DECODE, 0),
+          f"pipelined decode_batched launched {per_batch_dec['pipelined']}")
+    check(per_batch_dec["auto"] == per_batch_dec[auto_mode],
+          f"'auto' launched {per_batch_dec['auto']}, not {auto_mode!r}'s")
+    px4_half = np.stack([jpeg_tpu_torch.decode(j, device=dev, scale_denom=2)
+                         for j in jpgs4])
+    for bm in ("fused", "pipelined"):
+        got, n_b = counted(lambda: jpeg_tpu_torch.decode_batched(
+            jpgs4, scale_denom=2, batch_mode=bm, device=dev))
+        print(f"phase 6i: decode_batched {bm!r} scale_denom 2: {got.shape}; "
+              f"equal to decode() per image: "
+              f"{np.array_equal(got, px4_half)}; launches {n_b}", flush=True)
+        check(np.array_equal(got, px4_half),
+              f"decode_batched {bm!r} scale_denom 2 differs from decode()")
+        check(n_b == (0, 0, 0), f"a scaled batch launched {n_b}")
+    out_dev = jpeg_tpu_torch.decode_batched(jpgs4, device_output=True,
+                                            device=dev)
+    check(isinstance(out_dev, torch.Tensor) and str(out_dev.device) == "cuda:0"
+          and np.array_equal(out_dev.cpu().numpy(), px4),
+          "decode_batched device_output is not the pixels on cuda:0")
+    del out_dev
+    small_jpg = jpeg_tpu_torch.encode(small[0], QUALITY, "420", device=dev)
+    try:
+        jpeg_tpu_torch.decode_batched(jpgs4[:2] + [small_jpg], device=dev)
+    except ValueError as e:
+        print(f"phase 6i: a stream of another size raises ValueError: {e}",
+              flush=True)
+    else:
+        raise PhaseError("decode_batched took streams of two sizes")
+    # Kernel B against its twin on the planes the fused batch gives it: the
+    # streams' planes stacked along their rows, one plane per component.
+    per_stream = [coefficient_planes(jfif.parse_jpeg(j))[1] for j in jpgs4]
+    for c in range(len(comps)):
+        stacked = torch.cat([p[c][0] for p in per_stream])
+        qt = per_stream[0][c][1]
+        e = float((fused.fused_dequant_idct(stacked, qt)
+                   - fused.fused_dequant_idct_reference(stacked, qt)
+                   ).abs().max())
+        print(f"phase 6i: kernel B vs plain, the fused batch's stacked plane "
+              f"{tuple(stacked.shape)}: max |err| {e:.3g}", flush=True)
+        check(e <= 1e-2, f"kernel B disagrees with its plain twin on the "
+              f"stacked plane {tuple(stacked.shape)} ({e})")
+        err_b = max(err_b, e)
+        del stacked
+    del per_stream
+
+    # Phase 6j: encode_stream.
+    want_hash = [digest(jpeg_tpu_torch.encode(f, QUALITY, SUBSAMPLING,
+                                              device=dev))
+                 for f in frames(STREAM_ENCODE)]
+    encoder.HOST_PACK_SPILLS = 0
+    streamed, n_b = counted(lambda: list(jpeg_tpu_torch.encode_stream(
+        frames(STREAM_ENCODE), QUALITY, SUBSAMPLING, depth=2, device=dev)))
+    same = [digest(j) for j in streamed] == want_hash
+    per_stream_enc = tuple(n // STREAM_ENCODE for n in n_b)
+    print(f"phase 6j: encode_stream {STREAM_ENCODE} x 4K depth 2: "
+          f"{len(set(want_hash))} distinct streams, equal to encode() per "
+          f"image: {same}; launches {n_b}; spills "
+          f"{encoder.HOST_PACK_SPILLS}", flush=True)
+    check(len(streamed) == STREAM_ENCODE and same,
+          "encode_stream bytes differ from encode()'s")
+    check(n_b == (STREAM_ENCODE, 0, 0), f"encode_stream launched {n_b}")
+    check(encoder.HOST_PACK_SPILLS == 0, "host-pack spill in encode_stream")
+    mixed = [img, small[0], make_image(480, 640, seed=480),
+             make_image(768, 1024, seed=768)]
+    got, n_b = counted(lambda: list(jpeg_tpu_torch.encode_stream(
+        iter(mixed), QUALITY, SUBSAMPLING, depth=2, optimize_tables=True,
+        device=dev)))
+    ref = [jpeg_tpu_torch.encode(im, QUALITY, SUBSAMPLING,
+                                 optimize_tables=True, device=dev)
+           for im in mixed]
+    print(f"phase 6j: encode_stream, 4 sizes, optimize_tables: equal to "
+          f"encode() per image: {got == ref} (first also to 6c's: "
+          f"{got[0] == jpg_opt}); launches {n_b}", flush=True)
+    check(got == ref and got[0] == jpg_opt,
+          "encode_stream optimize_tables bytes differ from encode()'s")
+    check(n_b == (len(mixed), 0, 0),
+          f"encode_stream optimize_tables launched {n_b}")
+
+    # Phase 6k: decode_stream; the launches come from the workers' threads.
+    jpgs16 = streamed[:STREAM_DECODE]
+    del streamed
+    want_px = [digest(jpeg_tpu_torch.decode(j, device=dev)) for j in jpgs16]
+    check(len(set(want_px)) == STREAM_DECODE, "the streams' pixels repeat")
+    per_stream_dec = None
+    for depth in (2, 4):
+        got, n_b = counted(lambda: [digest(out) for out in
+                                    jpeg_tpu_torch.decode_stream(
+                                        iter(jpgs16), depth=depth,
+                                        device=dev)])
+        print(f"phase 6k: decode_stream {STREAM_DECODE} x 4K depth {depth}: "
+              f"equal to decode() per stream, in order: {got == want_px}; "
+              f"launches {n_b}", flush=True)
+        check(got == want_px, f"decode_stream depth {depth} differs from "
+              "decode() per stream")
+        check(n_b == (0, 3 * STREAM_DECODE, 0),
+              f"decode_stream depth {depth} launched {n_b}")
+        per_stream_dec = tuple(n // STREAM_DECODE for n in n_b)
+    odd = jpgs16[:2] + [small_jpg, jpg_g] + jpgs16[2:4]
+    got, n_b = counted(lambda: list(jpeg_tpu_torch.decode_stream(
+        odd, depth=2, device_output=True, device=dev)))
+    ok = all(isinstance(o, torch.Tensor) and str(o.device) == "cuda:0"
+             for o in got)
+    ok = ok and all(
+        np.array_equal(o.cpu().numpy(), jpeg_tpu_torch.decode(j, device=dev))
+        for o, j in zip(got, odd))
+    print(f"phase 6k: decode_stream with a 1001x777 and a gray stream in the "
+          f"middle, device_output: {[tuple(o.shape) for o in got]}; equal "
+          f"to decode() per stream: {ok}; launches {n_b}", flush=True)
+    check(ok, "decode_stream of mixed geometries differs from decode()")
+    check(n_b == (0, 3 * 5 + 1, 0), f"mixed decode_stream launched {n_b}")
+    del got
+
+    # Phase 6l: the multi-scan and the progressive encoders.
+    from jpeg_tpu_torch.models.progressive_enc import encode_progressive
+
+    ni_cpu, secs = timed(lambda: jpeg_tpu_torch.encode_noninterleaved(
+        img, QUALITY, device="cpu"))
+    (ni, secs_card), n_b = counted(lambda: timed(
+        lambda: jpeg_tpu_torch.encode_noninterleaved(img, QUALITY,
+                                                     device=dev)))
+    jpg444 = jpeg_tpu_torch.encode(img, QUALITY, "444", device=dev)
+    px_ni = jpeg_tpu_torch.decode(ni, device=dev)
+    info_ni = jfif.parse_jpeg(ni)
+    print(f"phase 6l: encode_noninterleaved 4K q{QUALITY}: {len(ni)} bytes in "
+          f"{len(info_ni.scans)} scans, equal to CPU: {ni == ni_cpu}; decode "
+          f"equals the 4:4:4 baseline stream's: "
+          f"{np.array_equal(px_ni, jpeg_tpu_torch.decode(jpg444, device=dev))}"
+          f"; launches {n_b}; {secs_card:.2f} s on the card, CPU reference "
+          f"{secs:.2f} s", flush=True)
+    check(ni == ni_cpu, "encode_noninterleaved bytes differ from the CPU's")
+    check(len(info_ni.scans) == 3, "encode_noninterleaved is not three scans")
+    check(np.array_equal(px_ni, jpeg_tpu_torch.decode(jpg444, device=dev)),
+          "the multi-scan stream decodes to other pixels than the baseline")
+    check(n_b == (0, 0, 0), f"encode_noninterleaved launched {n_b}")
+    del px_ni
+    for label, im, kw in (
+            ("1024x768 4:2:0", make_image(768, 1024, seed=768),
+             dict(subsampling="420")),
+            ("640x480 gray", make_image(480, 640, seed=480)[..., 0], {})):
+        pr_cpu, secs = timed(lambda: encode_progressive(
+            im, QUALITY, device="cpu", **kw))
+        pr, secs_card = timed(lambda: encode_progressive(
+            im, QUALITY, device=dev, **kw))
+        base = jpeg_tpu_torch.encode(im, QUALITY, device=dev, **kw)
+        same_px = np.array_equal(jpeg_tpu_torch.decode(pr, device=dev),
+                                 jpeg_tpu_torch.decode(base, device=dev))
+        info_pr = jfif.parse_jpeg(pr)
+        print(f"phase 6l: encode_progressive {label}: {len(pr)} bytes in "
+              f"{len(info_pr.scans)} scans (baseline {len(base)}), equal to "
+              f"CPU: {pr == pr_cpu}; decode equals the baseline stream's: "
+              f"{same_px}; {secs_card:.2f} s on the card, CPU {secs:.2f} s",
+              flush=True)
+        check(info_pr.progressive, "encode_progressive did not write SOF2")
+        check(pr == pr_cpu, f"progressive {label} bytes differ from the CPU's")
+        check(same_px, f"progressive {label} decodes to other pixels than "
+              "the baseline stream")
+
     # Phase 7: smaller encodes, byte-identical to the CPU path.
     for (h, w), sub, r in (((777, 1001), "444", 0), ((480, 640), "422", 0),
                            ((768, 1024), "420", 4)):
@@ -802,6 +1084,94 @@ def run(card: str) -> dict:
     # stage below): the decoder uploads such grids dense for this reason.
     ms_from_blocks = median_ms_host(
         lambda: decode_device.sparse_payload_from_blocks(scans), torch)
+
+    # The serving entry points, host clock, ms per call. The streams' frames
+    # come from a pool of 8 made beforehand, so that making a frame is not
+    # timed; the per-image figure divides by the images.
+    def pool_frames(n):
+        return (batch8[i % BATCH_ENCODE] for i in range(n))
+
+    def drain(gen):
+        for _ in gen:
+            pass
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_enc_batch = median_ms_host(lambda: jpeg_tpu_torch.encode_batched(
+        batch8, QUALITY, SUBSAMPLING, device=dev), torch)
+    peak_enc_batch = torch.cuda.max_memory_allocated()
+    # fused and pipelined in turns, so that a drift of the host hits both.
+    dec_batch_ts = {"fused": [], "pipelined": []}
+    for rnd in range(WARM + RUNS):
+        for bm in (("fused", "pipelined") if rnd % 2 == 0
+                   else ("pipelined", "fused")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            jpeg_tpu_torch.decode_batched(jpgs4, batch_mode=bm, device=dev)
+            torch.cuda.synchronize()
+            if rnd >= WARM:
+                dec_batch_ts[bm].append((time.perf_counter() - t0) * 1e3)
+    ms_dec_batch = {bm: statistics.median(ts)
+                    for bm, ts in dec_batch_ts.items()}
+    torch.cuda.reset_peak_memory_stats()
+    jpeg_tpu_torch.decode_batched(jpgs4, batch_mode="fused", device=dev)
+    peak_dec_batch = torch.cuda.max_memory_allocated()
+    # What sets the batch's pace: its four host walks on four threads, as
+    # decode_batched runs them, alone; and the batch without its download.
+    walk_args = [port_util.scan_args(j) for j in jpgs4]
+
+    def threaded_walks():
+        with ThreadPoolExecutor(BATCH_DECODE) as pool:
+            return list(pool.map(lambda a: native.sparse_scan(*a), walk_args))
+
+    ms_batch_walks = median_ms_host(threaded_walks, torch)
+    ms_batch_walk_1 = median_ms_host(
+        lambda: native.sparse_scan(*walk_args[0]), torch)
+    ms_dec_batch_dev = median_ms_host(lambda: jpeg_tpu_torch.decode_batched(
+        jpgs4, batch_mode="fused", device_output=True, device=dev), torch)
+    # encode_stream with its pinned staging buffer and with the pageable
+    # upload straight from the caller's array, in turns like the batch modes.
+    staging_default = pipeline.PINNED_STAGING
+    enc_stream_ts = {(st, d): [] for st in (True, False) for d in (1, 2, 4)}
+    for rnd in range(1 + STREAM_RUNS):
+        for d in (1, 2, 4):
+            for st in ((True, False) if rnd % 2 == 0 else (False, True)):
+                pipeline.PINNED_STAGING = st
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drain(jpeg_tpu_torch.encode_stream(
+                    pool_frames(STREAM_ENCODE), QUALITY, SUBSAMPLING, depth=d,
+                    device=dev))
+                torch.cuda.synchronize()
+                if rnd >= 1:
+                    enc_stream_ts[st, d].append(
+                        (time.perf_counter() - t0) * 1e3)
+    pipeline.PINNED_STAGING = staging_default
+    ms_enc_stream = {d: statistics.median(enc_stream_ts[staging_default, d])
+                     for d in (1, 2, 4)}
+    ms_enc_stream_other = {
+        d: statistics.median(enc_stream_ts[not staging_default, d])
+        for d in (1, 2, 4)}
+    ms_dec_stream = {d: median_ms_host(lambda: drain(
+        jpeg_tpu_torch.decode_stream(iter(jpgs16), depth=d, device=dev)),
+        torch) for d in (1, 2, 4)}
+    # The host work that encode_stream's one thread does per image, piece by
+    # piece: the copy into the pinned staging buffer, the download of the
+    # used words, the native finalize.
+    slot = pipeline._Slot(dev)
+    ms_stage_copy = median_ms_host(lambda: slot.stage(img), torch)
+    words4k, totals4k, ok4k = encoder._pack_device(
+        blocks4k, tbl4k, encoder._device_luts(htables, dev), n_mcu, 0)
+    status4k = encoder._pack_status(totals4k, ok4k).cpu().numpy()
+    maxw = (int(status4k[0].max()) + 31) // 32
+
+    def fetch_words():
+        return words4k[:, :maxw].cpu().numpy().astype(np.uint32)
+
+    ms_word_download = median_ms_host(fetch_words, torch)
+    w_host = fetch_words()
+    ms_finalize = median_ms_host(
+        lambda: bitpack.finalize_stream(w_host, status4k[0]), torch)
 
     n_mcu_4k = mcu_rows * mcu_cols
     lay_4k = [(i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)]
@@ -933,6 +1303,40 @@ def run(card: str) -> dict:
     ):
         print(f"phase 8: {label}: {ms:.3f} ms median of {RUNS} [{card}]",
               flush=True)
+    staging_name = {True: "pinned staging", False: "pageable upload"}
+    for label, ms, n, single, runs in (
+        (f"encode_batched K={BATCH_ENCODE} 4K", ms_enc_batch, BATCH_ENCODE,
+         ms_enc, RUNS),
+        *((f"decode_batched K={BATCH_DECODE} 4K {bm!r}", v, BATCH_DECODE,
+           ms_dec, RUNS) for bm, v in ms_dec_batch.items()),
+        *((f"encode_stream {STREAM_ENCODE} x 4K depth {d}, "
+           f"{staging_name[staging_default]} (the default)", v,
+           STREAM_ENCODE, ms_enc, STREAM_RUNS)
+          for d, v in ms_enc_stream.items()),
+        *((f"encode_stream {STREAM_ENCODE} x 4K depth {d}, "
+           f"{staging_name[not staging_default]}", v, STREAM_ENCODE, ms_enc,
+           STREAM_RUNS) for d, v in ms_enc_stream_other.items()),
+        *((f"decode_stream {STREAM_DECODE} x 4K depth {d}", v, STREAM_DECODE,
+           ms_dec, RUNS) for d, v in ms_dec_stream.items()),
+    ):
+        print(f"phase 8: {label}: {ms:.3f} ms median of {runs}, "
+              f"{ms / n:.3f} ms per image ({mpix * n / ms * 1e3:.1f} MPix/s); "
+              f"single call {single:.3f} ms ({mpix / single * 1e3:.1f} "
+              f"MPix/s) [{card}]", flush=True)
+    print(f"phase 8: peak device memory: encode_batched K={BATCH_ENCODE} "
+          f"{peak_enc_batch} bytes; decode_batched K={BATCH_DECODE} fused "
+          f"{peak_dec_batch} bytes [{card}]", flush=True)
+    print(f"phase 8: decode_batched K={BATCH_DECODE} parts: the "
+          f"{BATCH_DECODE} sparse walks on {BATCH_DECODE} threads "
+          f"{ms_batch_walks:.3f} ms (one walk alone {ms_batch_walk_1:.3f} "
+          f"ms); 'fused' with device_output (no download) "
+          f"{ms_dec_batch_dev:.3f} ms [{card}]", flush=True)
+    print(f"phase 8: encode_stream host pieces per 4K image: copy into the "
+          f"pinned staging buffer {ms_stage_copy:.3f} ms, download of "
+          f"{maxw * 4} bytes of words {ms_word_download:.3f} ms, native "
+          f"finalize {ms_finalize:.3f} ms [{card}]", flush=True)
+    print(f"phase 8: decode_batched batch_mode='auto' takes "
+          f"{auto_mode!r} at K={BATCH_DECODE}", flush=True)
     for path, stages in stage_ms.items():
         print(f"phase 8: decode 4K stages, {path} (sum "
               f"{sum(stages.values()):.3f} ms): "
@@ -960,12 +1364,16 @@ def run(card: str) -> dict:
                 "bound_share": bound_us(nbytes) / us,
                 "launches_per": dict(zip(
                     ("default_encode", "default_decode", "use_pallas_encode",
-                     "sparse_decode", "native_decode"),
+                     "sparse_decode", "native_decode", "encode_batched_k8",
+                     "decode_batched_fused_k4", "decode_batched_pipelined_k4",
+                     "encode_stream_per_image", "decode_stream_per_image"),
                     launches_per)), **more}
 
     # By kernel A, B, C: each path's counts as read just after it ran.
     per = list(zip(per_encode, per_decode, per_pallas, per_sparse,
-                   per_native))
+                   per_native, per_batch_enc, per_batch_dec["fused"],
+                   per_batch_dec["pipelined"], per_stream_enc,
+                   per_stream_dec))
     return {"kernels": [
         entry("pack_level1", "jpeg_tpu_torch/csrc/pack_level1.cu",
               "jpeg_tpu/ops/pack_pallas.py:82", launches_a, err_a, ms_a,

@@ -227,47 +227,41 @@ def _shifts(values, device) -> torch.Tensor:
 
 
 def _unpack6(words: torch.Tensor, n: int) -> torch.Tensor:
-    """6-bit stream unpack: (G*3,) non-negative int64 words (32 bits each) ->
-    (n,) int64 in [0, 64). 16 values ride each 96-bit group: ten lie in the
-    first two words, one straddles into the third, five lie in the third."""
-    g = words.reshape(-1, 3)
+    """6-bit stream unpack: (..., G*3) non-negative int64 words (32 bits
+    each) -> (..., n) int64 in [0, 64). 16 values ride each 96-bit group: ten
+    lie in the first two words, one straddles into the third, five lie in the
+    third."""
+    g = words.reshape(*words.shape[:-1], -1, 3)
     dev = words.device
-    lo = g[:, 0] | (g[:, 1] << 32)  # bit 63 may be set: mask after shifting
-    first = (lo[:, None] >> _shifts(range(0, 60, 6), dev)) & 63
-    straddle = ((lo >> 60) & 15) | ((g[:, 2] & 3) << 4)
-    last = (g[:, 2, None] >> _shifts(range(2, 32, 6), dev)) & 63
-    return torch.cat([first, straddle[:, None], last], dim=1).reshape(-1)[:n]
+    lo = g[..., 0] | (g[..., 1] << 32)  # bit 63 may be set: mask after shifting
+    first = (lo[..., None] >> _shifts(range(0, 60, 6), dev)) & 63
+    straddle = ((lo >> 60) & 15) | ((g[..., 2] & 3) << 4)
+    last = (g[..., 2, None] >> _shifts(range(2, 32, 6), dev)) & 63
+    return torch.cat([first, straddle[..., None], last], dim=-1).reshape(
+        *words.shape[:-1], -1)[..., :n]
 
 
-def _unpack_nib(words: torch.Tensor, n: int) -> torch.Tensor:
-    """Nibble stream unpack: (n/8,) words -> (n,) int64 two's-complement
-    4-bit values in [-8, 7]."""
-    nib = (words[:, None] >> _shifts(range(0, 32, 4), words.device)) & 15
-    return (nib.reshape(-1)[:n] ^ 8) - 8
-
-
-def _unpack_i8(words: torch.Tensor, n: int) -> torch.Tensor:
-    """int8 byte stream unpack: (ceil(n/4),) words -> (n,) int64."""
-    b = (words[:, None] >> _shifts(range(0, 32, 8), words.device)) & 255
-    return (b.reshape(-1)[:n] ^ 0x80) - 0x80
-
-
-def _exception_pairs(words: torch.Tensor, base: int, Ep: int):
-    """Decode the (idx u32, val i16) exception stream -> (idx, val) int64
-    tensors (the one home of the exception wire format)."""
-    idx = words[base:base + Ep]
-    evw = words[base + Ep:base + Ep + Ep // 2]
-    eh = torch.stack([evw & 0xFFFF, evw >> 16], dim=1).reshape(-1)
-    return idx, (eh ^ 0x8000) - 0x8000
+def _unpack_bytes(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """(..., W) words -> (..., n) int64 two's-complement fields of `bits`
+    bits each (4: nibbles in [-8, 7]; 8: int8; 16: int16), low field
+    first."""
+    mask, sign = (1 << bits) - 1, 1 << (bits - 1)
+    f = (words[..., None] >> _shifts(range(0, 32, bits), words.device)) & mask
+    return (f.reshape(*words.shape[:-1], -1)[..., :n] ^ sign) - sign
 
 
 def _apply_exceptions(stream: torch.Tensor, words: torch.Tensor, base: int,
-                      Ep: int, cap: int) -> torch.Tensor:
-    """Add the (idx u32, val i16) exception stream onto `stream`, in place.
+                      Ep: int) -> torch.Tensor:
+    """Add the (idx u32, val i16) exception stream at words[:, base:] (the
+    one home of the exception wire format) onto `stream` (K, cap), in place.
     Sentinel'd slots hold 0, so the add reconstructs values exactly; padding
     entries target cap-1 with value 0 (no-op adds)."""
-    idx, val = _exception_pairs(words, base, Ep)
-    return stream.index_add_(0, idx.clamp(0, cap - 1), val)
+    n_img, cap = stream.shape
+    idx = words[:, base:base + Ep].clamp(0, cap - 1)
+    val = _unpack_bytes(words[:, base + Ep:base + Ep + Ep // 2], 16, Ep)
+    row = torch.arange(n_img, device=stream.device)[:, None] * cap
+    stream.view(-1).index_add_(0, (idx + row).reshape(-1), val.reshape(-1))
+    return stream
 
 
 def densify_body(payload: torch.Tensor, B: int, Sp: int, Ep: int,
@@ -275,7 +269,8 @@ def densify_body(payload: torch.Tensor, B: int, Sp: int, Ep: int,
     """Densify the sparse payload: int32 words (the uint32 payload's bits)
     [counts 6b | ks 6b | vals 4b | dc-diff i8 | val_exc (u32+i16) |
     dc_exc (u32+i16)] -> (B, 64) int32 zig-zag blocks, on the payload's
-    device.
+    device. A (K, words) stack of payloads of one geometry densifies in the
+    same pass to (K, B, 64).
 
     Counts and zig-zag positions are 6-bit packed (both <= 63), AC values
     are two's-complement nibbles (|v| > 7 rides the sentinel -8 plus a
@@ -294,35 +289,38 @@ def densify_body(payload: torch.Tensor, B: int, Sp: int, Ep: int,
     v4w = Sp // 8
     d8w = (B + 3) // 4
     total = c6w + k6w + v4w + d8w + Ep + Ep // 2 + Edp + Edp // 2
-    if payload.ndim != 1 or payload.shape[0] != total:
+    if payload.ndim not in (1, 2) or payload.shape[-1] != total:
         raise ValueError(
             f"sparse payload has {tuple(payload.shape)} words, geometry "
             f"(B={B}, Sp={Sp}, Ep={Ep}, Edp={Edp}) needs {total}")
-    words = payload.to(torch.int64) & 0xFFFFFFFF
+    dev = payload.device
+    words = payload.reshape(-1, total).to(torch.int64) & 0xFFFFFFFF
+    n_img = words.shape[0]
     off = 0
-    counts = _unpack6(words[:c6w], B)
+    counts = _unpack6(words[:, :c6w], B)
     off += c6w
-    ks = _unpack6(words[off:off + k6w], Sp)
+    ks = _unpack6(words[:, off:off + k6w], Sp)
     off += k6w
-    v4 = _unpack_nib(words[off:off + v4w], Sp)
+    v4 = _unpack_bytes(words[:, off:off + v4w], 4, Sp)
     vals = torch.where(v4 == -8, 0, v4)
     off += v4w
-    d8 = _unpack_i8(words[off:off + d8w], B)
+    d8 = _unpack_bytes(words[:, off:off + d8w], 8, B)
     dcd = torch.where(d8 == -128, 0, d8)
     off += d8w
-    vals = _apply_exceptions(vals, words, off, Ep, Sp)
+    vals = _apply_exceptions(vals, words, off, Ep)
     off += Ep + Ep // 2
-    dc = torch.cumsum(_apply_exceptions(dcd, words, off, Edp, B), dim=0)
+    dc = torch.cumsum(_apply_exceptions(dcd, words, off, Edp), dim=1)
 
-    ends = torch.cumsum(counts, dim=0)
-    elem = torch.arange(Sp, dtype=torch.int64, device=payload.device)
+    ends = torch.cumsum(counts, dim=1)
+    elem = torch.arange(Sp, dtype=torch.int64, device=dev).repeat(n_img, 1)
     block = torch.searchsorted(ends, elem, right=True)  # B for padding
-    rows = torch.zeros((B + 1, 64), dtype=torch.int32, device=payload.device)
-    rows[block, ks] = vals.to(torch.int32)
-    rows = rows[:B]
+    rows = torch.zeros((n_img, B + 1, 64), dtype=torch.int32, device=dev)
+    img = torch.arange(n_img, device=dev)[:, None]
+    rows[img, block, ks] = vals.to(torch.int32)
+    rows = rows[:, :B]
     # Real AC positions are 1..63, so column 0 is free for the DC.
-    rows[:, 0] = dc.to(torch.int32)
-    return rows
+    rows[:, :, 0] = dc.to(torch.int32)
+    return rows[0] if payload.ndim == 1 else rows
 
 
 def decode_scan_sparse(

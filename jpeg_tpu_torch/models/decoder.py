@@ -11,9 +11,9 @@ Sequential (SOF0/SOF1) and progressive (SOF2) Huffman modes, 8-bit, 1, 3 or
 4 components (gray / YCbCr / RGB / Adobe CMYK+YCCK), arbitrary per-component
 sampling factors 1-4 with integer upsampling ratios, interleaved or
 non-interleaved multi-scan, any Huffman table ids: everything
-jpeg_tpu.decode takes. Not ported: the device entropy decoders
-(entropy="device" / "indexed", ROADMAP.md Queue 1 item 8) and decode_batched
-(Queue 1 item 5).
+jpeg_tpu.decode takes, and decode_batched for K homogeneous baseline
+streams. Not ported: the device entropy decoders (entropy="device" /
+"indexed", ROADMAP.md Queue 1 item 8).
 
 Full-size planes (k = 8) always run kernel B on a CUDA device and its plain
 twin on the CPU; there is no use_pallas switch.
@@ -73,33 +73,68 @@ def _reconstruct_plane(zz, qtab, blocks_shape, k: int = 8):
     return torch.clamp(torch.round(plane), 0.0, 255.0)
 
 
+def _reconstruct_batch(zz, qtab, blocks_shape, k: int, n_img: int):
+    """_reconstruct_plane for n_img images of one geometry whose raster
+    blocks follow one another in `zz`: (n_img, H*k/8, W*k/8) planes. Blocks
+    are independent, so at full size the images stacked along their rows
+    are one plane to kernel B: one launch for the batch. The scaled IDCT
+    (k < 8) runs image by image, because its two contractions go to cuBLAS,
+    which may sum in another order on another shape, and the batch must
+    give decode()'s pixels exactly."""
+    hb, wb = blocks_shape
+    if k == 8:
+        plane = _reconstruct_plane(zz, qtab, (n_img * hb, wb), k)
+    else:
+        plane = torch.cat([_reconstruct_plane(z, qtab, blocks_shape, k)
+                           for z in zz.chunk(n_img)])
+    return plane.reshape(n_img, hb * k, wb * k)
+
+
+def _upsample(plane, factor, fan: bool):
+    """A reconstructed (..., H, W) plane upsampled by its (fh, fv) ratios to
+    the max-sampled grid (triangular or replication per `fan`)."""
+    fh, fv = factor
+    if fh == 1 and fv == 1:
+        return plane
+    up = subsample.fancy_upsample_factors if fan else subsample.upsample_factors
+    return up(plane, fv, fh)
+
+
 def _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k: int = 8):
     """Per-component reconstructed planes, each upsampled to the
-    max-sampled grid (triangular or replication per `fancy`)."""
-    planes = []
-    for zz, q, shape, (fh, fv), fan in zip(zzs, qtabs, shapes, factors, fancy):
-        p = _reconstruct_plane(zz, q, shape, k)
-        if fh > 1 or fv > 1:
-            up = (
-                subsample.fancy_upsample_factors
-                if fan else subsample.upsample_factors
-            )
-            p = up(p, fv, fh)
-        planes.append(p)
-    return planes
+    max-sampled grid."""
+    return [_upsample(_reconstruct_plane(zz, q, shape, k), factor, fan)
+            for zz, q, shape, factor, fan
+            in zip(zzs, qtabs, shapes, factors, fancy)]
 
 
-def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
-                  fancy=(True, True, True), is_rgb: bool = False, k: int = 8):
-    """shapes: per-component block grids (hb, wb); factors: per-component
-    (fh, fv) upsampling ratios to the max-sampled grid. fancy: per-component
-    triangular-vs-replication choice (upsample_choices). is_rgb: components
-    are stored as R/G/B, so the YCbCr matrix is skipped."""
-    planes = _upsampled_planes((y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes,
-                               factors, fancy, k)
+def _rgb_from_planes(planes, is_rgb: bool):
+    """Three upsampled (..., H, W) sample planes -> (..., H, W, 3) uint8
+    RGB. is_rgb: components are stored as R/G/B, so the YCbCr matrix is
+    skipped."""
     ycc = torch.stack(planes, dim=-1)
     rgb = ycc if is_rgb else color.ycbcr_to_rgb(ycc)
     return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
+
+
+def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
+                  fancy=(True, True, True), is_rgb: bool = False, k: int = 8,
+                  n_img: int | None = None):
+    """shapes: per-component block grids (hb, wb); factors: per-component
+    (fh, fv) upsampling ratios to the max-sampled grid. fancy: per-component
+    triangular-vs-replication choice (upsample_choices). n_img: the blocks
+    hold that many images, one after another, and the result gains a leading
+    image axis (every step after the IDCT works on each sample's own image
+    only, so the pixels are those of n_img separate calls)."""
+    zzs, qtabs = (y_zz, cb_zz, cr_zz), (qy, qcb, qcr)
+    if n_img is None:
+        planes = _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k)
+    else:
+        planes = [
+            _upsample(_reconstruct_batch(zz, q, shape, k, n_img), factor, fan)
+            for zz, q, shape, factor, fan
+            in zip(zzs, qtabs, shapes, factors, fancy)]
+    return _rgb_from_planes(planes, is_rgb)
 
 
 def _finish_gray(zz, qy, shape, k: int = 8):
@@ -575,3 +610,216 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         return YCbCrPlanes(tuple(planes), hlim, wlim, factors, fancy)
     return deliver(_finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb,
                                  k))
+
+
+BATCH_MODES = ("auto", "pipelined", "fused")
+
+
+# What batch_mode="auto" takes, decided by measurement (chip_smoke.py phase 8,
+# K = 4 streams of 3840x2160 q75 4:2:0, NVIDIA H100 80GB HBM3 at 700 W, the
+# two modes in turns, medians of 7): "fused" 119.1 ms against 170.5 ms
+# "pipelined" for the batch. The card is idle most of either; what
+# "pipelined" adds is host work in line (four packs, four downloads and a
+# host stack of the results), and one stream has nothing to pipeline.
+AUTO_BATCH_MODE = "fused"
+
+
+def decode_batched(datas, fancy_upsample: bool = True,
+                   device_output: bool = False, scale_denom: int = 1,
+                   batch_mode: str = "auto", device="cuda"):
+    """Decode K same-geometry baseline JPEGs as one batch on `device`:
+    (K, ceil(H/scale_denom), ceil(W/scale_denom), 3) uint8, bit-identical to
+    K calls of decode() (a tensor on `device` with device_output).
+
+    Each stream's entropy layer is resolved on the host by the sparse C++
+    walk, threaded across streams; the payloads share one size bucket, and
+    the device densifies, reorders and finishes every image.
+
+    batch_mode selects how the device work is composed (identical pixels
+    either way):
+      "fused": all K payloads go up as one tensor, then one densify, and one
+        launch of kernel B per component on the K planes stacked along
+        their rows, one upsample and one colour map for the batch.
+      "pipelined": image by image. Payload i+1 is packed on the host and
+        uploaded from a pinned buffer on a side stream while image i
+        densifies and finishes.
+      "auto": AUTO_BATCH_MODE, the one that measured faster on the card.
+
+    The device work runs on PyTorch's current stream. Only "pipelined"
+    uploads on a stream of its own; the current stream waits for each
+    upload's event before it reads the payload.
+
+    Requirements: homogeneous 3-component single-scan interleaved
+    sequential streams: identical geometry, sampling factors, quant tables,
+    per-component Huffman table ids (0/1, DC = AC), component ids and Adobe
+    transform. Huffman table contents may differ per stream; they feed only
+    the host walk."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if batch_mode not in BATCH_MODES:
+        raise ValueError(f"unknown batch_mode {batch_mode!r}")
+    if scale_denom not in (1, 2, 4, 8):
+        raise ValueError(f"scale_denom must be 1, 2, 4 or 8, got {scale_denom}")
+    if not datas:
+        raise ValueError("decode_batched needs at least one stream")
+    k = 8 // scale_denom
+    device = torch.device(device)
+    infos = [jfif.parse_jpeg(d) for d in datas]
+    i0 = infos[0]
+    comps = i0.components
+    if len(comps) != 3:
+        raise ValueError("decode_batched needs 3-component streams")
+    for info in infos:
+        if info.progressive or len(info.scans) != 1 or len(
+            info.scans[0].comp_ids
+        ) != len(comps):
+            raise ValueError(
+                "decode_batched needs single-scan interleaved baseline streams"
+            )
+        if any(c.dc_id != c.ac_id or c.dc_id not in (0, 1)
+               for c in info.components):
+            raise ValueError("decode_batched needs table ids 0/1 per component")
+        for c in info.components:
+            if (0, c.dc_id) not in info.htables or (
+                1, c.ac_id
+            ) not in info.htables:
+                raise jfif.JpegFormatError(
+                    "scan references undefined Huffman table"
+                )
+    for info in infos[1:]:
+        # Huffman table ids are part of the homogeneity key: mcu_layout is
+        # built once from stream 0 and drives every stream's sparse walk.
+        # Likewise adobe_transform and the component ids select the colour
+        # transform, which is chosen once for the whole batch.
+        same = (
+            (info.width, info.height) == (i0.width, i0.height)
+            and [(c.h, c.v, c.qtab_id, c.dc_id, c.ac_id)
+                 for c in info.components]
+            == [(c.h, c.v, c.qtab_id, c.dc_id, c.ac_id) for c in comps]
+            and info.adobe_transform == i0.adobe_transform
+            and [c.comp_id for c in info.components]
+            == [c.comp_id for c in comps]
+            and all(t in info.qtables
+                    and np.array_equal(info.qtables[t], i0.qtables[t])
+                    for t in i0.qtables)
+        )
+        if not same:
+            raise ValueError("decode_batched requires homogeneous streams")
+
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    mcu_rows = layout.ceil_div(i0.height, 8 * vmax)
+    mcu_cols = layout.ceil_div(i0.width, 8 * hmax)
+    n_mcu = mcu_rows * mcu_cols
+    mcu_layout = [
+        (i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)
+    ]
+    n_img = len(infos)
+    if batch_mode == "auto":
+        batch_mode = AUTO_BATCH_MODE
+
+    # Host sparse walks, threaded across streams: the walk is a ctypes call
+    # that releases the interpreter lock, and a restart-free stream is
+    # serial inside, so stream-level threads are what overlaps them.
+    def walk(info):
+        return native.sparse_scan(
+            info.scan_data, n_mcu, mcu_layout, info.htables,
+            info.restart_interval,
+        )
+
+    with ThreadPoolExecutor(min(4, n_img)) as pool:
+        walks = list(pool.map(walk, infos))
+        Sp = decode_device.sparse_bucket(max(w[0].shape[0] for w in walks))
+        Ep = decode_device.exception_bucket(max(
+            int(np.count_nonzero(np.abs(w[0].astype(np.int32)) > 7))
+            for w in walks
+        ))
+        Edp = decode_device.exception_bucket(max(
+            decode_device.dc_diff_exceptions(w[3]) for w in walks
+        ))
+
+        def build(w):
+            return decode_device.build_payload(*w, Sp, Ep, Edp)
+
+        if batch_mode == "fused":
+            payloads = np.stack(list(pool.map(build, walks)))
+    B = walks[0][2].shape[0]
+
+    ranges, base = [], 0
+    for c in comps:
+        ranges.append((base, base + c.h * c.v * n_mcu))
+        base = ranges[-1][1]
+    shapes = tuple((mcu_rows * c.v, mcu_cols * c.h) for c in comps)
+    factors = tuple((hmax // c.h, vmax // c.v) for c in comps)
+    fancy = upsample_choices(i0.width, comps, hmax, fancy_upsample)
+    qtabs = [torch.as_tensor(i0.qtables[c.qtab_id], dtype=torch.float32,
+                             device=device) for c in comps]
+    is_rgb = i0.adobe_transform == 0 or (
+        i0.adobe_transform is None
+        and tuple(c.comp_id for c in comps) == (0x52, 0x47, 0x42)
+    )
+    hlim = layout.ceil_div(i0.height, scale_denom)
+    wlim = layout.ceil_div(i0.width, scale_denom)
+
+    def finish(rows):
+        """(n, B, 64) densified rows of n images -> (n, hlim, wlim, 3)."""
+        n = rows.shape[0]
+        zz = []
+        for (lo, hi), c in zip(ranges, comps):
+            z = rows[:, lo:hi].reshape(-1, 64)
+            if c.h * c.v > 1:
+                # n images' MCU rows, one image after another, are the MCU
+                # rows of one tall image.
+                z = layout.scan_to_raster(z, n * mcu_rows, mcu_cols, c.v, c.h)
+            zz.append(z)
+        out = _finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb, k,
+                            n_img=n)
+        return out[:, :hlim, :wlim]
+
+    if batch_mode == "fused":
+        out = finish(decode_device.densify_body(
+            decode_device.payload_tensor(payloads, device), B, Sp, Ep, Edp))
+        return out if device_output else out.cpu().numpy()
+
+    # Pipelined. Kernel launches return before the device has run them, so
+    # after image i's work is enqueued this thread packs payload i+1 while
+    # the device is busy; the side stream lets that upload pass the work
+    # queued on the current one. Two pinned buffers take turns.
+    on_card = device.type == "cuda"
+    if on_card:
+        side = torch.cuda.Stream(device)
+        pinned = [None, None]
+        sent = [None, None]
+
+    def upload(i):
+        words = build(walks[i])
+        if not on_card:
+            return decode_device.payload_tensor(words, device)
+        slot = i % 2
+        if pinned[slot] is None:
+            pinned[slot] = torch.empty(words.shape[0], dtype=torch.int32,
+                                       pin_memory=True)
+        else:
+            sent[slot].synchronize()  # upload i - 2 has left the buffer
+        pinned[slot].numpy()[:] = words.view(np.int32)
+        with torch.cuda.stream(side):
+            dev = pinned[slot].to(device, non_blocking=True)
+            sent[slot] = torch.cuda.Event()
+            sent[slot].record()
+        current = torch.cuda.current_stream(device)
+        current.wait_event(sent[slot])
+        dev.record_stream(current)  # allocated on `side`, read on `current`
+        return dev
+
+    outs = []
+    nxt = upload(0)
+    for i in range(n_img):
+        payload = nxt
+        outs.append(finish(
+            decode_device.densify_body(payload, B, Sp, Ep, Edp)[None])[0])
+        if i + 1 < n_img:
+            nxt = upload(i + 1)
+    if device_output:
+        return torch.stack(outs)
+    # Per-image downloads drain in order while later images still run.
+    return np.stack([o.cpu().numpy() for o in outs])

@@ -24,6 +24,7 @@ host packer, counted in HOST_PACK_SPILLS.
 from __future__ import annotations
 
 import collections
+import threading
 
 import numpy as np
 import torch
@@ -33,8 +34,8 @@ from jpeg_tpu_torch.entropy import huffman, native
 from jpeg_tpu_torch.io import bmp, jfif
 from jpeg_tpu_torch.models import layout
 from jpeg_tpu_torch.ops import (
-    bitpack, color, dpcm as dpcm_ops, fused, mcu_conv, pack, quant, subsample,
-    symbols, tile, zigzag,
+    _cuda, bitpack, color, dpcm as dpcm_ops, fused, mcu_conv, pack, quant,
+    subsample, symbols, tile, zigzag,
 )
 
 # Device word-buffer capacity per segment: 8 words (256 bits) per block on
@@ -42,7 +43,9 @@ from jpeg_tpu_torch.ops import (
 WORDS_PER_BLOCK = 8
 
 # Scans host-packed because level 2 reported ok=False (the designed spill).
+# Counted under a lock: encode_stream's callers may encode from threads.
 HOST_PACK_SPILLS = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def _interleaved_blocks(rgb, qy, qc, mode: Subsampling, restart_mcus: int):
@@ -100,45 +103,71 @@ def _color_hists(blocks, n_mcu: int, hv: int):
 # its own.
 _LUT_CACHE_SIZE = 8
 _lut_cache: collections.OrderedDict = collections.OrderedDict()
+_lut_lock = threading.Lock()
 
 
 def _device_luts(htables: dict, device) -> tuple:
     """{(is_ac, id): HuffTable} -> (dc_code, dc_len, ac_code, ac_len, packed)
     int32 tensors on `device`: the four (2, 256) LUTs and pack.pack_tables'
     (2, 2, 256) words for kernel A, built and uploaded once per table set
-    and device."""
+    and device. A cached set may be evicted while a stream other than the
+    one that filled it still reads it, so a hit records the caller's current
+    stream on its tensors: their memory is not reused before that stream
+    has passed."""
     device = torch.device(device)
     key = (str(device),) + tuple(
         (k, t.code.tobytes(), t.size.tobytes())
         for k, t in sorted(htables.items()))
-    luts = _lut_cache.get(key)
-    if luts is None:
-        luts = tuple(torch.as_tensor(a.astype(np.int32), device=device)
-                     for a in bitpack.luts_from_tables(htables))
-        luts += (pack.pack_tables(*luts),)
+    with _lut_lock:
+        luts = _lut_cache.get(key)
+        if luts is not None:
+            _lut_cache.move_to_end(key)
+    if luts is not None:
+        if device.type == "cuda":
+            current = torch.cuda.current_stream(device)
+            for t in luts:
+                t.record_stream(current)
+        return luts
+    luts = tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                 for a in bitpack.luts_from_tables(htables))
+    luts += (_cuda.settled(pack.pack_tables(*luts)),)
+    with _lut_lock:
         _lut_cache[key] = luts
         if len(_lut_cache) > _LUT_CACHE_SIZE:
             _lut_cache.popitem(last=False)
-    else:
-        _lut_cache.move_to_end(key)
     return luts
 
 
-def _finish_device_pack(words, totals, ok, blocks, tbl, htables,
-                        restart_interval: int, bpm: int) -> bytes:
-    """Scan bytes of a device pack: one sliced download of the words and the
-    native finalize, or, when level 2 reported an overflow, the native host
-    packer over the same coefficients (counted in HOST_PACK_SPILLS)."""
+def _pack_status(totals, ok) -> torch.Tensor:
+    """Level 2's (nseg,) bit totals and ok flags as ONE (2, nseg) int64
+    tensor on their device, so that the host learns both from one copy."""
+    return torch.stack([totals, ok.to(totals.dtype)])
+
+
+def _spill_scan(blocks, tbl, htables, restart_interval: int,
+                bpm: int) -> bytes:
+    """Scan bytes of one image whose device pack overflowed: the native host
+    packer over the same DPCM'd device blocks, counted in HOST_PACK_SPILLS."""
     global HOST_PACK_SPILLS
-    if bool(ok.all()):
-        totals_np = totals.cpu().numpy()
-        maxw = (int(totals_np.max()) + 31) // 32
-        w_host = words[:, :maxw].cpu().numpy().astype(np.uint32)
-        return bitpack.finalize_stream(w_host, totals_np)
-    HOST_PACK_SPILLS += 1
+    with _COUNT_LOCK:
+        HOST_PACK_SPILLS += 1
     return native.encode_scan(
         blocks.cpu().numpy(), tbl.cpu().numpy(), htables,
         restart_interval=restart_interval, blocks_per_mcu=bpm)
+
+
+def _finish_device_pack(words, status: np.ndarray, blocks, tbl, htables,
+                        restart_interval: int, bpm: int) -> bytes:
+    """Scan bytes of one image's device pack. `status` is _pack_status on
+    the host; the other arrays are still on the device. One sliced download
+    of the words and the native finalize, or, when level 2 reported an
+    overflow, _spill_scan."""
+    totals_np, ok = status
+    if not ok.all():
+        return _spill_scan(blocks, tbl, htables, restart_interval, bpm)
+    maxw = (int(totals_np.max()) + 31) // 32
+    w_host = words[:, :maxw].cpu().numpy().astype(np.uint32)
+    return bitpack.finalize_stream(w_host, totals_np)
 
 
 def _pallas_planes(rgb, mode: Subsampling):
@@ -298,8 +327,9 @@ def _encode_color(image: np.ndarray, cfg: EncodeConfig, comment,
             htables = huffman.standard_tables()
         words, totals, ok = _pack_device(
             blocks, tbl, _device_luts(htables, img.device), n_mcu, r)
-        scan = _finish_device_pack(words, totals, ok, blocks, tbl, htables,
-                                   r, bpm)
+        scan = _finish_device_pack(
+            words, _pack_status(totals, ok).cpu().numpy(), blocks, tbl,
+            htables, r, bpm)
     else:
         # Host pack: download the three coefficient planes and pack them on
         # the host.
@@ -335,8 +365,9 @@ def _encode_gray(image: np.ndarray, cfg: EncodeConfig, comment,
             all_tables = huffman.standard_tables()
         words, totals, ok = _pack_device(
             zz, tbl, _device_luts(all_tables, zz.device), nblocks, r)
-        scan = _finish_device_pack(words, totals, ok, zz, tbl, all_tables,
-                                   r, 1)
+        scan = _finish_device_pack(
+            words, _pack_status(totals, ok).cpu().numpy(), zz, tbl,
+            all_tables, r, 1)
     else:
         blocks = zz.cpu().numpy()
         blocks[:, 0] = _dpcm_host(blocks[:, 0], r)
@@ -399,6 +430,87 @@ def encode(
         return _encode_color(image, cfg, comment, quant_tables, device,
                              device_pack, use_pallas)
     raise ValueError(f"expected (H, W, 3) or (H, W) image, got {image.shape}")
+
+
+def encode_batched(
+    images,
+    quality: int = 75,
+    subsampling="420",
+    restart_interval: int = 0,
+    comment: str | None = None,
+    quant_tables=None,
+    device_pack: bool | None = None,
+    device="cuda",
+) -> list[bytes]:
+    """Encode K same-shape RGB images, (K, H, W, 3), as one batch on
+    `device`: one upload, one edge pad, one exact transform (one matmul over
+    the K * n_mcu MCU rows), DC DPCM that restarts at every image, ONE launch
+    of kernel A over all K * B blocks, level 2 with K * nseg segments, one
+    sliced download of the words, then K host finalizes. Returns one JFIF
+    stream per image, byte-identical to K calls of encode().
+
+    All device work runs on PyTorch's current stream.
+
+    device_pack=False, or a restart interval that does not divide the MCU
+    count, encodes image by image: those are encode()'s host-pack cases and
+    have no batched form. An image whose pack overflows (a block over 288
+    bits) alone takes the host packer, counted in HOST_PACK_SPILLS; the
+    others keep their device pack."""
+    imgs = np.asarray(images)
+    if imgs.ndim != 4 or imgs.shape[-1] != 3:
+        raise ValueError(f"expected (K, H, W, 3) uint8, got {imgs.shape}")
+    if imgs.shape[0] == 0:
+        return []
+    imgs = _normalize_image(imgs)
+    r = int(restart_interval)
+    cfg = EncodeConfig(quality=quality, subsampling=subsampling,
+                       restart_interval=r)
+    mode = cfg.subsampling
+    device = torch.device(device)
+    if device_pack is None:
+        device_pack = True
+    n_img, h0, w0 = imgs.shape[:3]
+    n_mcu = (layout.ceil_div(h0, mode.mcu_height)
+             * layout.ceil_div(w0, mode.mcu_width))
+    if not device_pack or (r and r < n_mcu and n_mcu % r):
+        return [encode(im, quality=quality, subsampling=mode,
+                       restart_interval=restart_interval, comment=comment,
+                       device_pack=device_pack, quant_tables=quant_tables,
+                       device=device)
+                for im in imgs]
+    qy_np, qc_np = _quant_tables(cfg, _normalize_quant_tables(quant_tables))
+    batch = tile.pad_batch_to_multiple(
+        torch.as_tensor(np.ascontiguousarray(imgs), device=device),
+        mode.mcu_height, mode.mcu_width)
+    # A segment ends at every image boundary, so the prediction restarts
+    # there; with aligned restarts the segments are the images' own.
+    seg_mcus = r if 0 < r < n_mcu else n_mcu
+    blocks, tbl, _, hv = _interleaved_blocks(batch, qy_np, qc_np, mode,
+                                             seg_mcus)
+    htables = huffman.standard_tables()
+    words, totals, ok = _pack_device(
+        blocks, tbl, _device_luts(htables, device), n_img * n_mcu, seg_mcus)
+    nseg = n_mcu // seg_mcus
+    status = _pack_status(totals, ok).cpu().numpy().reshape(2, n_img, nseg)
+    fits = status[1].all(axis=1)
+    w_host = None
+    if fits.any():
+        maxw = (int(status[0][fits].max()) + 31) // 32
+        w_host = words[:, :maxw].cpu().numpy().astype(np.uint32).reshape(
+            n_img, nseg, -1)
+    bpm = hv + 2
+    per_img = n_mcu * bpm
+    out = []
+    for k in range(n_img):
+        if fits[k]:
+            scan = bitpack.finalize_stream(w_host[k], status[0, k])
+        else:
+            sl = slice(k * per_img, (k + 1) * per_img)
+            scan = _spill_scan(blocks[sl], tbl[sl], htables, r, bpm)
+        out.append(jfif.write_jpeg(
+            w0, h0, _color_components(mode), {0: qy_np, 1: qc_np}, htables,
+            scan, restart_interval=r, comment=comment))
+    return out
 
 
 def encode_bmp_to_jpeg(input_path: str, output_path: str, quality: int = 75,

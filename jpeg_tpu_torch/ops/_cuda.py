@@ -97,6 +97,18 @@ def stream_handle(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def settled(tensor):
+    """`tensor`, once the stream that is filling it has finished. A tensor
+    that is uploaded once and then kept (a table, a transform matrix) may be
+    read next from another thread on another stream, which nothing orders
+    after the upload: so whoever caches it waits for the upload here, once."""
+    if tensor.device.type == "cuda":
+        import torch
+
+        torch.cuda.current_stream(tensor.device).synchronize()
+    return tensor
+
+
 def check(name: str, err: int) -> None:
     """Raise on a nonzero cudaError_t returned by a kernel's C entry."""
     if err != 0:

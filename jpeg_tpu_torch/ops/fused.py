@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -33,12 +34,14 @@ from jpeg_tpu_torch.ops.dct import dct_basis
 LAUNCHES = 0
 # Kernel C launches since the last reset (plus one per launch, nowhere else).
 DCT_LAUNCHES = 0
+# Worker threads launch too (parallel/pipeline), so the increments hold a lock.
+_COUNT_LOCK = threading.Lock()
 
 
 @functools.cache
 def _basis(device: torch.device) -> torch.Tensor:
     """dct_basis() as a (64,) f32 tensor, uploaded once per device."""
-    return torch.as_tensor(dct_basis(), device=device).reshape(64)
+    return _cuda.settled(torch.as_tensor(dct_basis(), device=device).reshape(64))
 
 
 def _check_plane(plane: torch.Tensor) -> None:
@@ -86,7 +89,8 @@ def _launch_dct(plane, q, out) -> None:
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
     _cuda.check("dct8", err)
-    DCT_LAUNCHES += 1
+    with _COUNT_LOCK:
+        DCT_LAUNCHES += 1
 
 
 def _fused_dct_quantize_cuda(plane: torch.Tensor, qtable) -> torch.Tensor:
@@ -149,7 +153,8 @@ def _launch_idct(coeffs, q, out) -> None:
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_int(h), ctypes.c_int(w), _cuda.stream_handle(dev))
     _cuda.check("idct8", err)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
 
 
 def _fused_dequant_idct_cuda(coeffs: torch.Tensor, qtable) -> torch.Tensor:

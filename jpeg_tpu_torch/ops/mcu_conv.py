@@ -26,7 +26,7 @@ import torch
 
 from jpeg_tpu_torch import tables
 from jpeg_tpu_torch.config import Subsampling
-from jpeg_tpu_torch.ops import color, dct, tile
+from jpeg_tpu_torch.ops import _cuda, color, dct, tile
 
 
 @functools.cache
@@ -128,7 +128,8 @@ def kernel_to_torch(k_hilo: np.ndarray, bias: np.ndarray, device):
 @functools.cache
 def _device_kernel(mode: Subsampling, device: torch.device):
     """kernel_to_torch(*mcu_kernel_int(mode), device), uploaded once."""
-    return kernel_to_torch(*mcu_kernel_int(mode), device)
+    kern, bias = kernel_to_torch(*mcu_kernel_int(mode), device)
+    return _cuda.settled(kern), _cuda.settled(bias)
 
 
 def _require_full_f32() -> None:
@@ -146,7 +147,10 @@ def _require_full_f32() -> None:
 def _mcu_transform_int(rgb: torch.Tensor, qy, qc, mode: Subsampling):
     """uint8 (H, W, 3) tensor, MCU-aligned, + (8, 8) raster quant tables ->
     (n_mcu, hv+2, 64) int32 quantized zig-zag blocks, MCU-interleaved in
-    scan order (DC not yet DPCM'd), on rgb's device.
+    scan order (DC not yet DPCM'd), on rgb's device. A (K, H, W, 3) batch
+    gives (K * n_mcu, hv+2, 64), image after image: K MCU-aligned images
+    stacked along their rows are one tall image to the im2col, so the batch
+    is still one matmul.
 
     Explicit im2col (one reshape + permute: stride == window, so patches
     don't overlap), ONE f32 matmul computing the hi/lo integer partial sums
@@ -158,6 +162,8 @@ def _mcu_transform_int(rgb: torch.Tensor, qy, qc, mode: Subsampling):
     hv = mode.h_factor * mode.v_factor
     nco = (hv + 2) * 64
     mh, mw = mode.mcu_height, mode.mcu_width
+    if rgb.ndim == 4:
+        rgb = rgb.reshape(-1, *rgb.shape[2:])
     r, c = rgb.shape[0] // mh, rgb.shape[1] // mw
     patches = rgb.reshape(r, mh, c, mw * 3).permute(0, 2, 1, 3).reshape(
         r * c, mh * mw * 3)
@@ -199,7 +205,8 @@ def gray_kernel_int() -> tuple[np.ndarray, np.ndarray]:
 @functools.cache
 def _gray_device_kernel(device: torch.device):
     """kernel_to_torch(*gray_kernel_int(), device), uploaded once."""
-    return kernel_to_torch(*gray_kernel_int(), device)
+    kern, bias = kernel_to_torch(*gray_kernel_int(), device)
+    return _cuda.settled(kern), _cuda.settled(bias)
 
 
 def gray_transform_int(plane: torch.Tensor, qy) -> torch.Tensor:

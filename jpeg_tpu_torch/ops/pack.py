@@ -16,6 +16,7 @@ shifts on int32 are arithmetic, so the plain code widens to int64 and masks).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -23,7 +24,9 @@ from jpeg_tpu_torch.ops import _cuda
 from jpeg_tpu_torch.ops.bitpack import BLOCK_WORDS
 
 # Kernel launches since the last reset (plus one per launch, nowhere else).
+# Worker threads launch too (parallel/pipeline), so the increment holds a lock.
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 _M32 = 0xFFFFFFFF
 # Blocks per slice of the plain twin: bounds its (blocks, 191) int64
@@ -144,7 +147,8 @@ def _launch(blocks, tbl, packed, buf, totals) -> None:
               (blocks, tbl, packed, buf, totals)),
             ctypes.c_long(blocks.shape[0]), _cuda.stream_handle(dev))
     _cuda.check("pack_level1", err)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
 
 
 def _pack_level1_cuda(blocks, tbl, dc_code, dc_len, ac_code, ac_len, packed):

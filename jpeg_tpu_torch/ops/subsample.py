@@ -44,28 +44,31 @@ def _triangle_axis(plane: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def upsample_factors(plane: torch.Tensor, fv: int, fh: int) -> torch.Tensor:
-    """Nearest-neighbor upsample by integer factors."""
+    """Nearest-neighbor upsample of a (..., H, W) plane (or stack of planes)
+    by integer factors."""
     if fv > 1:
-        plane = torch.repeat_interleave(plane, fv, dim=0)
+        plane = torch.repeat_interleave(plane, fv, dim=-2)
     if fh > 1:
-        plane = torch.repeat_interleave(plane, fh, dim=1)
+        plane = torch.repeat_interleave(plane, fh, dim=-1)
     return plane
 
 
 def fancy_upsample_factors(plane: torch.Tensor, fv: int, fh: int) -> torch.Tensor:
-    """Triangular upsample generalized to power-of-two factors (a 4x factor
-    chains two doubling passes; other factors replicate)."""
+    """Triangular upsample of a (..., H, W) plane (or stack of planes: every
+    sample depends on its own plane only) generalized to power-of-two
+    factors (a 4x factor chains two doubling passes; other factors
+    replicate)."""
     out = plane.to(torch.float32)
     f = fh
     while f > 1:
         if f % 2:
             return upsample_factors(out, fv, f)  # non-pow2: fall back
-        out = _triangle_axis(out, 1)
+        out = _triangle_axis(out, -1)
         f //= 2
     f = fv
     while f > 1:
         if f % 2:
             return upsample_factors(out, f, 1)
-        out = _triangle_axis(out, 0)
+        out = _triangle_axis(out, -2)
         f //= 2
     return out

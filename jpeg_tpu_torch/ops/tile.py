@@ -21,6 +21,20 @@ def pad_to_multiple(img: torch.Tensor, mult_h: int, mult_w: int) -> torch.Tensor
     return img
 
 
+def pad_batch_to_multiple(batch: torch.Tensor, mult_h: int,
+                          mult_w: int) -> torch.Tensor:
+    """pad_to_multiple for a (K, H, W, C) batch: every image edge-replicated
+    up to multiples of (mult_h, mult_w), as one tensor."""
+    ph = (-batch.shape[1]) % mult_h
+    pw = (-batch.shape[2]) % mult_w
+    if ph:
+        batch = torch.cat([batch, batch[:, -1:].expand(-1, ph, -1, -1)], dim=1)
+    if pw:
+        batch = torch.cat(
+            [batch, batch[:, :, -1:].expand(-1, -1, pw, -1)], dim=2)
+    return batch
+
+
 def blockify(plane: torch.Tensor) -> torch.Tensor:
     """(H, W) -> (H//8, W//8, 8, 8) grid of blocks. H, W must be multiples of 8."""
     h, w = plane.shape

@@ -1,0 +1,247 @@
+"""Streaming encode and decode with several images in flight, so that the
+host work of one image (entropy finalize and JFIF assembly on encode, the
+Huffman walk on decode) overlaps the device work and the transfers of its
+neighbours.
+
+Counterpart of jpeg_tpu/parallel/pipeline.py. Where the reference rides
+JAX's asynchronous dispatch, the port keeps each image's device work on one
+CUDA stream of a small ring, reads the pack's status back through a pinned
+buffer, and waits for one image's event only when that image is finished
+(a pinned staging buffer for the upload is there and off: PINNED_STAGING). The
+reference's three dispatch kinds and its retry ladder of larger pack budgets
+are not ported: the port has one packer (kernel A + level 2) and one spill
+rule (an image whose pack overflows is host-packed, counted in
+encoder.HOST_PACK_SPILLS).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from jpeg_tpu_torch.config import EncodeConfig
+from jpeg_tpu_torch.entropy import huffman
+from jpeg_tpu_torch.io import jfif
+from jpeg_tpu_torch.models import encoder as E
+from jpeg_tpu_torch.ops import quant, tile
+
+
+# How encode_stream's dispatch uploads an image on a card. True: the image is
+# copied into the slot's pinned staging buffer and goes up from there without
+# the host waiting. False: it goes up straight from the caller's array, a
+# pageable copy on the slot's stream that the host waits for. Both give the
+# same bytes. chip_smoke.py phase 8 times them in turns: on 64 frames of
+# 3840x2160 (NVIDIA H100 80GB HBM3 at 700 W, medians of 5) the pageable
+# upload took 9.255 / 8.686 / 9.139 ms per image at depth 1 / 2 / 4 against
+# 10.627 / 11.117 / 9.779 ms with staging, whose host copy sits on the same
+# one thread as the finalize. So staging is off.
+PINNED_STAGING = False
+
+
+class _Slot:
+    """One place of encode_stream's ring: a CUDA stream, a pinned staging
+    buffer for the image (used and grown only with PINNED_STAGING) and a
+    pinned buffer for what the host reads back before the words (the pack's
+    bit totals and flags, or the symbol histograms). Both are allocated once
+    and reused by every image that takes the slot: the image before has
+    been finished by then."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.staging = torch.empty(0, dtype=torch.uint8, pin_memory=True)
+        self.readback = None
+
+    def stage(self, img: np.ndarray) -> torch.Tensor:
+        """`img` copied into the pinned buffer, as a tensor view of it."""
+        if self.staging.numel() < img.size:
+            self.staging = torch.empty(img.size, dtype=torch.uint8,
+                                       pin_memory=True)
+        view = self.staging[:img.size].view(img.shape)
+        np.copyto(view.numpy(), img)
+        return view
+
+    def fetch(self, t: torch.Tensor) -> torch.Tensor:
+        """Start an asynchronous copy of a small device tensor into the
+        pinned readback buffer (valid once the current stream gets there)."""
+        if self.readback is None or self.readback.shape != t.shape:
+            self.readback = torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+        self.readback.copy_(t, non_blocking=True)
+        return self.readback
+
+
+def encode_stream(
+    images: Iterable[np.ndarray],
+    quality: int = 75,
+    subsampling="420",
+    depth: int = 2,
+    device_pack: bool | None = None,
+    optimize_tables: bool = False,
+    device="cuda",
+) -> Iterator[bytes]:
+    """Encode a stream of RGB images on `device`, keeping up to `depth`
+    device encodes in flight while the host finalizes earlier ones. Yields
+    JFIF bytes in input order, each equal to encode() of its image. Images
+    may vary in size.
+
+    On a card every image has a place in a ring of depth + 1 slots, each
+    with a CUDA stream. Dispatch uploads the image on the slot's stream
+    (straight from the caller's array, which the host waits for; with
+    PINNED_STAGING through the slot's pinned buffer, without waiting) and
+    enqueues there, without waiting for any of it: edge pad, exact
+    transform, DC DPCM, kernel A, level 2, and a copy of the bit totals and
+    overflow flags to pinned memory; then it records an event. Finish waits
+    for that image's event only, downloads the used part of the words on the
+    same stream, finalizes on the host and writes the JFIF stream.
+
+    optimize_tables: dispatch enqueues the symbol histograms instead of the
+    pack; finish reads them, builds that image's optimal tables and runs the
+    pack then, still on the image's stream.
+
+    device_pack=False encodes image by image through the host pack."""
+    cfg = EncodeConfig(quality=quality, subsampling=subsampling,
+                       optimize_tables=optimize_tables)
+    mode = cfg.subsampling
+    device = torch.device(device)
+    if device_pack is None:
+        device_pack = True
+    on_card = device.type == "cuda"
+    depth = max(0, int(depth))
+    htables = huffman.standard_tables()
+    qy_np = quant.luma_table(cfg.quality)
+    qc_np = quant.chroma_table(cfg.quality)
+    hv = mode.h_factor * mode.v_factor
+    slots = [_Slot(device) for _ in range(depth + 1)] if (
+        on_card and device_pack) else None
+
+    def on_stream(slot):
+        return torch.cuda.stream(slot.stream) if slot is not None else (
+            contextlib.nullcontext())
+
+    def dispatch(img, index: int):
+        img = E._normalize_image(img)  # encode()'s float/dtype convention
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError(f"expected (H, W, 3), got {img.shape}")
+        if not device_pack:
+            return ("host", img)
+        slot = slots[index % len(slots)] if slots else None
+        img = np.ascontiguousarray(img)
+        with on_stream(slot):
+            if slot is not None and PINNED_STAGING:
+                dev = slot.stage(img).to(device, non_blocking=True)
+            else:
+                dev = torch.as_tensor(img, device=device)
+            padded = tile.pad_to_multiple(dev, mode.mcu_height, mode.mcu_width)
+            blocks, tbl, n_mcu, _ = E._interleaved_blocks(
+                padded, qy_np, qc_np, mode, 0)
+            if optimize_tables:
+                packed = None
+                host = torch.stack(E._color_hists(blocks, n_mcu, hv))
+            else:
+                packed = E._pack_device(
+                    blocks, tbl, E._device_luts(htables, device), n_mcu, 0)
+                host = E._pack_status(*packed[1:])
+            done = None
+            if slot is not None:
+                host = slot.fetch(host)
+                done = torch.cuda.Event()
+                done.record()
+        return ("device", img.shape[:2], slot, done, blocks, tbl, n_mcu,
+                packed, host)
+
+    def finish(item) -> bytes:
+        if item[0] == "host":
+            return E._encode_color(item[1], cfg, None, None, device, False,
+                                   False)
+        _, (h0, w0), slot, done, blocks, tbl, n_mcu, packed, host = item
+        if done is not None:
+            done.synchronize()
+        with on_stream(slot):
+            tables = htables
+            if optimize_tables:
+                tables = E._optimal_tables(host)
+                packed = E._pack_device(
+                    blocks, tbl, E._device_luts(tables, device), n_mcu, 0)
+                host = E._pack_status(*packed[1:]).cpu()
+            scan = E._finish_device_pack(
+                packed[0], host.numpy(), blocks, tbl, tables, 0, hv + 2)
+        return jfif.write_jpeg(
+            w0, h0, E._color_components(mode), {0: qy_np, 1: qc_np}, tables,
+            scan)
+
+    pending: collections.deque = collections.deque()
+    for index, img in enumerate(images):
+        pending.append(dispatch(img, index))
+        if len(pending) > depth:
+            yield finish(pending.popleft())
+    while pending:
+        yield finish(pending.popleft())
+
+
+def decode_stream(
+    datas: Iterable[bytes],
+    fancy_upsample: bool = True,
+    scale_denom: int = 1,
+    depth: int = 2,
+    entropy: str = "auto",
+    device_output: bool = False,
+    device="cuda",
+) -> Iterator:
+    """Decode a stream of JPEGs on `device`, keeping `depth` decodes in
+    flight on worker threads, so that the host Huffman walk of stream i+1
+    overlaps the device work and the download of stream i. Yields the
+    decoded arrays (tensors on `device` with device_output) in input order,
+    each equal to decode() of its stream. Streams may differ in geometry,
+    sampling and tables: each decode is independent.
+
+    On a card each worker thread owns one CUDA stream and runs the whole of
+    a decode on it, the download included; a result crosses to the consumer
+    only after that stream is synchronized. A tensor yielded with
+    device_output was allocated on a worker's stream: it is recorded on the
+    consumer's current stream, so its memory is not reused while that stream
+    still reads it. An exception in a worker is raised at that item's
+    turn."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jpeg_tpu_torch.models.decoder import decode
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    depth = max(1, int(depth))
+    local = threading.local()
+
+    def work(data):
+        if not on_card:
+            return decode(data, fancy_upsample=fancy_upsample, device=device,
+                          scale_denom=scale_denom, entropy=entropy,
+                          device_output=device_output)
+        if not hasattr(local, "stream"):
+            local.stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(local.stream):
+            out = decode(data, fancy_upsample=fancy_upsample, device=device,
+                         scale_denom=scale_denom, entropy=entropy,
+                         device_output=True)
+            if not device_output:
+                return out.cpu().numpy()  # waits for this stream only
+            local.stream.synchronize()
+            return out
+
+    def result(future):
+        out = future.result()
+        if on_card and device_output:
+            out.record_stream(torch.cuda.current_stream(device))
+        return out
+
+    with ThreadPoolExecutor(depth) as pool:
+        pending: collections.deque = collections.deque()
+        for d in datas:
+            pending.append(pool.submit(work, d))
+            if len(pending) > depth:
+                yield result(pending.popleft())
+        while pending:
+            yield result(pending.popleft())

@@ -9,6 +9,7 @@ Usage, from the repository root, on a machine with a CUDA device and nvcc:
                               [--candidate-b FILE.cu]... [--flags-b "..."]...
                               [--candidate-c FILE.cu]... [--flags-c "..."]...
                               [--previous-only] [--json FILE]
+    python3 kernel_compare.py --progressive-4k
 
 The package's own kernels A (pack_level1), B (idct8) and C (dct8) are always
 timed. --previous DIR names a directory that holds pack_level1.cu and idct8.cu
@@ -34,6 +35,11 @@ card's name and power limit. Last, one warm 4K decode is profiled
 (torch.profiler) to show where kernel B's three launches lie on the device's
 timeline and what runs between them. Then one JSON object on the last line,
 also written to the file --json names, if given.
+
+--progressive-4k does none of that: it times one encode_progressive of the
+3840x2160 image on the card (its scan emission is host Python, too slow to
+sit in the smoke run), checks that the stream decodes to the baseline
+stream's pixels, prints the seconds and exits.
 """
 
 from __future__ import annotations
@@ -98,6 +104,24 @@ def trace_decode(torch, img, card):
     return report
 
 
+def progressive_4k(card: str) -> int:
+    """One 4K progressive encode on the card, timed once."""
+    import jpeg_tpu_torch
+    from jpeg_tpu_torch.models.progressive_enc import encode_progressive
+
+    img = cs.make_image(cs.HEIGHT, cs.WIDTH)
+    base = jpeg_tpu_torch.encode(img, cs.QUALITY, cs.SUBSAMPLING,
+                                 device="cuda")
+    prog, secs = cs.timed(lambda: encode_progressive(
+        img, cs.QUALITY, cs.SUBSAMPLING, device="cuda"))
+    same = np.array_equal(jpeg_tpu_torch.decode(prog, device="cuda"),
+                          jpeg_tpu_torch.decode(base, device="cuda"))
+    print(f"encode_progressive 4K q{cs.QUALITY} {cs.SUBSAMPLING}: "
+          f"{secs:.2f} s, {len(prog)} bytes (baseline {len(base)}); decode "
+          f"equals the baseline stream's: {same} [{card}]", flush=True)
+    return 0 if same else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--previous")
@@ -110,6 +134,7 @@ def main() -> int:
     ap.add_argument("--flags-c", action="append", default=[])
     ap.add_argument("--previous-only", action="store_true")
     ap.add_argument("--json")
+    ap.add_argument("--progressive-4k", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -117,6 +142,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_compare: no CUDA device", file=sys.stderr)
         return 2
+    if args.progressive_4k:
+        return progressive_4k(cs.card_line())
     from jpeg_tpu_torch.config import Subsampling
     from jpeg_tpu_torch.entropy import huffman
     from jpeg_tpu_torch.models import encoder

@@ -19,7 +19,13 @@ decodes by 1 level in <= 0.5% of samples (scaled decodes too: cuBLAS and
 the CPU sum the reduced bases in different orders). Exact on the card:
 densify_body against the CPU's rows, entropy="sparse" against "native",
 finish_ycbcr(decode(output="ycbcr")) against decode(), device_output
-against the host result."""
+against the host result; encode_batched and encode_stream against encode()
+on the card and on the CPU (bytes), decode_batched and decode_stream against
+decode() on the card (pixels), encode_noninterleaved and encode_progressive
+against their CPU bytes; kernels A and B past 2^31 bytes of input against
+their twins on slices (blocks are independent)."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -299,3 +305,199 @@ def test_fixture_streams_on_card_match_cpu(name):
     got = jpeg_tpu_torch.decode(jpg, device="cuda")
     assert got.shape == fixtures.FIXTURES[name][1]
     _assert_decode_close(got, jpeg_tpu_torch.decode(jpg, device="cpu"))
+
+
+def _counts():
+    return pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES
+
+
+def _since(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape,restart,k", [
+    ("420", (144, 256), 0, 4), ("444", (101, 77), 10, 3),
+    ("422", (37, 53), 0, 2), ("420", (128, 192), 7, 2),
+])
+def test_encode_batched_on_card(mode, shape, restart, k):
+    require_cuda()
+    imgs = np.stack([make_image(*shape, seed=s) for s in range(k)])
+    kw = dict(quality=80, subsampling=mode, restart_interval=restart)
+    per_image = [jpeg_tpu_torch.encode(im, device="cuda", **kw)
+                 for im in imgs]
+    spills, before = encoder.HOST_PACK_SPILLS, _counts()
+    got = jpeg_tpu_torch.encode_batched(imgs, device="cuda", **kw)
+    torch.cuda.synchronize()
+    # One launch of kernel A for the batch; restart 7 does not divide the
+    # MCU count, so that batch is host-packed image by image.
+    assert _since(before) == ((0 if restart == 7 else 1), 0, 0)
+    assert encoder.HOST_PACK_SPILLS == spills
+    assert got == per_image
+    assert got == jpeg_tpu_torch.encode_batched(imgs, device="cpu", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch_mode", ["fused", "pipelined", "auto"])
+@pytest.mark.parametrize("scale_denom", [1, 2])
+def test_decode_batched_on_card(batch_mode, scale_denom):
+    require_cuda()
+    jpgs = [jpeg_tpu_torch.encode(make_image(203, 331, seed=s), 85, "420",
+                                  optimize_tables=s == 1, device="cpu")
+            for s in range(3)]
+    ref = np.stack([jpeg_tpu_torch.decode(j, device="cuda",
+                                          scale_denom=scale_denom)
+                    for j in jpgs])
+    before = _counts()
+    got = jpeg_tpu_torch.decode_batched(
+        jpgs, scale_denom=scale_denom, batch_mode=batch_mode, device="cuda")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, ref)
+    if scale_denom == 1 and batch_mode != "auto":
+        assert _since(before) == (0, 3 if batch_mode == "fused" else 9, 0)
+    out = jpeg_tpu_torch.decode_batched(
+        jpgs, scale_denom=scale_denom, batch_mode=batch_mode,
+        device_output=True, device="cuda")
+    assert isinstance(out, torch.Tensor) and out.device.type == "cuda"
+    np.testing.assert_array_equal(out.cpu().numpy(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", [True, False])
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("depth", [0, 2])
+def test_encode_stream_on_card(optimize, depth, staging, monkeypatch):
+    require_cuda()
+    from jpeg_tpu_torch.parallel import pipeline
+
+    monkeypatch.setattr(pipeline, "PINNED_STAGING", staging)
+    imgs = [make_image(h, w, seed=h) for h, w in
+            ((144, 256), (37, 53), (300, 200), (144, 256), (64, 64))]
+    kw = dict(quality=80, subsampling="420", optimize_tables=optimize)
+    before = _counts()
+    got = list(jpeg_tpu_torch.encode_stream(iter(imgs), depth=depth,
+                                            device="cuda", **kw))
+    torch.cuda.synchronize()
+    assert _since(before) == (len(imgs), 0, 0)
+    assert got == [jpeg_tpu_torch.encode(im, device="cuda", **kw)
+                   for im in imgs]
+    assert got == [jpeg_tpu_torch.encode(im, device="cpu", **kw)
+                   for im in imgs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 4])
+def test_decode_stream_on_card_counts_under_threads(depth):
+    require_cuda()
+    jpgs = [jpeg_tpu_torch.encode(make_image(h, w, seed=h), 80, m,
+                                  device="cpu")
+            for (h, w), m in zip(((144, 256), (37, 53), (300, 200), (64, 64)),
+                                 ("420", "444", "422", "420"))] * 4
+    ref = [jpeg_tpu_torch.decode(j, device="cuda") for j in jpgs]
+    before = _counts()
+    got = list(jpeg_tpu_torch.decode_stream(iter(jpgs), depth=depth,
+                                            device="cuda"))
+    assert _since(before) == (0, 3 * len(jpgs), 0)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    dev = list(jpeg_tpu_torch.decode_stream(jpgs[:4], depth=depth,
+                                            device_output=True,
+                                            device="cuda"))
+    for a, b in zip(dev, ref):
+        assert a.device.type == "cuda"
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.cuda
+def test_decode_from_four_threads_on_side_streams_counts_exactly():
+    """decode() from 4 threads, each under a CUDA stream of its own: the
+    pixels of the serial decode, and no launch lost from the count."""
+    require_cuda()
+    jpgs = [jpeg_tpu_torch.encode(make_image(144, 256, seed=s), 80, "420",
+                                  device="cpu") for s in range(4)]
+    ref = [jpeg_tpu_torch.decode(j, device="cuda") for j in jpgs]
+    rounds, threads = 10, 4
+    bad = []
+
+    def work(t):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for r in range(rounds):
+                i = (t + r) % len(jpgs)
+                if not np.array_equal(
+                        jpeg_tpu_torch.decode(jpgs[i], device="cuda"), ref[i]):
+                    bad.append((t, r))
+
+    before = _counts()
+    workers = [threading.Thread(target=work, args=(t,))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=300)
+        assert not w.is_alive()
+    assert not bad
+    assert _since(before) == (0, 3 * rounds * threads, 0)
+
+
+@pytest.mark.cuda
+def test_multiscan_and_progressive_on_card_match_cpu():
+    from jpeg_tpu_torch.models.progressive_enc import encode_progressive
+
+    require_cuda()
+    img = make_image(101, 77, seed=3)
+    for kw in (dict(), dict(restart_interval=4, optimize_tables=True)):
+        a = jpeg_tpu_torch.encode_noninterleaved(img, 80, device="cuda", **kw)
+        assert a == jpeg_tpu_torch.encode_noninterleaved(img, 80,
+                                                         device="cpu", **kw)
+    base = jpeg_tpu_torch.decode(
+        jpeg_tpu_torch.encode(img, 80, "444", device="cuda"), device="cuda")
+    np.testing.assert_array_equal(jpeg_tpu_torch.decode(a, device="cuda"),
+                                  base)
+    for im, kw in ((img, dict(subsampling="420")), (img[..., 0], {})):
+        a = encode_progressive(im, 80, device="cuda", **kw)
+        assert a == encode_progressive(im, 80, device="cpu", **kw)
+        np.testing.assert_array_equal(
+            jpeg_tpu_torch.decode(a, device="cuda"),
+            jpeg_tpu_torch.decode(
+                jpeg_tpu_torch.encode(im, 80, device="cuda", **kw),
+                device="cuda"))
+
+
+@pytest.mark.cuda
+def test_kernels_past_two_gib_of_input():
+    """Kernel A on 8,388,704 blocks (2,147,508,224 bytes of coefficients)
+    and kernel B on a 139,824 x 3840 plane (2,147,696,640 bytes), the sizes
+    a large batch stacks up: element offsets past 2^31 bytes. About 9 GB of
+    device memory in all. Blocks are independent, so slices of the result
+    are held to the twins on the same slices: the first blocks, the last
+    (ragged) ones and those around the 2^31-byte line."""
+    dev = require_cuda()
+    rng = np.random.default_rng(1)
+    luts = _luts(dev)
+    n = (1 << 31) // 256 + 96  # one tile past the line
+    part = torch.as_tensor(random_blocks(rng, 1 << 16, 0.1), device=dev)
+    blocks = part.repeat(n // part.shape[0] + 1, 1)[:n].contiguous()
+    tbl = (torch.arange(n, device=dev) % 3 == 0).to(torch.int32)
+    buf, tot = pack.pack_level1(blocks, tbl, *luts)
+    torch.cuda.synchronize()
+    line = (1 << 31) // 256
+    for lo, hi in ((0, 500), (line - 300, line + 96), (n - 200, n)):
+        ref_buf, ref_tot = pack.pack_level1_reference(
+            blocks[lo:hi], tbl[lo:hi], *luts)
+        assert torch.equal(tot[lo:hi], ref_tot)
+        fits = ref_tot <= BUDGET
+        assert torch.equal(buf[lo:hi][fits], ref_buf[fits])
+    del blocks, tbl, buf, tot
+
+    h, w = 139_824, 3840
+    tile_rows = torch.as_tensor(
+        rng.integers(-60, 61, size=(1368, w)).astype(np.int32), device=dev)
+    coeffs = tile_rows.repeat(h // 1368 + 1, 1)[:h].contiguous()
+    assert coeffs.numel() * 4 > 1 << 31
+    qt = quant.luma_table(75)
+    out = fused.fused_dequant_idct(coeffs, qt)
+    torch.cuda.synchronize()
+    line = (1 << 31) // (4 * w) // 8 * 8
+    for lo, hi in ((0, 64), (line - 64, line + 64), (h - 64, h)):
+        ref = fused.fused_dequant_idct_reference(coeffs[lo:hi], qt)
+        torch.testing.assert_close(out[lo:hi], ref, atol=1e-2, rtol=0)

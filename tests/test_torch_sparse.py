@@ -194,12 +194,14 @@ def test_pack6_unpack6_roundtrip_and_sign_folds():
     nib[:8] = -8  # a word of 0x88888888
     w = ((nib & 15).reshape(-1, 8) << (4 * np.arange(8))).sum(1).astype(np.uint32)
     words = torch.from_numpy(w.view(np.int32)).to(torch.int64) & 0xFFFFFFFF
-    np.testing.assert_array_equal(PD._unpack_nib(words, 61).numpy(), nib[:61])
+    np.testing.assert_array_equal(PD._unpack_bytes(words, 4, 61).numpy(),
+                                  nib[:61])
     i8 = rng.integers(-128, 128, size=40)
     i8[:4] = -128
     w = i8.astype(np.int8).view(np.uint32)
     words = torch.from_numpy(w.view(np.int32)).to(torch.int64) & 0xFFFFFFFF
-    np.testing.assert_array_equal(PD._unpack_i8(words, 39).numpy(), i8[:39])
+    np.testing.assert_array_equal(PD._unpack_bytes(words, 8, 39).numpy(),
+                                  i8[:39])
 
 
 def test_payload_checks_raise():

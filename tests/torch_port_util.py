@@ -196,3 +196,29 @@ def adversarial_idct_planes():
         cases.append((f"one_{'p' if sign > 0 else 'm'}2047_at_{u}{v}", one,
                       steep))
     return cases
+
+
+@pytest.fixture
+def jax_exact_transform(monkeypatch):
+    """For the test's duration, run jpeg_tpu's entry points on the exact
+    integer transform, the one they take on an accelerator (on the CPU
+    mcu_conv.mcu_transform and encoder._transform_gray route to a staged
+    float form that is 1 off at .5 boundaries), so that their bytes can be
+    held against the port's. The cached jits are cleared on entry and on
+    exit: no test before or after sees a trace made under the other route.
+    Nothing in jpeg_tpu changes on disk."""
+    import jpeg_tpu.models.encoder as JE
+    import jpeg_tpu.ops.mcu_conv as JM
+
+    def clear():
+        for jit in (JE._jit_color, JE._jit_color_packed,
+                    JE._jit_color_packed_batch, JE._jit_color_hists,
+                    JE._jit_gray, JE._jit_gray_packed, JE._jit_gray_hists):
+            jit.cache_clear()
+
+    clear()
+    monkeypatch.setattr(JM, "mcu_transform", JM._mcu_transform_int)
+    monkeypatch.setattr(JE, "_transform_gray", JM.gray_transform_int)
+    yield
+    monkeypatch.undo()
+    clear()
