@@ -8,7 +8,7 @@ Usage, from the repository root, on a machine with a CUDA device:
 Phases, each reported on its own line:
   1. require a CUDA device (exit 2 without one, or without the package);
   2. print the card's name and power limit (nvidia-smi);
-  3. build the three CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc
+  3. build the six CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc
      each, all started together) and the native entropy runtime, and print
      the build seconds and ptxas resource use;
   4. kernel A (packer level 1) against its plain twin on the card: random
@@ -23,9 +23,20 @@ Phases, each reported on its own line:
      the 4K Y, Cb and Cr planes at q75 and q95, a uniform-random plane and a
      ragged width (2160x3848): 0 coefficients apart, and within the
      kernel's contract of the twin run on the CPU (a second witness);
+     5c: the device Huffman decoders against their plain twins, 0 apart:
+     kernel D (AC decode at known block starts), kernel E (one walk per
+     restart segment) and program F (block starts without restart markers)
+     on seeded small streams (4:2:0, 4:4:4, 4:2:2, gray, with and without
+     restarts, standard and optimal tables), kernel E over a restart-free
+     stream as one segment against F + D, and at full width: D's rows of
+     the 4K stream equal native.decode_scan's, F's offsets and cumulated
+     DCs equal native.index_scan's, E on the image encoded with a restart
+     interval of one MCU row equals native.decode_scan;
   6. the main path: a 3840x2160 q75 4:2:0 encode and decode through
      jpeg_tpu_torch.encode/decode on the card, with every launch counter
-     reset first; the bytes must equal the port's CPU encode, the pixels the
+     reset first (encode: kernel A once; decode: program F and kernel D once
+     each, since entropy="auto" is the "device" backend on a card, and
+     kernel B three times); the bytes must equal the port's CPU encode, the pixels the
      port's CPU decode to +-1 in <= 0.5% of samples;
      6b: the same image through encode(use_pallas=True) (kernel C, host
      pack), counted: kernel C 3 launches, kernel A none; coefficients within
@@ -42,9 +53,15 @@ Phases, each reported on its own line:
      pixels exactly equal; the payload's bytes beside the dense grids';
      scale_denom 2, 4, 8 against the CPU decode; output="ycbcr" +
      finish_ycbcr == decode() exactly; device_output a tensor on cuda:0
-     equal to the host result;
+     equal to the host result; entropy="indexed" and "device" on the
+     colour, gray and restart-240 streams, counted (kernel D once per
+     indexed decode; kernel E once per decode with restarts; program F and
+     kernel D once each without), pixels exactly equal to "sparse"; a 4K
+     scan with one flipped byte through "sparse", "indexed" and "device":
+     all raise ScanDecodeError or all give the same pixels;
      6g: the committed fixture streams (tests/data/torch_port: progressive,
-     non-interleaved, CMYK, YCCK), card decode against CPU decode;
+     non-interleaved, CMYK, YCCK), card decode against CPU decode; the
+     non-interleaved one also with "indexed" and "device";
      6h: encode_batched, K = 8 distinct 4K images (the image rolled by
      k * 97 columns): every stream equals encode() of its image on the card,
      kernel A launched once for the batch, kernel C never, no spill; K = 3
@@ -63,6 +80,7 @@ Phases, each reported on its own line:
      6k: decode_stream, 16 of those streams at depth 2 and 4: pixels equal
      per-image decode() exactly and in order, kernel B 48 launches counted
      under the workers' threads; a stream of another geometry in the middle;
+     once at depth 4 with entropy="indexed" (kernel D 16 launches);
      6l: encode_noninterleaved at 4K and encode_progressive at 1024x768
      4:2:0 and 640x480 gray: card bytes equal CPU bytes, the card decode
      equals the decode of the baseline stream of the same image exactly;
@@ -77,9 +95,13 @@ Phases, each reported on its own line:
      on prepared buffers, L2 cold) beside the bytes it must move and the
      time the card's memory needs for them; encode_batched (K = 8, with its
      peak device memory), decode_batched (K = 4, fused and pipelined in
-     turns), encode_stream (64 images) and decode_stream (16 streams) at
+     turns), encode_stream (32 images) and decode_stream (16 streams) at
      depth 1, 2 and 4 (encode_stream with and without its pinned staging
-     buffer, in turns), each in ms per image beside the single call's.
+     buffer, in turns), each in ms per image beside the single call's; the
+     host index pass beside the host sparse walk; decode by "sparse",
+     "indexed" and "device" in turns, end to end and by stage, on the 4K
+     stream, the restart-240 and the restart-960 one, and decode_stream at depth 4 with
+     each; kernels D and E and every launch of program F alone.
 Then one JSON line of the kernels, and last {"ok": true, "device": ...}.
 Any failed phase exits 1.
 """
@@ -102,14 +124,17 @@ HEIGHT, WIDTH = 2160, 3840  # bench.py's 4K image
 QUALITY, SUBSAMPLING = 75, "420"
 WARM, RUNS = 2, 7
 DIFF_SHARE = 0.005  # decoded samples allowed to differ by 1 from the CPU path
-KERNELS = ("pack_level1", "idct8", "dct8")
+KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "segment_walk",
+           "prefix_index")
 KERNEL_LAUNCHES = 20  # launches per timed replay of kernel_only_us
 COLD_BYTES = 200_000_000  # moved between two uses of a buffer; the L2 holds 50 MB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 UNALIGNED_RESTART = 7  # does not divide the 4K 4:2:0 image's 32,400 MCUs
+ROW_RESTART = 240  # one MCU row of the 4K 4:2:0 image: 135 restart segments
+TURN_RUNS = 5  # timed rounds of a comparison in turns (1 warm round before)
 BATCH_ENCODE, BATCH_DECODE = 8, 4  # images per encode_batched / decode_batched
-STREAM_ENCODE, STREAM_DECODE = 64, 16  # images per encode_stream / decode_stream
-STREAM_RUNS = 5  # timed runs of each encode_stream form (1 warm run before)
+STREAM_ENCODE, STREAM_DECODE = 32, 16  # images per encode_stream / decode_stream
+STREAM_RUNS = 3  # timed runs of each encode_stream form (1 warm run before)
 ROLL = 97  # columns between two frames of a batch or a stream
 
 
@@ -287,6 +312,31 @@ def stage_medians(stages, torch):
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
+def medians_in_turns(forms: dict, torch, runs=TURN_RUNS):
+    """forms: {name: fn}. One warm round, then `runs` rounds in which every
+    form runs once, the order rotating from round to round, so that a drift
+    of the host hits all of them; each run ends in a synchronize. Returns
+    {name: median wall ms}."""
+    names = list(forms)
+    ts = {name: [] for name in names}
+    for rnd in range(1 + runs):
+        k = rnd % len(names)
+        for name in names[k:] + names[:k]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forms[name]()
+            torch.cuda.synchronize()
+            if rnd >= 1:
+                ts[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(v) for name, v in ts.items()}
+
+
+def int_err(got, ref) -> int:
+    """max |got - ref| of two integer tensors of one shape."""
+    check(got.shape == ref.shape, f"shapes {got.shape} and {ref.shape}")
+    return int((got.long() - ref.long()).abs().max()) if got.numel() else 0
+
+
 def timed(fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -337,8 +387,9 @@ def run(card: str) -> dict:
     from jpeg_tpu_torch.io import jfif
     from jpeg_tpu_torch.models import decoder, encoder, layout
     from jpeg_tpu_torch.parallel import pipeline
+    from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
     from jpeg_tpu_torch.ops import (
-        bitpack, fused, pack, quant, symbols, tile, zigzag)
+        bitpack, entropy_decode, fused, pack, quant, symbols, tile, zigzag)
 
     # The adversarial inputs are shared with the CPU and card tests.
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
@@ -346,6 +397,13 @@ def run(card: str) -> dict:
     import torch_port_util as port_util
 
     dev = torch.device(DEVICE)
+    started = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        """Where the run's time goes: seconds since run() began, printed as
+        each phase starts."""
+        print(f"clock: {time.perf_counter() - started:.1f} s at the start of "
+              f"phase {phase}", flush=True)
 
     build_all()
 
@@ -365,6 +423,7 @@ def run(card: str) -> dict:
     print(f"phase 4: CPU reference encode+decode in "
           f"{time.perf_counter() - t0:.2f} s ({len(jpg_cpu)} bytes)", flush=True)
 
+    lap("4")
     # Phase 4: kernel A vs plain.
     rng = np.random.default_rng(0)
     err_a, n_a = 0, 0
@@ -406,6 +465,7 @@ def run(card: str) -> dict:
         err_a = max(err_a, e)
     check(err_a == 0, f"kernel A disagrees with its plain twin (max {err_a})")
 
+    lap("4b")
     # Phase 4b: kernel A with optimal tables whose codes reach 16 bits.
     blocks_np = random_blocks(rng, 65536, 0.15)
     blocks_np[::5, 1:40] = 0  # long zero runs: ZRL symbols
@@ -431,6 +491,7 @@ def run(card: str) -> dict:
     check(e == 0, f"kernel A disagrees with its twin on skewed tables ({e})")
     err_a = max(err_a, e)
 
+    lap("5")
     # Phase 5: kernel B vs plain at the 4K plane shapes, on the 4K stream's
     # own coefficients.
     info = jfif.parse_jpeg(jpg_cpu)
@@ -477,6 +538,7 @@ def run(card: str) -> dict:
         err_b = max(err_b, e)
     check(err_b <= 1e-2, f"kernel B disagrees with its plain twin ({err_b})")
 
+    lap("5b")
     # Phase 5b: kernel C vs plain on the planes the use_pallas path feeds it.
     pallas_planes = encoder._pallas_planes(dimg, mode)
     cases = [(p, q, name) for q in (QUALITY, 95)
@@ -512,26 +574,192 @@ def run(card: str) -> dict:
         err_c = max(err_c, e)
     del cases
 
-    # Phase 6: the main path, counted.
-    torch.cuda.synchronize()
-    pack.LAUNCHES = 0
-    fused.LAUNCHES = 0
-    fused.DCT_LAUNCHES = 0
+    lap("5c")
+    # Phase 5c: kernels D and E and program F vs their plain twins. Integers
+    # throughout: every comparison is exact.
+    def huffman_stream(mode_, shape, restart, optimal):
+        im = make_image(*shape, seed=shape[0] + restart)
+        kw = dict(quality=85, restart_interval=restart,
+                  optimize_tables=optimal, device="cpu")
+        if mode_ == "gray":
+            return jpeg_tpu_torch.encode(im[..., 0], **kw)
+        return jpeg_tpu_torch.encode(im, subsampling=mode_, **kw)
+
+    def hold_d(stream):
+        """Kernel D on the host index pass's offsets of `stream`: max |err|
+        against its twin, after holding it to native.decode_scan."""
+        d_in = port_util.ac_indexed_inputs(stream, dev)
+        rows = entropy_decode.decode_ac_indexed(*d_in)
+        torch.cuda.synchronize()
+        want = np.concatenate(native.decode_scan(*port_util.scan_args(stream)))
+        check(np.array_equal(rows.cpu().numpy(), want),
+              "kernel D's rows differ from native.decode_scan's")
+        return d_in, rows, int_err(
+            rows, entropy_decode.decode_ac_indexed_reference(*d_in))
+
+    def hold_f(stream):
+        """Program F on `stream`: max |err| over its three outputs against
+        its twin, after holding it to native.index_scan."""
+        args = port_util.scan_args(stream)
+        f_in, true_bits = port_util.prefix_inputs(stream, dev)
+        got = entropy_decode.prefix_index(*f_in)
+        torch.cuda.synchronize()
+        off, dc = port_util.regroup_prefix(got[0], got[1], args[2])
+        _, want_off, want_dc = native.index_scan(*args)
+        end_pos, flag = got[2].tolist()
+        check(flag == 0 and true_bits - 7 <= end_pos <= true_bits,
+              f"program F: flag {flag}, end {end_pos} of {true_bits} bits")
+        check(np.array_equal(off.cpu().numpy(), want_off)
+              and np.array_equal(dc.cpu().numpy(), want_dc),
+              "program F's offsets or DCs differ from native.index_scan's")
+        twin = entropy_decode.prefix_index_reference(*f_in)
+        return f_in, got, max(int_err(g, t) for g, t in zip(got, twin))
+
+    def run_e(e_in):
+        rows, status = entropy_decode.decode_segments(*e_in)
+        torch.cuda.synchronize()
+        return rows, status
+
+    def hold_e(stream):
+        """Kernel E on `stream`'s segments, held to native.decode_scan:
+        (inputs, rows, status)."""
+        e_in, bits = port_util.segment_inputs(stream, dev)
+        rows, status = run_e(e_in)
+        want = np.concatenate(native.decode_scan(*port_util.scan_args(stream)))
+        ends, flags = status.cpu().tolist()
+        check(not any(flags) and all(b - 7 <= e <= b
+                                     for e, b in zip(ends, bits)),
+              "kernel E: an error flag, or an end position off its segment")
+        check(np.array_equal(rows.cpu().numpy(), want),
+              "kernel E's rows differ from native.decode_scan's")
+        return e_in, rows, status
+
+    err_d = err_e = err_f = 0
+    for mode_, shape in (("420", (203, 331)), ("444", (101, 77)),
+                         ("422", (90, 150)), ("gray", (75, 97))):
+        for restart, optimal in ((0, False), (0, True), (11, False),
+                                 (7, True)):
+            stream = huffman_stream(mode_, shape, restart, optimal)
+            _, rows_d, e_d = hold_d(stream)
+            e_in, rows_e, status = hold_e(stream)
+            t_rows, t_status = entropy_decode.decode_segments_reference(*e_in)
+            e_e = max(int_err(rows_e, t_rows), int_err(status, t_status))
+            line = (f"phase 5c: {mode_} {shape[1]}x{shape[0]} restart "
+                    f"{restart}, {'optimal' if optimal else 'standard'} "
+                    f"tables: {rows_d.shape[0]} blocks, {status.shape[1]} "
+                    f"segments; vs plain: D max |err| {e_d}, E {e_e}")
+            if restart == 0:
+                # One segment: kernel E's rows are F + D's, by another route.
+                f_in, got_f, e_f = hold_f(stream)
+                off, dc = port_util.regroup_prefix(
+                    got_f[0], got_f[1], port_util.scan_args(stream)[2])
+                d_in = port_util.ac_indexed_inputs(stream, dev)
+                rows_fd = entropy_decode.decode_ac_indexed(
+                    f_in[0], off, dc, d_in[3], d_in[4])
+                check(torch.equal(rows_fd, rows_e),
+                      "kernel E as one segment differs from F + D")
+                line += f", F {e_f}; E as one segment == F + D"
+                err_f = max(err_f, e_f)
+            print(line, flush=True)
+            err_d, err_e = max(err_d, e_d), max(err_e, e_e)
+    # At full width. D and F on the 4K stream; E on the same image encoded
+    # with a restart interval of one MCU row.
+    d4k, rows4k, e = hold_d(jpg_cpu)
+    err_d = max(err_d, e)
+    print(f"phase 5c: kernel D, 4K q{QUALITY} {SUBSAMPLING}: "
+          f"{rows4k.shape[0]} rows equal native.decode_scan's; vs plain: max "
+          f"|err| {e}", flush=True)
+    f4k, got_f4k, e = hold_f(jpg_cpu)
+    err_f = max(err_f, e)
+    print(f"phase 5c: program F, 4K: {f4k[0].numel() * 32} bit positions, "
+          f"{f4k[3].shape[0]} table classes, {f4k[1]} MCUs: offsets and "
+          f"cumulated DCs equal native.index_scan's; vs plain: max |err| {e}",
+          flush=True)
+    del got_f4k
+    jpg_rst = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, ROW_RESTART,
+                                    device=dev)
+    e4k, rows_e4k, status_e4k = hold_e(jpg_rst)
+    (t_rows, t_status), secs_e_plain = timed(
+        entropy_decode.decode_segments_reference, *e4k)
+    e = max(int_err(rows_e4k, t_rows), int_err(status_e4k, t_status))
+    err_e = max(err_e, e)
+    print(f"phase 5c: kernel E, 4K restart {ROW_RESTART}: "
+          f"{status_e4k.shape[1]} segments, {rows_e4k.shape[0]} rows equal "
+          f"native.decode_scan's; vs plain: max |err| {e} (the twin's walk "
+          f"{secs_e_plain:.2f} s)", flush=True)
+    del rows4k, rows_e4k, t_rows
+    check(err_d == 0 and err_e == 0 and err_f == 0,
+          f"a device Huffman decoder disagrees with its plain twin "
+          f"(D {err_d}, E {err_e}, F {err_f})")
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        pack.LAUNCHES = 0
+        fused.LAUNCHES = 0
+        fused.DCT_LAUNCHES = 0
+        entropy_decode.AC_LAUNCHES = 0
+        entropy_decode.SEGMENT_LAUNCHES = 0
+        entropy_decode.PREFIX_LAUNCHES = 0
+        entropy_decode.PREFIX_STAGE_LAUNCHES = 0
+
+    def read_counts():
+        """((A, B, C), (D, E, F, F's separate launches)) since the reset."""
+        torch.cuda.synchronize()
+        return ((pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES),
+                (entropy_decode.AC_LAUNCHES, entropy_decode.SEGMENT_LAUNCHES,
+                 entropy_decode.PREFIX_LAUNCHES,
+                 entropy_decode.PREFIX_STAGE_LAUNCHES))
+
+    # Every path of the JSON line's "launches_per": its counts as they were
+    # read just after it ran, ((A, B, C), (D, E, F, F's separate launches)).
+    path_counts = {}
+
+    def counted_all(fn, path=None, images=1):
+        """fn() with every kernel's count set to 0 just before and read just
+        after: (result, (A, B, C) launches, (D, E, F, F's separate
+        launches)). `path` keeps the counts read under that name, divided
+        by the `images` the call took."""
+        reset_counts()
+        out = fn()
+        abc, huffman_n = read_counts()
+        if path is not None:
+            check(all(n % images == 0 for n in abc + huffman_n),
+                  f"{path}: launches {abc}, {huffman_n} over {images} images")
+            path_counts[path] = (tuple(n // images for n in abc),
+                                 tuple(n // images for n in huffman_n))
+        return out, abc, huffman_n
+
+    def counted(fn, huffman=(0, 0, 0), **keep):
+        """counted_all for a path whose (D, E, F) launches are known
+        beforehand: (result, (A, B, C) launches). The default is a path
+        that runs no device Huffman decoder."""
+        out, abc, huffman_n = counted_all(fn, **keep)
+        check(huffman_n[:3] == huffman,
+              f"(D, E, F) launches {huffman_n[:3]}, expected {huffman}")
+        return out, abc
+
+    lap("6")
+    # Phase 6: the main path, counted: the encode, then the decode.
     encoder.HOST_PACK_SPILLS = 0
-    jpg = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev)
-    torch.cuda.synchronize()
-    per_encode = (pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES)
-    px = jpeg_tpu_torch.decode(jpg, device=dev)
-    torch.cuda.synchronize()
-    launches_a, launches_b = pack.LAUNCHES, fused.LAUNCHES
-    per_decode = (launches_a - per_encode[0], launches_b - per_encode[1],
-                  fused.DCT_LAUNCHES - per_encode[2])
+    jpg, per_encode, huffman_encode = counted_all(
+        lambda: jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev),
+        path="default_encode")
+    px, per_decode, huffman_main = counted_all(
+        lambda: jpeg_tpu_torch.decode(jpg, device=dev), path="default_decode")
+    main_launches = tuple(e + d for e, d in zip(
+        per_encode + huffman_encode, per_decode + huffman_main))
     spills = encoder.HOST_PACK_SPILLS
     print(f"phase 6: 4K q{QUALITY} {SUBSAMPLING}: {len(jpg)} bytes; launches "
           f"(A, B, C): encode {per_encode}, decode {per_decode}; host-pack "
           f"spills {spills}", flush=True)
     check(per_encode == (1, 0, 0), "a default encode is one launch of kernel A")
     check(per_decode == (0, 3, 0), "a colour decode is three launches of kernel B")
+    f_launches = 3 + max(1, (mcu_rows * mcu_cols - 1).bit_length())
+    check(huffman_encode == (0, 0, 0, 0),
+          f"an encode launched a Huffman decoder: {huffman_encode}")
+    check(huffman_main == (1, 0, 1, f_launches),
+          f"a default decode is program F ({f_launches} launches) and kernel "
+          f"D once each, not {huffman_main}")
     check(spills == 0, f"{spills} host-pack spills on the main path")
     check(jpg == jpg_cpu, "CUDA encode bytes differ from the CPU encode")
     check(px.shape == (HEIGHT, WIDTH, 3) and px.dtype == np.uint8,
@@ -545,6 +773,7 @@ def run(card: str) -> dict:
     check(ndiff <= DIFF_SHARE * diff.size, "too many decode differences")
     psnr_default = psnr(px, img)
 
+    lap("6b")
     # Phase 6b: encode(use_pallas=True), counted: kernel C then the host pack.
     cfg = EncodeConfig(quality=QUALITY, subsampling=SUBSAMPLING)
     qy, qc = quant.luma_table(QUALITY), quant.chroma_table(QUALITY)
@@ -555,16 +784,11 @@ def run(card: str) -> dict:
         img, QUALITY, SUBSAMPLING, device="cpu", use_pallas=True))
     print(f"phase 6b: CPU references: use_pallas transform {secs:.2f} s, "
           f"encode {secs2:.2f} s", flush=True)
-    torch.cuda.synchronize()
-    pack.LAUNCHES = 0
-    fused.LAUNCHES = 0
-    fused.DCT_LAUNCHES = 0
     encoder.HOST_PACK_SPILLS = 0
-    jpg_pallas = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev,
-                                       use_pallas=True)
-    torch.cuda.synchronize()
-    launches_c, launches_a_pallas = fused.DCT_LAUNCHES, pack.LAUNCHES
-    per_pallas = (launches_a_pallas, fused.LAUNCHES, launches_c)
+    jpg_pallas, per_pallas = counted(lambda: jpeg_tpu_torch.encode(
+        img, QUALITY, SUBSAMPLING, device=dev, use_pallas=True),
+        path="use_pallas_encode")
+    launches_a_pallas, _, launches_c = per_pallas
     print(f"phase 6b: use_pallas 4K q{QUALITY} {SUBSAMPLING}: "
           f"{len(jpg_pallas)} bytes; launches: kernel C {launches_c}, "
           f"kernel A {launches_a_pallas}", flush=True)
@@ -601,6 +825,7 @@ def run(card: str) -> dict:
     check(abs(psnr_pallas - psnr_default) <= 0.1,
           "use_pallas PSNR is more than 0.1 dB from the default path's")
 
+    lap("6c")
     # Phase 6c: optimize_tables, three ways, one set of bytes.
     opt = dict(optimize_tables=True)
     jpg_opt_cpu, secs = timed(lambda: jpeg_tpu_torch.encode(
@@ -641,6 +866,7 @@ def run(card: str) -> dict:
     check(np.array_equal(px_opt, px),
           "optimize_tables decode differs from the standard-table decode")
 
+    lap("6d")
     # Phase 6d: an unaligned restart interval takes the host pack.
     r = UNALIGNED_RESTART
     n_mcu = (HEIGHT // mode.mcu_height) * (WIDTH // mode.mcu_width)
@@ -655,6 +881,7 @@ def run(card: str) -> dict:
     px_r = jpeg_tpu_torch.decode(jpg_r, device=dev)
     check(np.array_equal(px_r, px), "restart-7 decode differs from 6's")
 
+    lap("6e")
     # Phase 6e: gray (the image's Y plane), counted.
     gray = np.clip(np.rint(img.astype(np.float64) @ [0.299, 0.587, 0.114]),
                    0, 255).astype(np.uint8)
@@ -688,25 +915,21 @@ def run(card: str) -> dict:
     check(int(diff.max()) <= 1 and ndiff <= DIFF_SHARE * diff.size,
           "gray decode differs from the CPU decode")
 
+    lap("6f")
     # Phase 6f: the decode options at 4K, colour then gray, counted.
-    def counted(fn):
-        """fn() with every kernel's count set to 0 just before and read just
-        after: (result, (A, B, C) launches)."""
-        torch.cuda.synchronize()
-        pack.LAUNCHES = 0
-        fused.LAUNCHES = 0
-        fused.DCT_LAUNCHES = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES)
+    # entropy="auto" on the card is the "device" backend: on a stream
+    # without restart markers program F and kernel D, once each.
+    auto_n = (1, 0, 1)
 
-    per_sparse = per_native = None
     for label, stream, px_card, px_ref, nb in (
             ("colour", jpg, px, px_cpu, 3), ("gray", jpg_g, px_g, px_g_cpu, 1)):
+        keep = label == "colour"
         px_sparse, n_sparse = counted(lambda: jpeg_tpu_torch.decode(
-            stream, device=dev, entropy="sparse"))
+            stream, device=dev, entropy="sparse"),
+            path="sparse_decode" if keep else None)
         px_native, n_native = counted(lambda: jpeg_tpu_torch.decode(
-            stream, device=dev, entropy="native"))
+            stream, device=dev, entropy="native"),
+            path="native_decode" if keep else None)
         args = port_util.scan_args(stream)
         payload = decode_device.sparse_payload(*args)[0]
         dense_bytes = args[1] * sum(bpm for _, bpm, _, _ in args[2]) * 64 * 4
@@ -723,13 +946,11 @@ def run(card: str) -> dict:
               f"{label}: sparse and native decodes differ")
         check(np.array_equal(px_sparse, px_card),
               f"{label}: the default decode differs from the sparse one")
-        if label == "colour":
-            per_sparse, per_native = n_sparse, n_native
         for d in (2, 4, 8):
             ref_d, secs = timed(lambda: jpeg_tpu_torch.decode(
                 stream, device="cpu", scale_denom=d))
             got_d, n_b = counted(lambda: jpeg_tpu_torch.decode(
-                stream, device=dev, scale_denom=d))
+                stream, device=dev, scale_denom=d), auto_n)
             worst, ndiff, n = decode_diff(got_d, ref_d)
             print(f"phase 6f: {label} scale_denom {d}: {got_d.shape}, "
                   f"launches {n_b}; vs CPU decode: max |diff| {worst}, "
@@ -740,7 +961,7 @@ def run(card: str) -> dict:
                   f"scale_denom {d} gave {got_d.shape}")
             check(n_b == (0, 0, 0), f"a scaled decode launched {n_b}")
         out_dev, n_b = counted(lambda: jpeg_tpu_torch.decode(
-            stream, device=dev, device_output=True))
+            stream, device=dev, device_output=True), auto_n)
         check(n_b == (0, nb, 0), f"{label} device_output: launches {n_b}")
         check(isinstance(out_dev, torch.Tensor)
               and str(out_dev.device) == "cuda:0",
@@ -752,7 +973,7 @@ def run(card: str) -> dict:
               f"result", flush=True)
     for d in (1, 2):
         planes_d, n_b = counted(lambda: jpeg_tpu_torch.decode(
-            jpg, device=dev, output="ycbcr", scale_denom=d))
+            jpg, device=dev, output="ycbcr", scale_denom=d), auto_n)
         rgb_d = px if d == 1 else jpeg_tpu_torch.decode(jpg, device=dev,
                                                         scale_denom=d)
         fin = jpeg_tpu_torch.finish_ycbcr(planes_d)
@@ -774,11 +995,81 @@ def run(card: str) -> dict:
     check(np.array_equal(jpeg_tpu_torch.finish_ycbcr(planes_dev), px),
           "finish_ycbcr of device planes differs from decode()")
 
+    # The device Huffman decoders at 4K, counted: this slice's paths.
+    per_huffman = {}
+    huffman_path = {
+        ("colour", "indexed"): "indexed_decode",
+        ("colour", "device"): "device_decode",
+        (f"colour restart {ROW_RESTART}", "device"): "device_decode_restarts"}
+    for label, stream, nb, restarts in (
+            ("colour", jpg, 3, False), ("gray", jpg_g, 1, False),
+            (f"colour restart {ROW_RESTART}", jpg_rst, 3, True)):
+        px_sparse = jpeg_tpu_torch.decode(stream, device=dev,
+                                          entropy="sparse")
+        for backend, want in (
+                ("indexed", (1, 0, 0, 0)),
+                ("device", (0, 1, 0, 0) if restarts else None)):
+            got, abc, huffman_n = counted_all(lambda: jpeg_tpu_torch.decode(
+                stream, device=dev, entropy=backend),
+                path=huffman_path.get((label, backend)))
+            same = np.array_equal(got, px_sparse)
+            print(f"phase 6f: {label} 4K decode, entropy {backend!r}: "
+                  f"launches (A, B, C) {abc}, (D, E, F, F's separate "
+                  f"launches) {huffman_n}; == sparse: {same}", flush=True)
+            check(same, f"{label}: {backend!r} pixels differ from sparse")
+            check(abc == (0, nb, 0), f"{label} {backend!r}: launches {abc}")
+            if want is None:  # no markers: program F once, then kernel D
+                check(huffman_n[:3] == (1, 0, 1) and huffman_n[3] >= 4,
+                      f"{label} 'device': launches {huffman_n}")
+                if label == "colour":
+                    check(huffman_n[3] == f_launches,
+                          f"program F made {huffman_n[3]} launches, not "
+                          f"{f_launches}")
+            else:
+                check(huffman_n == want,
+                      f"{label} {backend!r}: launches {huffman_n}")
+            per_huffman[label, backend] = huffman_n
+    # One flipped byte in the middle of the 4K scan, one that makes no
+    # marker and breaks no stuffing: the three backends agree on it.
+    at = jpg.index(b"\xff\xda") + 14 + len(info.scan_data) // 2
+    while 0xFF in (jpg[at - 1], jpg[at], jpg[at + 1]):
+        at += 1
+    corrupt = bytearray(jpg)
+    corrupt[at] = (corrupt[at] ^ 0x10) & 0xFE
+    verdicts = {}
+    for backend in ("sparse", "indexed", "device"):
+        t0 = time.perf_counter()
+        try:
+            verdicts[backend] = jpeg_tpu_torch.decode(
+                bytes(corrupt), device=dev, entropy=backend)
+        except ScanDecodeError as e:
+            verdicts[backend] = f"ScanDecodeError: {e}"
+        torch.cuda.synchronize()
+        shown = verdicts[backend] if isinstance(verdicts[backend], str) else (
+            f"decoded {verdicts[backend].shape}")
+        print(f"phase 6f: 4K scan with byte {at} flipped, entropy "
+              f"{backend!r}: {shown} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    raised = [isinstance(v, str) for v in verdicts.values()]
+    check(all(raised) or not any(raised),
+          "the backends disagree on whether the corrupt scan decodes")
+    if not any(raised):
+        check(np.array_equal(verdicts["sparse"], verdicts["indexed"])
+              and np.array_equal(verdicts["sparse"], verdicts["device"]),
+              "the backends decode the corrupt scan to different pixels")
+    del verdicts
+
+    lap("6g")
     # Phase 6g: the stream types only the host walkers read, on the card.
     for name, (_build, shape) in sorted(port_fixtures.FIXTURES.items()):
         data = port_fixtures.read(name)
         ref = jpeg_tpu_torch.decode(data, device="cpu")
-        got, n_b = counted(lambda: jpeg_tpu_torch.decode(data, device=dev))
+        parsed = jfif.parse_jpeg(data)
+        one_scan = not parsed.progressive and len(parsed.scans) == 1
+        got, n_b = counted(
+            lambda: jpeg_tpu_torch.decode(data, device=dev),
+            ((0, 1, 0) if parsed.restart_interval else auto_n) if one_scan
+            else (0, 0, 0))
         worst, ndiff, n = decode_diff(got, ref)
         print(f"phase 6g: {name}: {got.shape}, launches {n_b}; vs "
               f"CPU decode: max |diff| {worst}, {ndiff} of {n} differ",
@@ -786,6 +1077,24 @@ def run(card: str) -> dict:
         check(got.shape == shape, f"{name} decoded to {got.shape}")
         check(n_b == (0, shape[2] if len(shape) == 3 else 1, 0),
               f"{name}: launches {n_b}")
+        if name.startswith("noninterleaved"):
+            # Three scans: each takes kernel D once with "indexed"; with
+            # "device" kernel E once if it has restart markers, else
+            # program F and kernel D once each.
+            marked = all(sc.restart_interval for sc in parsed.scans)
+            for backend, want in (
+                    ("indexed", (3, 0, 0)),
+                    ("device", (0, 3, 0) if marked else (3, 0, 3))):
+                other, abc, huffman_n = counted_all(
+                    lambda: jpeg_tpu_torch.decode(data, device=dev,
+                                                  entropy=backend))
+                print(f"phase 6g: {name}, entropy {backend!r}: == the "
+                      f"default decode: {np.array_equal(other, got)}; "
+                      f"launches {abc}, {huffman_n}", flush=True)
+                check(np.array_equal(other, got),
+                      f"{name}: {backend!r} differs from the default decode")
+                check(abc == n_b and huffman_n[:3] == want,
+                      f"{name} {backend!r}: launches {abc}, {huffman_n}")
 
 
     # Phases 6h-6l: the serving entry points, counted like the rest. Frames
@@ -799,6 +1108,7 @@ def run(card: str) -> dict:
     def digest(data) -> str:
         return hashlib.sha256(data).hexdigest()
 
+    lap("6h")
     # Phase 6h: encode_batched.
     batch8 = np.stack(list(frames(BATCH_ENCODE)))
     jpgs8 = [jpeg_tpu_torch.encode(im, QUALITY, SUBSAMPLING, device=dev)
@@ -807,7 +1117,7 @@ def run(card: str) -> dict:
           "the batch's frames are not distinct images")
     encoder.HOST_PACK_SPILLS = 0
     got8, per_batch_enc = counted(lambda: jpeg_tpu_torch.encode_batched(
-        batch8, QUALITY, SUBSAMPLING, device=dev))
+        batch8, QUALITY, SUBSAMPLING, device=dev), path="encode_batched_k8")
     spills = encoder.HOST_PACK_SPILLS
     print(f"phase 6h: encode_batched K={BATCH_ENCODE} 4K q{QUALITY} "
           f"{SUBSAMPLING}: {[len(j) for j in got8]} bytes; equal to "
@@ -853,6 +1163,7 @@ def run(card: str) -> dict:
         err_a = max(err_a, e)
         del blk, tb
 
+    lap("6i")
     # Phase 6i: decode_batched.
     jpgs4 = jpgs8[:BATCH_DECODE]
     px4 = np.stack([jpeg_tpu_torch.decode(j, device=dev) for j in jpgs4])
@@ -861,7 +1172,8 @@ def run(card: str) -> dict:
     for bm in ("fused", "pipelined", "auto"):
         got, per_batch_dec[bm] = counted(
             lambda: jpeg_tpu_torch.decode_batched(jpgs4, batch_mode=bm,
-                                                  device=dev))
+                                                  device=dev),
+            path=f"decode_batched_{bm}_k4")
         print(f"phase 6i: decode_batched K={BATCH_DECODE} {bm!r}: "
               f"{got.shape} {got.dtype}; equal to decode() per image: "
               f"{np.array_equal(got, px4)}; launches {per_batch_dec[bm]}",
@@ -918,15 +1230,16 @@ def run(card: str) -> dict:
         del stacked
     del per_stream
 
+    lap("6j")
     # Phase 6j: encode_stream.
     want_hash = [digest(jpeg_tpu_torch.encode(f, QUALITY, SUBSAMPLING,
                                               device=dev))
                  for f in frames(STREAM_ENCODE)]
     encoder.HOST_PACK_SPILLS = 0
     streamed, n_b = counted(lambda: list(jpeg_tpu_torch.encode_stream(
-        frames(STREAM_ENCODE), QUALITY, SUBSAMPLING, depth=2, device=dev)))
+        frames(STREAM_ENCODE), QUALITY, SUBSAMPLING, depth=2, device=dev)),
+        path="encode_stream_per_image", images=STREAM_ENCODE)
     same = [digest(j) for j in streamed] == want_hash
-    per_stream_enc = tuple(n // STREAM_ENCODE for n in n_b)
     print(f"phase 6j: encode_stream {STREAM_ENCODE} x 4K depth 2: "
           f"{len(set(want_hash))} distinct streams, equal to encode() per "
           f"image: {same}; launches {n_b}; spills "
@@ -951,17 +1264,20 @@ def run(card: str) -> dict:
     check(n_b == (len(mixed), 0, 0),
           f"encode_stream optimize_tables launched {n_b}")
 
+    lap("6k")
     # Phase 6k: decode_stream; the launches come from the workers' threads.
     jpgs16 = streamed[:STREAM_DECODE]
     del streamed
     want_px = [digest(jpeg_tpu_torch.decode(j, device=dev)) for j in jpgs16]
     check(len(set(want_px)) == STREAM_DECODE, "the streams' pixels repeat")
-    per_stream_dec = None
     for depth in (2, 4):
         got, n_b = counted(lambda: [digest(out) for out in
                                     jpeg_tpu_torch.decode_stream(
                                         iter(jpgs16), depth=depth,
-                                        device=dev)])
+                                        device=dev)],
+                           tuple(n * STREAM_DECODE for n in auto_n),
+                           path="decode_stream_per_image",
+                           images=STREAM_DECODE)
         print(f"phase 6k: decode_stream {STREAM_DECODE} x 4K depth {depth}: "
               f"equal to decode() per stream, in order: {got == want_px}; "
               f"launches {n_b}", flush=True)
@@ -969,10 +1285,20 @@ def run(card: str) -> dict:
               "decode() per stream")
         check(n_b == (0, 3 * STREAM_DECODE, 0),
               f"decode_stream depth {depth} launched {n_b}")
-        per_stream_dec = tuple(n // STREAM_DECODE for n in n_b)
+    got, abc, huffman_n = counted_all(lambda: [
+        digest(out) for out in jpeg_tpu_torch.decode_stream(
+            iter(jpgs16), depth=4, entropy="indexed", device=dev)])
+    print(f"phase 6k: decode_stream {STREAM_DECODE} x 4K depth 4, entropy "
+          f"'indexed': equal to decode() per stream, in order: "
+          f"{got == want_px}; launches {abc}, {huffman_n}", flush=True)
+    check(got == want_px, "decode_stream with 'indexed' differs from decode()")
+    check(abc == (0, 3 * STREAM_DECODE, 0)
+          and huffman_n == (STREAM_DECODE, 0, 0, 0),
+          f"decode_stream with 'indexed' launched {abc}, {huffman_n}")
     odd = jpgs16[:2] + [small_jpg, jpg_g] + jpgs16[2:4]
     got, n_b = counted(lambda: list(jpeg_tpu_torch.decode_stream(
-        odd, depth=2, device_output=True, device=dev)))
+        odd, depth=2, device_output=True, device=dev)),
+        tuple(n * len(odd) for n in auto_n))
     ok = all(isinstance(o, torch.Tensor) and str(o.device) == "cuda:0"
              for o in got)
     ok = ok and all(
@@ -985,6 +1311,7 @@ def run(card: str) -> dict:
     check(n_b == (0, 3 * 5 + 1, 0), f"mixed decode_stream launched {n_b}")
     del got
 
+    lap("6l")
     # Phase 6l: the multi-scan and the progressive encoders.
     from jpeg_tpu_torch.models.progressive_enc import encode_progressive
 
@@ -1030,6 +1357,7 @@ def run(card: str) -> dict:
         check(same_px, f"progressive {label} decodes to other pixels than "
               "the baseline stream")
 
+    lap("7")
     # Phase 7: smaller encodes, byte-identical to the CPU path.
     for (h, w), sub, r in (((777, 1001), "444", 0), ((480, 640), "422", 0),
                            ((768, 1024), "420", 4)):
@@ -1041,6 +1369,7 @@ def run(card: str) -> dict:
         check(a == b, f"{w}x{h} {sub} r={r}: CUDA bytes differ from CPU")
     check(encoder.HOST_PACK_SPILLS == 0, "host-pack spill in phase 7")
 
+    lap("8")
     # Phase 8: timings.
     mpix = HEIGHT * WIDTH / 1e6
     ms_enc = median_ms_host(
@@ -1095,6 +1424,7 @@ def run(card: str) -> dict:
         for _ in gen:
             pass
 
+    lap("8, the serving entry points")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms_enc_batch = median_ms_host(lambda: jpeg_tpu_torch.encode_batched(
@@ -1131,6 +1461,7 @@ def run(card: str) -> dict:
         jpgs4, batch_mode="fused", device_output=True, device=dev), torch)
     # encode_stream with its pinned staging buffer and with the pageable
     # upload straight from the caller's array, in turns like the batch modes.
+    lap("8, the streams")
     staging_default = pipeline.PINNED_STAGING
     enc_stream_ts = {(st, d): [] for st in (True, False) for d in (1, 2, 4)}
     for rnd in range(1 + STREAM_RUNS):
@@ -1216,6 +1547,112 @@ def run(card: str) -> dict:
         ] + tail, torch),
     }
 
+    lap("8, the device Huffman decoders")
+    # The device Huffman decoders. Step 0: the host index pass beside the
+    # host sparse walk, on the 4K stream (one thread: no restart markers)
+    # and on the restart-240 stream (threaded across its 135 segments).
+    walk_plain, walk_rst = port_util.scan_args(jpg), port_util.scan_args(jpg_rst)
+    ms_walks = {}
+    for label, args in (("4K", walk_plain),
+                        (f"4K restart {ROW_RESTART}", walk_rst)):
+        ms_walks[label] = medians_in_turns({
+            "native.index_scan": lambda: native.index_scan(*args),
+            "native.sparse_scan": lambda: native.sparse_scan(*args),
+            "decode_device.sparse_payload":
+                lambda: decode_device.sparse_payload(*args),
+        }, torch, RUNS)
+    # End to end, the three backends in turns, on both streams and on the
+    # same image with four MCU rows to a restart segment: kernel E walks a
+    # segment in one thread, so its time follows the blocks of one segment.
+    jpg_long = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING,
+                                     4 * ROW_RESTART, device=dev)
+    huffman_backends = ("sparse", "indexed", "device")
+    ms_turns = {
+        label: medians_in_turns({
+            b: (lambda b=b: jpeg_tpu_torch.decode(stream, device=dev,
+                                                  entropy=b))
+            for b in huffman_backends}, torch, RUNS)
+        for label, stream in (("4K", jpg),
+                              (f"4K restart {ROW_RESTART}", jpg_rst),
+                              (f"4K restart {4 * ROW_RESTART}", jpg_long))}
+    ms_stream_turns = medians_in_turns({
+        b: (lambda b=b: drain(jpeg_tpu_torch.decode_stream(
+            iter(jpgs16), depth=4, entropy=b, device=dev)))
+        for b in huffman_backends}, torch)
+
+    # By stage. "indexed": the host index pass and the payload, one upload,
+    # kernel D. "device" without markers: unstuff, one upload, program F,
+    # regroup + cumsum, kernel D, the flags' readback; with markers: split
+    # + unstuff, one upload, kernel E, the flags' readback.
+    def split_rows(rows):
+        return list(torch.split(rows, sizes_4k))
+
+    def index_payload(_):
+        destuffed, off, dc = native.index_scan(*walk_plain)
+        words = decode_device._guarded_words(destuffed)
+        return np.concatenate([words, off, dc]), len(words), off.shape[0]
+
+    def run_d(p):
+        up, nwords, nb = p
+        return split_rows(entropy_decode.decode_ac_indexed(
+            up[:nwords], up[nwords:nwords + nb], up[nwords + nb:], d4k[3],
+            d4k[4]))
+
+    def unstuff_words(_):
+        return decode_device.unstuffed_segments(walk_plain[0])[0]
+
+    def split_unstuff_words(_):
+        words, seg_off, _lens = decode_device.unstuffed_segments(walk_rst[0])
+        return np.concatenate([words, seg_off]), len(words)
+
+    payload_bytes = index_payload(None)[0].nbytes
+    stage_ms_huffman = {
+        "indexed": stage_medians([
+            ("host index pass + payload", index_payload),
+            (f"upload ({payload_bytes} B)", lambda p: (
+                torch.from_numpy(p[0]).to(dev), *p[1:])),
+            ("kernel D", run_d),
+        ] + tail, torch),
+        "device (no markers)": stage_medians([
+            ("host unstuff + words", unstuff_words),
+            (f"upload ({f4k[0].numel() * 4} B)",
+             lambda w: torch.from_numpy(w).to(dev)),
+            ("program F", lambda w: (w, entropy_decode.prefix_index(
+                w, *f4k[1:]))),
+            ("regroup + cumsum", lambda p: (
+                p[0], port_util.regroup_prefix(p[1][0], p[1][1], lay_4k),
+                p[1][2])),
+            ("kernel D", lambda p: (entropy_decode.decode_ac_indexed(
+                p[0], *p[1], d4k[3], d4k[4]), p[2])),
+            ("flags to the host", lambda p: (
+                split_rows(p[0]), p[1].cpu().tolist())[0]),
+        ] + tail, torch),
+        f"device (restart {ROW_RESTART})": stage_medians([
+            ("host split + unstuff + words", split_unstuff_words),
+            (f"upload ({(e4k[0].numel() + e4k[1].numel()) * 4} B)",
+             lambda p: (torch.from_numpy(p[0]).to(dev), p[1])),
+            ("kernel E (with its zero fill)", lambda p:
+             entropy_decode.decode_segments(p[0][:p[1]], p[0][p[1]:],
+                                            *e4k[2:])),
+            ("flags to the host", lambda p: (
+                split_rows(p[0]), p[1].cpu().numpy())[0]),
+        ] + tail, torch),
+    }
+
+    lap("8, the kernels alone")
+    # Wrapper calls (CUDA events around one call, host work included) and
+    # the twins on the card; kernel E's twin is a Python walk, timed once
+    # in phase 5c.
+    ms_d = median_ms_device(
+        lambda: entropy_decode.decode_ac_indexed(*d4k), torch)
+    ms_d_plain = median_ms_device(
+        lambda: entropy_decode.decode_ac_indexed_reference(*d4k), torch)
+    ms_e = median_ms_device(
+        lambda: entropy_decode.decode_segments(*e4k), torch)
+    ms_f = median_ms_device(lambda: entropy_decode.prefix_index(*f4k), torch)
+    ms_f_plain = median_ms_device(
+        lambda: entropy_decode.prefix_index_reference(*f4k), torch)
+
     luma, qluma = planes[0]
     ms_a = median_ms_device(lambda: pack.pack_level1(
         blocks4k, tbl4k, *luts, packed=packed), torch)  # as the encoder calls it
@@ -1266,6 +1703,84 @@ def run(card: str) -> dict:
     us_c_c = alone((cb_plane.contiguous(),),
                    (torch.empty_like(cb_plane, dtype=torch.int32),),
                    lambda x, o: fused._launch_dct(x, qt_c_flat, o), bytes_c)
+    # Kernels D and E and program F alone. The tables (1 MB) stay where they
+    # are, as in a decode; everything else rotates.
+    nblk_h = d4k[1].shape[0]
+    words_bytes = d4k[0].numel() * 4
+    bytes_d = words_bytes + 3 * nblk_h * 4 + nblk_h * 256
+    us_d = alone(d4k[:4], (torch.empty((nblk_h, 64), dtype=torch.int32,
+                                       device=dev),),
+                 lambda w, o, d, sl, rows: entropy_decode._launch_ac_indexed(
+                     w, o, d, sl, d4k[4], rows), bytes_d)
+    bytes_e = e4k[0].numel() * 4 + nblk_h * 256
+    nseg_e = e4k[1].shape[0]
+
+    def e_alone(e_in):
+        return alone(
+            (e_in[0],), (torch.empty((nblk_h, 64), dtype=torch.int32,
+                                     device=dev),
+                         torch.empty((2, e_in[1].shape[0]), dtype=torch.int32,
+                                     device=dev)),
+            lambda w, rows, st: entropy_decode._launch_segments(
+                w, *e_in[1:6], rows, st), bytes_e)
+
+    us_e = e_alone(e4k)
+    # Kernel E's time follows the blocks of one segment, not their sum: the
+    # same image with four MCU rows to a segment.
+    e_long = hold_e(jpg_long)[0]
+    us_e_long = e_alone(e_long)
+    # Program F: all of it (its launches back to back, as a decode runs
+    # them), then each kind of launch on its own.
+    f_words, f_mcus, f_seq, f_classes, f_tables = f4k
+    f_nbits, f_bpm = f_words.numel() * 32, f_seq.shape[0]
+    f_levels = max(1, (f_mcus - 1).bit_length())
+    bytes_f = f_words.numel() * 4 + 2 * f_mcus * f_bpm * 4
+    f_sets = []
+    for _ in range(4):
+        f_sets.append((
+            f_words.clone(),
+            torch.empty((f_mcus, f_bpm), dtype=torch.int32, device=dev),
+            torch.empty((f_mcus, f_bpm), dtype=torch.int32, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev),
+            entropy_decode.prefix_scratch(f_words.numel(), f_mcus,
+                                          f_classes.shape[0], dev)))
+
+    def f_whole(i):
+        w, off, diff, st, scratch = f_sets[i]
+        entropy_decode._launch_prefix(w, f_mcus, f_seq, f_classes, f_tables,
+                                      off, diff, st, scratch)
+
+    us_f = kernel_only_us(f_whole, len(f_sets), torch)
+    # One launch of each kind alone: level 0 composes a jump table, the last
+    # level only extends the starts.
+    f_steps = [entropy_decode.prefix_launches(
+        w, f_mcus, f_seq, f_classes, f_tables, off, diff, st, scratch)
+        for w, off, diff, st, scratch in f_sets]
+    us_f_stages = {
+        label: kernel_only_us(lambda i: f_steps[i][k][1](), len(f_sets), torch)
+        for label, k in (("block ends", 0), ("MCU hop", 1),
+                         ("doubling level, composing", 2),
+                         ("last doubling level", -2), ("replay", -1))}
+    del f_steps, f_sets
+    for label, us, nbytes in (
+        (f"kernel D ac_indexed, {nblk_h} blocks", us_d, bytes_d),
+        (f"kernel E segment_walk, {nseg_e} segments, {nblk_h} blocks", us_e,
+         bytes_e),
+        (f"program F prefix_index, {f_nbits} bit positions, {f_mcus} MCUs, "
+         f"{3 + f_levels} launches", us_f, bytes_f),
+    ):
+        print(f"phase 8: {label}: kernel-only {us:.2f} us, {nbytes} bytes, "
+              f"bound {bound_us(nbytes):.2f} us, share "
+              f"{bound_us(nbytes) / us:.4f} [{card}]", flush=True)
+    print(f"phase 8: kernel E with restart {4 * ROW_RESTART}: "
+          f"{e_long[1].shape[0]} segments of {nblk_h // nseg_e * 4} blocks: "
+          f"kernel-only {us_e_long:.2f} us (restart {ROW_RESTART}: {nseg_e} "
+          f"segments of {nblk_h // nseg_e} blocks, {us_e:.2f} us) "
+          f"[{card}]", flush=True)
+    print("phase 8: program F by launch, kernel-only: "
+          + "; ".join(f"{k} {v:.2f} us" for k, v in us_f_stages.items())
+          + f" ({f_levels} doubling levels, {f_levels - 1} composing) "
+          f"[{card}]", flush=True)
     for label, us, nbytes in (
         (f"kernel A pack_level1, {nblk} blocks q{QUALITY}", us_a, bytes_a),
         (f"kernel A pack_level1, {nblk} blocks q95", us_a_q95, bytes_a),
@@ -1337,6 +1852,20 @@ def run(card: str) -> dict:
           f"finalize {ms_finalize:.3f} ms [{card}]", flush=True)
     print(f"phase 8: decode_batched batch_mode='auto' takes "
           f"{auto_mode!r} at K={BATCH_DECODE}", flush=True)
+    for label, ms in ms_walks.items():
+        print(f"phase 8: host walks, {label}: "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+              + f"; in turns, medians of {RUNS} [{card}]", flush=True)
+    for label, ms in ms_turns.items():
+        print(f"phase 8: decode {label} end to end by entropy backend, in "
+              f"turns: " + "; ".join(f"{k!r} {v:.3f} ms" for k, v in ms.items())
+              + f"; medians of {RUNS} [{card}]", flush=True)
+    print(f"phase 8: decode_stream {STREAM_DECODE} x 4K depth 4 by entropy "
+          f"backend, in turns, ms per image: "
+          + "; ".join(f"{k!r} {v / STREAM_DECODE:.3f}"
+                      for k, v in ms_stream_turns.items())
+          + f"; medians of {TURN_RUNS} [{card}]", flush=True)
+    stage_ms.update(stage_ms_huffman)
     for path, stages in stage_ms.items():
         print(f"phase 8: decode 4K stages, {path} (sum "
               f"{sum(stages.values()):.3f} ms): "
@@ -1346,6 +1875,11 @@ def run(card: str) -> dict:
         (f"kernel A pack_level1, {blocks4k.shape[0]} blocks", ms_a, ms_a_plain),
         (f"kernel B idct8, {tuple(luma.shape)} plane", ms_b, ms_b_plain),
         (f"kernel C dct8, {tuple(y_plane.shape)} plane", ms_c, ms_c_plain),
+        (f"kernel D ac_indexed, {nblk_h} blocks", ms_d, ms_d_plain),
+        (f"kernel E segment_walk, {nseg_e} segments (twin: one Python walk "
+         f"on the host)", ms_e, secs_e_plain * 1e3),
+        (f"program F prefix_index, {f_nbits} bit positions", ms_f,
+         ms_f_plain),
     ):
         print(f"phase 8: {label}: {ms:.4f} ms; plain twin on the card "
               f"{plain:.4f} ms; median of {RUNS} [{card}]", flush=True)
@@ -1363,29 +1897,47 @@ def run(card: str) -> dict:
                 "bound_us": bound_us(nbytes),
                 "bound_share": bound_us(nbytes) / us,
                 "launches_per": dict(zip(
-                    ("default_encode", "default_decode", "use_pallas_encode",
-                     "sparse_decode", "native_decode", "encode_batched_k8",
-                     "decode_batched_fused_k4", "decode_batched_pipelined_k4",
-                     "encode_stream_per_image", "decode_stream_per_image"),
-                    launches_per)), **more}
+                    launch_paths, launches_per)), **more}
 
-    # By kernel A, B, C: each path's counts as read just after it ran.
-    per = list(zip(per_encode, per_decode, per_pallas, per_sparse,
-                   per_native, per_batch_enc, per_batch_dec["fused"],
-                   per_batch_dec["pipelined"], per_stream_enc,
-                   per_stream_dec))
+    launch_paths = (
+        "default_encode", "default_decode", "use_pallas_encode",
+        "sparse_decode", "native_decode", "encode_batched_k8",
+        "decode_batched_fused_k4", "decode_batched_pipelined_k4",
+        "encode_stream_per_image", "decode_stream_per_image",
+        "indexed_decode", "device_decode", "device_decode_restarts")
+
+    # Per kernel A-F, each path's count as it was read just after the path
+    # ran (path_counts); decode_batched's "auto" mode is one of the other two.
+    check(set(path_counts) - {"decode_batched_auto_k4"} == set(launch_paths),
+          f"paths counted: {sorted(path_counts)}")
+    per = [[(path_counts[p][0] + path_counts[p][1])[k] for p in launch_paths]
+           for k in range(6)]
+    lap("end")
     return {"kernels": [
         entry("pack_level1", "jpeg_tpu_torch/csrc/pack_level1.cu",
-              "jpeg_tpu/ops/pack_pallas.py:82", launches_a, err_a, ms_a,
+              "jpeg_tpu/ops/pack_pallas.py:82", main_launches[0], err_a, ms_a,
               ms_a_plain, us_a, bytes_a, per[0], kernel_us_q95=us_a_q95),
         entry("idct8", "jpeg_tpu_torch/csrc/idct8.cu",
-              "jpeg_tpu/ops/fused.py:69", launches_b, err_b, ms_b, ms_b_plain,
+              "jpeg_tpu/ops/fused.py:69", main_launches[1], err_b, ms_b,
+              ms_b_plain,
               us_b, bytes_y, per[1], kernel_us_chroma=us_b_c,
               bytes_chroma=bytes_c, bound_us_chroma=bound_us(bytes_c)),
         entry("dct8", "jpeg_tpu_torch/csrc/dct8.cu",
               "jpeg_tpu/ops/fused.py:45", launches_c, err_c, ms_c, ms_c_plain,
               us_c, bytes_y, per[2], kernel_us_chroma=us_c_c,
               bytes_chroma=bytes_c, bound_us_chroma=bound_us(bytes_c)),
+        entry("ac_indexed", "jpeg_tpu_torch/csrc/ac_indexed.cu",
+              "jpeg_tpu/entropy/decode_device.py:179", main_launches[3],
+              err_d, ms_d, ms_d_plain, us_d, bytes_d, per[3]),
+        entry("segment_walk", "jpeg_tpu_torch/csrc/segment_walk.cu",
+              "jpeg_tpu/entropy/decode_device.py:71",
+              per_huffman[f"colour restart {ROW_RESTART}", "device"][1],
+              err_e, ms_e, secs_e_plain * 1e3, us_e, bytes_e, per[4]),
+        entry("prefix_index", "jpeg_tpu_torch/csrc/prefix_index.cu",
+              "jpeg_tpu/entropy/decode_device.py:866", main_launches[5],
+              err_f, ms_f, ms_f_plain, us_f, bytes_f, per[5],
+              separate_launches=per_huffman["colour", "device"][3],
+              kernel_us_by_launch=us_f_stages),
     ]}
 
 

@@ -7,9 +7,11 @@ batch, encode_stream() and decode_stream() for a stream of images of any
 sizes with several in flight on CUDA streams, encode_noninterleaved()
 (three scans) and models.progressive_enc.encode_progressive() (SOF2).
 Underneath: the exact integer transform as one f32 matmul; the level-1
-Huffman packer, the dequant + IDCT and the DCT + quantize as hand-written
-CUDA kernels (jpeg_tpu_torch/csrc); the sparse coefficient upload with its
-densify on the device; and its own copies of the framework-free host modules
+Huffman packer, the dequant + IDCT, the DCT + quantize and the three device
+Huffman decoders (AC decode at known block starts, a walk per restart
+segment, block starts without restart markers) as hand-written CUDA kernels
+(jpeg_tpu_torch/csrc); the sparse coefficient upload with its densify on the
+device; and its own copies of the framework-free host modules
 (JFIF, BMP, Huffman tables, the NumPy scan walkers and packers, the binding
 of the native C++ entropy runtime). It imports torch and numpy, never jax.
 """

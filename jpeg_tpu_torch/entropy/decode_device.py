@@ -1,32 +1,60 @@
-"""Sparse-coefficient decode backend ("sparse"): the C++ runtime resolves the
-whole entropy layer on the host in one walk (absolute DCs + nonzero ACs as
-(value, zig-zag position) pairs: native.sparse_scan), packs them into one
-uint32 payload of about 2 bytes per nonzero coefficient, and the device
-densifies it back into (B, 64) zig-zag blocks. One upload instead of three
-dense int32 coefficient grids (128 bytes per block).
+"""Device-side Huffman scan decode backends: "sparse", "indexed", "device".
 
-Counterpart of the sparse half of jpeg_tpu/entropy/decode_device.py. The
-host side (buckets, packers, build_payload and its callers) is that module's
-code with the imports rewritten; the payload is byte-identical. The device
-side is written for a GPU: each element's block comes from a binary search
-over the per-block end offsets and the values are placed with one indexed
-store, where the reference builds (Sp, 64) one-hot contributions and sums
-them by prefix differences because its target has no cheap scatter. The
-reference's other densify formulations and its per-segment and indexed
-device Huffman decoders are not ported (ROADMAP.md, "Not ported" and
-Queue 1 item 8).
+Counterpart of jpeg_tpu/entropy/decode_device.py. All three return the
+contract of native.decode_scan, but as per-component (blocks, 64) int32
+tensors on the device, so the finish reads them with no round trip.
 
-torch has no uint32 arithmetic, so the payload travels as int32 and is
-widened once to int64 and masked to 32 bits; every shift after that works on
-non-negative values.
+"sparse": the C++ runtime resolves the whole entropy layer on the host in one
+walk (absolute DCs + nonzero ACs as (value, zig-zag position) pairs:
+native.sparse_scan), packs them into one uint32 payload of about 2 bytes per
+nonzero coefficient, and the device densifies it back into (B, 64) zig-zag
+blocks. One upload instead of three dense int32 coefficient grids (128 bytes
+per block). The host side (buckets, packers, build_payload and its callers)
+is the reference's code with the imports rewritten; the payload is
+byte-identical. The device side is written for a GPU: each element's block
+comes from a binary search over the per-block end offsets and the values are
+placed with one indexed store, where the reference builds (Sp, 64) one-hot
+contributions and sums them by prefix differences because its target has no
+cheap scatter. The reference's other densify formulations are not ported
+(ROADMAP.md, "Not ported").
+
+"indexed" (decode_scan_indexed): a light host pass (native.index_scan:
+destuff, and per block the bit offset past its DC code and its absolute DC),
+one upload of the scan's words with the offsets and DCs behind them, and
+kernel D decodes every block's AC coefficients in parallel.
+
+"device" (decode_scan): the host only splits the scan at its restart markers
+and removes the byte stuffing. With markers, kernel E walks every segment on
+its own thread. Without (decode_scan_prefix), program F finds every block's
+start on the card, a cumulative sum gives the DCs, and kernel D decodes the
+blocks. The kernels, their twins and their table format are
+ops/entropy_decode's; the reference's canonical-code tables and its second
+LUT form are not carried over, since a GPU thread indexes one table.
+
+Invalid codes never hang a kernel: a window that starts no code advances the
+cursor by 16 bits and sets a flag, every loop is bounded, and the host raises
+ScanDecodeError on a flag or on a cursor past the segment's true bits.
+
+torch has no uint32 arithmetic, so payloads and bit words travel as int32;
+the plain code widens once to int64 and masks to 32 bits.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+
 import numpy as np
 import torch
 
-from jpeg_tpu_torch.entropy import native
+from jpeg_tpu_torch.entropy import decode_np, native
+from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
+from jpeg_tpu_torch.ops import _cuda, entropy_decode
+
+_GUARD = 8  # zero guard bytes kept behind every uploaded bit stream
+# No block is longer: a DC code and its amplitude (16 + 16 bits), then at most
+# 63 AC symbols of a 16-bit code and 15 amplitude bits each.
+MAX_BLOCK_BITS = 32 + 63 * 31
 
 
 def _ceil16(n: int) -> int:
@@ -343,3 +371,274 @@ def decode_scan_sparse(
         out.append(rows[base : base + bpm * mcu_count])
         base += bpm * mcu_count
     return out
+
+
+# ---------------------------------------------------------------------------
+# The device Huffman decoders: "indexed" (host index + kernel D) and "device"
+# (kernel E per restart segment, or program F + kernel D without markers).
+# ---------------------------------------------------------------------------
+
+# Device tensors that are built once and kept: decode tables per table set,
+# slot arrays and MCU sequences per scan geometry (least recently used goes
+# first). A fill waits for its upload (_cuda.settled), since the next reader
+# may be another thread on another stream; a hit records the reader's stream,
+# since an entry may be evicted while that stream still reads it.
+_CACHE_SIZE = 16
+_cache: collections.OrderedDict = collections.OrderedDict()
+_cache_lock = threading.Lock()
+
+
+def _cached(key: tuple, device: torch.device, build) -> tuple:
+    """The tuple of tensors on `device` that build() gives as NumPy arrays,
+    uploaded once per (key, device)."""
+    key = (str(device),) + key
+    with _cache_lock:
+        hit = _cache.get(key)
+        if hit is not None:
+            _cache.move_to_end(key)
+    if hit is not None:
+        if device.type == "cuda":
+            current = torch.cuda.current_stream(device)
+            for t in hit:
+                t.record_stream(current)
+        return hit
+    made = tuple(_cuda.settled(torch.as_tensor(a, device=device))
+                 for a in build())
+    with _cache_lock:
+        _cache[key] = made
+        if len(_cache) > _CACHE_SIZE:
+            _cache.popitem(last=False)
+    return made
+
+
+def _scan_slots(mcu_layout: list):
+    """The scan's table keys, DC then AC, and each key's row in its tables."""
+    slots = sorted({(0, dc) for (_, _, dc, _) in mcu_layout}
+                   | {(1, ac) for (_, _, _, ac) in mcu_layout})
+    return slots, {k: i for i, k in enumerate(slots)}
+
+
+def _device_luts(htables: dict, slots: list, device) -> torch.Tensor:
+    """entropy_decode.build_tables for `slots`, on `device`."""
+    key = ("luts",) + tuple(
+        (k, htables[k].size.tobytes(), htables[k].code.tobytes())
+        for k in slots)
+    return _cached(key, device, lambda: (
+        entropy_decode.build_tables(htables, slots),))[0]
+
+
+def _cached_slot_array(bpm_slots: tuple, mcu_count: int, device):
+    """Kernel D's AC table row per block, component-major."""
+    return _cached(("slot", bpm_slots, mcu_count), device, lambda: (
+        np.concatenate([np.full(bpm * mcu_count, s, dtype=np.int32)
+                        for (bpm, s) in bpm_slots]),))[0]
+
+
+def _split_components(rows: torch.Tensor, mcu_layout: list, mcu_count: int):
+    return list(torch.split(
+        rows, [bpm * mcu_count for (_, bpm, _, _) in mcu_layout]))
+
+
+def _guarded_words(data: np.ndarray) -> np.ndarray:
+    """uint8 bytes of a bit stream -> int32 big-endian words with at least
+    _GUARD zero bytes behind them. Bit offsets are int32."""
+    nwords = (len(data) + _GUARD + 3) // 4
+    if nwords > entropy_decode.MAX_WORDS:
+        raise ScanDecodeError(
+            f"scan of {len(data)} bytes is too long for int32 bit offsets")
+    buf = np.zeros(nwords * 4, dtype=np.uint8)
+    buf[: len(data)] = data
+    return entropy_decode.words_from_bytes(buf)
+
+
+def unstuffed_segments(scan: bytes):
+    """The scan split at its RSTn markers with the byte stuffing removed, as
+    decode_np.split_restart_segments and decode_np.unstuff give it segment by
+    segment, but in a few array operations over the whole scan and with the
+    segments left one after another, so that a stream with thousands of
+    short segments costs the host no more than one with none. Returns (words
+    (W,) int32: the segments' bytes as one stream of big-endian words with
+    the zero guard behind; seg_off (S,) int32: each segment's first byte in
+    that stream; lens (S,) int64: each segment's length in bytes)."""
+    buf = np.frombuffer(scan, dtype=np.uint8)
+    n = len(buf)
+    flat, lens = buf, np.array([n], dtype=np.int64)
+    if n >= 2:
+        ff = np.flatnonzero(buf[:-1] == 0xFF)  # few: one byte in 256 or so
+        after = buf[ff + 1]
+        stuffed = ff[after == 0x00] + 1
+        markers = ff[(after & 0xF8) == 0xD0]  # RST0 .. RST7
+        keep = np.ones(n, dtype=bool)
+        keep[stuffed] = False
+        keep[markers] = False
+        keep[markers + 1] = False
+        flat = buf[keep]
+        first = np.concatenate([[0], markers + 2])
+        end = np.concatenate([markers, [n]])
+        lens = (end - first - (np.searchsorted(stuffed, end)
+                               - np.searchsorted(stuffed, first))).astype(
+                                   np.int64)
+    return (_guarded_words(flat), (np.cumsum(lens) - lens).astype(np.int32),
+            lens)
+
+
+def decode_scan_indexed(
+    scan: bytes,
+    mcu_count: int,
+    mcu_layout: list,
+    htables: dict,
+    restart_interval: int,
+    device="cuda",
+):
+    """Hybrid backend: the contract of native.decode_scan, but the
+    per-component blocks are tensors on `device`. The native runtime walks
+    the scan once on the host (native.index_scan, threaded across restart
+    segments); the scan's words, the AC offsets and the DCs go up as ONE
+    int32 tensor; kernel D decodes every block's AC coefficients."""
+    device = torch.device(device)
+    destuffed, ac_off, dc = native.index_scan(
+        scan, mcu_count, mcu_layout, htables, restart_interval
+    )
+    slots, slot_of = _scan_slots(mcu_layout)
+    tables = _device_luts(htables, slots, device)
+    slot_dev = _cached_slot_array(
+        tuple((bpm, slot_of[(1, ac)]) for (_, bpm, _, ac) in mcu_layout),
+        mcu_count, device)
+
+    words = _guarded_words(destuffed)
+    nwords, nblocks = len(words), ac_off.shape[0]
+    dev = torch.from_numpy(np.concatenate([words, ac_off, dc])).to(device)
+    rows = entropy_decode.decode_ac_indexed(
+        dev[:nwords], dev[nwords:nwords + nblocks], dev[nwords + nblocks:],
+        slot_dev, tables)
+    return _split_components(rows, mcu_layout, mcu_count)
+
+
+def decode_scan_prefix(
+    scan: bytes,
+    mcu_count: int,
+    mcu_layout: list,
+    htables: dict,
+    device="cuda",
+):
+    """Restart-free decode on the device: program F finds every block's AC
+    offset and DC difference, a cumulative sum per component gives the DCs,
+    kernel D decodes the blocks. Same output contract as
+    decode_scan_indexed."""
+    unstuffed = decode_np.unstuff(scan)
+    return _decode_prefix(_guarded_words(unstuffed), len(unstuffed) * 8,
+                          mcu_count, mcu_layout, htables, torch.device(device))
+
+
+def _decode_prefix(host_words: np.ndarray, true_bits: int, mcu_count: int,
+                   mcu_layout: list, htables: dict, device: torch.device):
+    """decode_scan_prefix on the unstuffed scan's words."""
+    # Program F's working memory goes by the words it is given (4 bytes per
+    # bit position for each table class and two jump tables), so it is given
+    # no more than these blocks can span: a walk that raises no flag ends
+    # inside them, and what a file carries behind them is never read.
+    keep = (mcu_count * sum(bpm for (_, bpm, _, _) in mcu_layout)
+            * MAX_BLOCK_BITS + 31) // 32
+    if keep + _GUARD // 4 < len(host_words):
+        host_words = np.concatenate(
+            [host_words[:keep], np.zeros(_GUARD // 4, dtype=np.int32)])
+        true_bits = min(true_bits, keep * 32)
+    slots, slot_of = _scan_slots(mcu_layout)
+    pairs = [(slot_of[(0, dc)], slot_of[(1, ac)])
+             for (_, bpm, dc, ac) in mcu_layout for _ in range(bpm)]
+    classes = sorted(set(pairs))
+    seq, cls = _cached(("prefix", tuple(pairs)), device, lambda: (
+        np.array([(d, a, classes.index((d, a))) for d, a in pairs],
+                 dtype=np.int32),
+        np.array(classes, dtype=np.int32)))
+    tables = _device_luts(htables, slots, device)
+    slot_dev = _cached_slot_array(
+        tuple((bpm, slot_of[(1, ac)]) for (_, bpm, _, ac) in mcu_layout),
+        mcu_count, device)
+
+    words = torch.from_numpy(host_words).to(device)
+    ac_off, diff, status = entropy_decode.prefix_index(
+        words, mcu_count, seq, cls, tables)
+    # Component-major order (kernel D's and native.decode_scan's): all blocks
+    # of component 0 in scan order, then component 1, ...
+    off_parts, dc_parts, base = [], [], 0
+    for (_comp, bpm, _dc, _ac) in mcu_layout:
+        off_parts.append(ac_off[:, base:base + bpm].reshape(-1))
+        dc_parts.append(torch.cumsum(
+            diff[:, base:base + bpm].reshape(-1), dim=0).to(torch.int32))
+        base += bpm
+    # Kernel D is enqueued before the flags come back: on a corrupt stream it
+    # reads clamped garbage and its rows are dropped below.
+    rows = entropy_decode.decode_ac_indexed(
+        words, torch.cat(off_parts), torch.cat(dc_parts), slot_dev, tables)
+    end_pos, err = status.cpu().tolist()
+    if err:
+        raise ScanDecodeError("invalid Huffman code (device prefix index)")
+    if end_pos > true_bits:
+        raise ScanDecodeError("bit cursor ran past segment end")
+    return _split_components(rows, mcu_layout, mcu_count)
+
+
+def decode_scan(
+    scan: bytes,
+    mcu_count: int,
+    mcu_layout: list,
+    htables: dict,
+    restart_interval: int,
+    device="cuda",
+):
+    """Device twin of decode_np.decode_scan (same contract, tables not LUTs,
+    tensors on `device`): the host splits the scan at its restart markers and
+    removes the byte stuffing (unstuffed_segments); the Huffman walk runs on
+    the device.
+
+    A stream with restart markers takes kernel E, one thread per segment; one
+    without (and more than one MCU) takes the parallel prefix index
+    (decode_scan_prefix). Only the segments' end positions and error flags
+    come back to the host."""
+    device = torch.device(device)
+    host_words, seg_off, seg_bytes = unstuffed_segments(scan)
+    r = restart_interval if restart_interval else mcu_count
+    expected = (mcu_count + r - 1) // r
+    if len(seg_bytes) != expected:
+        raise ScanDecodeError(
+            f"expected {expected} restart segments, found {len(seg_bytes)}"
+        )
+    # A block is at least a DC code and an EOB, two bits: a header that
+    # claims more blocks than the scan can hold is refused here, before
+    # their rows are allocated on the device.
+    nblocks = mcu_count * sum(bpm for (_, bpm, _, _) in mcu_layout)
+    if 2 * nblocks > 8 * int(seg_bytes.sum()):
+        raise ScanDecodeError("bit cursor ran past segment end")
+    if expected == 1 and mcu_count > 1:
+        return _decode_prefix(host_words, int(seg_bytes[0]) * 8, mcu_count,
+                              mcu_layout, htables, device)
+
+    slots, slot_of = _scan_slots(mcu_layout)
+    tables = _device_luts(htables, slots, device)
+    layout_key = tuple((bpm, slot_of[(0, dc)], slot_of[(1, ac)])
+                       for (_, bpm, dc, ac) in mcu_layout)
+
+    def sequence():
+        out, base = [], 0
+        for ci, (bpm, dc_slot, ac_slot) in enumerate(layout_key):
+            out += [(ci, dc_slot, ac_slot, base + occ, bpm)
+                    for occ in range(bpm)]
+            base += bpm * mcu_count
+        return (np.array(out, dtype=np.int32),)
+
+    seq = _cached(("segments", layout_key, mcu_count), device, sequence)[0]
+
+    # The words and the segments' offsets go up as one tensor.
+    nwords = len(host_words)
+    dev = torch.from_numpy(np.concatenate([host_words, seg_off])).to(device)
+    rows, status = entropy_decode.decode_segments(
+        dev[:nwords], dev[nwords:], r, mcu_count, seq, tables, nblocks)
+    end_pos, err = status.cpu().numpy()
+    if err.any():
+        raise ScanDecodeError(
+            f"invalid Huffman code in segment(s) {np.nonzero(err)[0].tolist()}"
+        )
+    if (end_pos.astype(np.int64) > seg_bytes * 8).any():
+        raise ScanDecodeError("bit cursor ran past segment end")
+    return _split_components(rows, mcu_layout, mcu_count)

@@ -3,6 +3,9 @@
   host: JFIF parse, Huffman scan decode (native C++ or NumPy walkers; for
   baseline single-scan streams the sparse walk, which yields only the
   nonzero coefficients) -> one upload -> device: densify (sparse payloads),
+  or the Huffman decode itself (entropy="indexed": kernel D after a host
+  index pass; entropy="device": kernel E per restart segment, or program F +
+  kernel D; ops/entropy_decode), then
   scan -> raster block order, de-zigzag, dequant + IDCT + unshift (kernel B,
   ops/fused; the DCT-domain scaled IDCT for scale_denom 2/4/8), round and
   clip, chroma upsample, YCbCr -> RGB, round and clip to uint8 -> crop.
@@ -12,8 +15,7 @@ Sequential (SOF0/SOF1) and progressive (SOF2) Huffman modes, 8-bit, 1, 3 or
 sampling factors 1-4 with integer upsampling ratios, interleaved or
 non-interleaved multi-scan, any Huffman table ids: everything
 jpeg_tpu.decode takes, and decode_batched for K homogeneous baseline
-streams. Not ported: the device entropy decoders (entropy="device" /
-"indexed", ROADMAP.md Queue 1 item 8).
+streams.
 
 Full-size planes (k = 8) always run kernel B on a CUDA device and its plain
 twin on the CPU; there is no use_pallas switch.
@@ -321,18 +323,35 @@ def _progressive_backend(entropy: str) -> str:
     return "auto"
 
 
-def _auto_takes_sparse(device: torch.device) -> bool:
-    """Whether entropy="auto" takes the sparse backend for a baseline
-    single-scan stream on `device` (when the native runtime fits the
-    layout): on a card, not on the CPU, where densify would only add work
-    to the native dense walk.
+def _auto_backend(device: torch.device) -> str:
+    """What entropy="auto" takes for a baseline single-scan stream on
+    `device`: "device" or "host" (the native dense walker, or the NumPy one
+    where the table ids do not fit it).
 
-    Decided by measurement (chip_smoke.py phase 8, 3840x2160 q75 4:2:0,
-    NVIDIA H100 80GB HBM3 at 700 W, medians of 7 end to end): sparse
-    46.2 ms against 74.7 ms for the native walk with the dense upload. The
-    sparse walk + pack is shorter than the dense walk (37.7 against 55.0 ms)
-    and 1.3 MB go up instead of 50 MB (0.5 against 12.5 ms)."""
-    return device.type != "cpu"
+    On the CPU the host walkers: densify, or a twin of a device decoder,
+    would only add work to the native dense walk. On a card the device
+    Huffman decoders, by measurement (chip_smoke.py phase 8, 3840x2160 q75
+    4:2:0, NVIDIA H100 80GB HBM3 at 700 W, the backends in turns in one
+    call, medians of 7; three calls on three machines, the second with a
+    slower form of the host split that has since been replaced): "device"
+    12.750 / 31.076 / 8.205 ms end to end against 42.053 / 47.520 / 34.871
+    ms "sparse" and 28.462 / 30.242 / 22.304 ms "indexed" (the native walk
+    with the dense upload: 45.4-62.2 ms); per image in decode_stream at depth
+    4 13.314 / 22.166 / 11.970 against 20.213 / 24.087 / 14.719 "sparse" and
+    11.744 / 19.362 / 9.575 "indexed". On the same image with a restart
+    interval of one MCU row (135 segments) 14.501 / 30.787 / 10.718 ms
+    against 24.882 / 27.396 / 21.054 "sparse". The host has only the
+    unstuffing left (1.1-1.6 ms against a 26.5-30.3 ms sparse walk).
+
+    The times above are of segments of 1,440 blocks or none. Kernel E walks
+    a segment in one thread, about 1 us per block of a segment whatever
+    their number (1.50-1.57 ms for segments of 1,440 blocks, 5.84-6.10 ms
+    for 5,760), and program F's working memory is 128 bytes per scan byte
+    with two table classes (82 MB for the 0.64 MB 4K scan), bounded by what
+    the scan's blocks can span (decode_device.MAX_BLOCK_BITS). No stream
+    has been measured on which "sparse" wins on a card, so none is sent
+    there."""
+    return "host" if device.type == "cpu" else "device"
 
 
 def _native_ok(mcu_layout: list) -> bool:
@@ -352,6 +371,36 @@ def _check_tables(htables: dict, mcu_layout: list) -> None:
                     f"scan references undefined Huffman table "
                     f"{'AC' if key[0] else 'DC'} {key[1]}"
                 )
+
+
+def _check_qtables(info: jfif.FrameInfo) -> None:
+    for c in info.components:
+        if c.qtab_id not in info.qtables:
+            raise jfif.JpegFormatError(
+                f"component {c.comp_id} references undefined quantization "
+                f"table {c.qtab_id}"
+            )
+
+
+DEVICE_ENTROPY = ("device", "indexed")
+
+
+def _decode_scan_device(info: jfif.FrameInfo, n_mcu: int, mcu_layout: list,
+                        entropy: str, device: torch.device):
+    """Entropy-decode one baseline scan with a device Huffman decoder:
+    per-component (N, 64) int32 tensors on `device`, in scan order.
+    "device" takes any table ids; "indexed" needs the native runtime's
+    layout for its host index pass."""
+    _check_tables(info.htables, mcu_layout)
+    args = (info.scan_data, n_mcu, mcu_layout, info.htables,
+            info.restart_interval, device)
+    if entropy == "device":
+        return decode_device.decode_scan(*args)
+    if not _native_ok(mcu_layout):
+        raise jfif.JpegFormatError(
+            f"{entropy} entropy backend unavailable for this scan layout"
+        )
+    return decode_device.decode_scan_indexed(*args)
 
 
 def _decode_scan_host(info: jfif.FrameInfo, n_mcu: int, mcu_layout: list,
@@ -377,11 +426,12 @@ def _decode_scan_host(info: jfif.FrameInfo, n_mcu: int, mcu_layout: list,
 
 
 def _decode_noninterleaved(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
-                           entropy: str = "auto"):
+                           entropy: str = "auto", device=None):
     """Multi-scan baseline: one component per scan, MCU = one block (A.2.2).
 
     Returns per-component (N, 64) zig-zag blocks in plane raster order, padded
-    to the interleaved MCU grid the finish expects.
+    to the interleaved MCU grid the finish expects: host arrays, or, from the
+    device Huffman decoders, tensors on `device` padded there.
     """
     comps = info.components
     hmax = max(c.h for c in comps)
@@ -405,11 +455,18 @@ def _decode_noninterleaved(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
             qtables=info.qtables, htables=scan.htables,
             restart_interval=scan.restart_interval, scan_data=scan.data,
         )
-        blocks = _decode_scan_host(sub_info, bh * bw, [(0, 1, dc_id, ac_id)],
-                                   entropy)[0]
+        scan_layout = [(0, 1, dc_id, ac_id)]
         # Pad the raster grid up to the interleaved-MCU geometry.
         gh, gw = mcu_rows * c.v, mcu_cols * c.h
-        grid = np.zeros((gh, gw, 64), dtype=blocks.dtype)
+        if entropy in DEVICE_ENTROPY:
+            blocks = _decode_scan_device(sub_info, bh * bw, scan_layout,
+                                         entropy, device)[0]
+            grid = torch.zeros((gh, gw, 64), dtype=blocks.dtype,
+                               device=blocks.device)
+        else:
+            blocks = _decode_scan_host(sub_info, bh * bw, scan_layout,
+                                       entropy)[0]
+            grid = np.zeros((gh, gw, 64), dtype=blocks.dtype)
         grid[:bh, :bw] = blocks.reshape(bh, bw, 64)
         out[ci] = grid.reshape(gh * gw, 64)
 
@@ -426,9 +483,11 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
     """Entropy-decode every scan and bring the coefficients to `device`:
     per-component (N, 64) int32 zig-zag tensors in plane raster order.
 
-    Baseline single-scan streams whose table ids fit the native runtime take
-    the sparse walk ("sparse", or "auto" on a card): one payload upload,
-    densify on the device. Every other case decodes to dense host grids
+    "indexed" and "device" run the Huffman decode of every baseline scan on
+    the device (_decode_scan_device), and "auto" on a card takes "device"
+    for a single-scan stream (_auto_backend). "sparse" takes the sparse
+    walk: one payload upload, densify on the device. Progressive streams take the host walkers whatever
+    `entropy` says. Every other case decodes to dense host grids
     (progressive and multi-scan walkers give them in raster order already),
     which go up as they are. (The reference re-encodes them as the sparse
     payload first; on this card that costs more than the dense upload, see
@@ -454,11 +513,15 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
             ]
             raster = [(mcu_rows, mcu_cols, c.v, c.h) if c.h * c.v > 1
                       else None for c in comps]
-        ok = _native_ok(mcu_layout)
-        if entropy == "sparse" or (
-                entropy == "auto" and ok and _auto_takes_sparse(device)):
+        backend = entropy
+        if entropy == "auto":
+            backend = _auto_backend(device)
+        if backend in DEVICE_ENTROPY:
+            host = _decode_scan_device(info, n_mcu, mcu_layout, backend,
+                                       device)
+        elif backend == "sparse":
             _check_tables(info.htables, mcu_layout)
-            if not ok:
+            if not _native_ok(mcu_layout):
                 raise jfif.JpegFormatError(
                     f"{entropy} entropy backend unavailable for this scan "
                     "layout")
@@ -468,7 +531,8 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
         else:
             host = _decode_scan_host(info, n_mcu, mcu_layout, entropy)
     else:
-        host = _decode_noninterleaved(info, mcu_rows, mcu_cols, entropy)
+        host = _decode_noninterleaved(info, mcu_rows, mcu_cols, entropy,
+                                      device)
 
     if payload is not None:
         words, B, Sp, Ep, Edp = payload
@@ -478,8 +542,9 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
             len(comps) > 1) else [B]
         zz = list(torch.split(rows, sizes))
     else:
-        zz = [torch.as_tensor(np.ascontiguousarray(z, dtype=np.int32),
-                              device=device) for z in host]
+        zz = [z if isinstance(z, torch.Tensor) else torch.as_tensor(
+            np.ascontiguousarray(z, dtype=np.int32), device=device)
+            for z in host]
     return [layout.scan_to_raster(z, *geo) if geo is not None else z
             for z, geo in zip(zz, raster)]
 
@@ -508,23 +573,25 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
     bit-exactly on the host; for 4:2:0 the planes are half the download.
     device_output: return the pixels as a torch.Tensor on `device` (and
     device planes inside YCbCrPlanes) instead of downloading them.
-    entropy: Huffman scan decode backend: "auto" (on a card the sparse
-    backend when the table ids fit the native runtime; on the CPU the native
-    dense walker; the NumPy walker when the native one does not fit),
+    entropy: Huffman scan decode backend: "auto" (on a card the device
+    Huffman decoders for a baseline single-scan stream, see _auto_backend;
+    on the CPU the native dense walker; the NumPy walker when the native
+    one does not fit),
     "native", "numpy", or "sparse" (host sparse-coefficient walk + device
-    densify). All give the same coefficients. "device" and "indexed" (the
-    reference's device Huffman decoders) are not ported yet and raise
-    NotImplementedError (ROADMAP.md Queue 1 item 8)."""
+    densify), "indexed" (host index pass: destuff, and per block its bit
+    offset and DC; then kernel D decodes every block's AC coefficients on
+    the device; needs table ids that fit the native runtime) or "device"
+    (the host only splits at restart markers and unstuffs; kernel E walks
+    the segments, or, without markers, program F finds the block starts and
+    kernel D decodes; any table ids). All give the same coefficients.
+    Progressive streams have host walkers only: "numpy" and "native" select
+    one, every other name takes the best."""
     if entropy not in ENTROPY_BACKENDS:
         raise ValueError(f"unknown entropy backend {entropy!r}")
     if output not in ("rgb", "ycbcr"):
         raise ValueError(f"unknown output {output!r}")
     if scale_denom not in (1, 2, 4, 8):
         raise ValueError(f"scale_denom must be 1, 2, 4 or 8, got {scale_denom}")
-    if entropy in ("device", "indexed"):
-        raise NotImplementedError(
-            f"entropy={entropy!r}: the device Huffman decoders are not "
-            "ported yet (ROADMAP.md Queue 1 item 8)")
     k = 8 // scale_denom
     device = torch.device(device)
     info = jfif.parse_jpeg(data)
@@ -532,6 +599,7 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         raise jfif.JpegFormatError(
             f"frame {info.width}x{info.height} exceeds max_pixels={max_pixels}"
         )
+    _check_qtables(info)
     comps = info.components
     if output == "ycbcr" and len(comps) != 3:
         raise ValueError(
@@ -665,6 +733,8 @@ def decode_batched(datas, fancy_upsample: bool = True,
     k = 8 // scale_denom
     device = torch.device(device)
     infos = [jfif.parse_jpeg(d) for d in datas]
+    for info in infos:
+        _check_qtables(info)
     i0 = infos[0]
     comps = i0.components
     if len(comps) != 3:

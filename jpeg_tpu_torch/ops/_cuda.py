@@ -49,7 +49,11 @@ def _build(name: str, src: pathlib.Path, lib_path: pathlib.Path,
            flags=()) -> None:
     with open(_BUILD_DIR / f"{name}.lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
-        if lib_path.exists() and lib_path.stat().st_mtime >= src.stat().st_mtime:
+        # A source includes the headers beside it (csrc/*.cuh next to the
+        # package's kernels): an edit to any of them rebuilds it too.
+        newest = max(p.stat().st_mtime
+                     for p in (src, *src.parent.glob("*.cuh")))
+        if lib_path.exists() and lib_path.stat().st_mtime >= newest:
             return
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]

@@ -1,0 +1,548 @@
+"""The device Huffman decoders' kernels: wrappers, plain twins, counters.
+
+Three programs of jpeg_tpu/entropy/decode_device.py (jitted XLA there, not
+Pallas) as hand-written CUDA kernels:
+  - kernel D, csrc/ac_indexed.cu, for `_decode_ac_indexed` (:179): the AC
+    coefficients of every block from its known start (decode_ac_indexed);
+  - kernel E, csrc/segment_walk.cu, for `_decode_block` under `_jit_segments`
+    (:71, :117): one sequential walk per restart segment (decode_segments);
+  - program F, csrc/prefix_index.cu, for `_jit_prefix_index` (:866): every
+    block's start in a scan without restart markers (prefix_index; several
+    launches, one row).
+On a CUDA tensor a wrapper launches its kernel, on a CPU tensor it runs the
+plain twin, and nothing else decides. The twins are second formulations: D's
+steps all blocks together in torch ops until the slowest is done, E's is a
+NumPy/Python walk like entropy/decode_np's, F's is the reference's table
+program (one symbol per bit position, pointer doubling) in torch indexing.
+All results are integers and a kernel equals its twin exactly.
+
+Bit streams are big-endian 32-bit words carried as int32 (torch has no uint32
+arithmetic); tables are build_tables' rows, which csrc/huff_decode.cuh
+describes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from jpeg_tpu_torch.entropy import decode_np
+from jpeg_tpu_torch.ops import _cuda
+
+# Launches since the last reset (plus one per wrapper call that launches its
+# kernel, nowhere else). F counts once per prefix_index call; its separate
+# launches (block ends, MCU hop, one per doubling level, replay) add up in
+# PREFIX_STAGE_LAUNCHES.
+AC_LAUNCHES = 0
+SEGMENT_LAUNCHES = 0
+PREFIX_LAUNCHES = 0
+PREFIX_STAGE_LAUNCHES = 0
+# Worker threads launch too (parallel/pipeline), so the increments hold a lock.
+_COUNT_LOCK = threading.Lock()
+
+FULL_SIZE = 1 << 16
+FIRST_BITS = 9
+FIRST_SIZE = 1 << FIRST_BITS
+SLOT_STRIDE = FULL_SIZE + FIRST_SIZE
+MAX_SLOTS = 8
+SEQ_FIELDS = 5  # kernel E: comp, dc slot, ac slot, row base, rows per MCU
+# Bit offsets are int32: a stream of 2^26 words or more is refused.
+MAX_WORDS = (1 << 26) - 1
+_M32 = 0xFFFFFFFF
+
+
+def build_tables(htables: dict, slots) -> np.ndarray:
+    """(len(slots), SLOT_STRIDE) int32 decode tables for the (is_ac, id) keys
+    in `slots`: per 16-bit window (length << 16) | (symbol & 0xFFFF), windows
+    that start no code as length 16 / symbol -1; then the first level by the
+    top FIRST_BITS bits (0 where the code is longer)."""
+    out = np.empty((len(slots), SLOT_STRIDE), dtype=np.int32)
+    for i, key in enumerate(slots):
+        s, l = decode_np.make_decode_lut(htables[key])
+        assigned = s >= 0
+        sym = np.where(assigned, s, -1).astype(np.int32)
+        ln = np.where(assigned, l, 16).astype(np.int32)
+        full = (ln << 16) | (sym & 0xFFFF)
+        step = 1 << (16 - FIRST_BITS)
+        out[i, :FULL_SIZE] = full
+        out[i, FULL_SIZE:] = np.where(ln[::step] <= FIRST_BITS, full[::step], 0)
+    return out
+
+
+def words_from_bytes(buf: np.ndarray) -> np.ndarray:
+    """uint8 (..., 4n) -> int32 (..., n): big-endian words' bit patterns."""
+    return np.ascontiguousarray(buf).view(">u4").astype(np.uint32).view(np.int32)
+
+
+def _sym_len(entries: torch.Tensor):
+    """Table entries (int64) -> (symbol with -1 for none, code length)."""
+    return ((entries & 0xFFFF) ^ 0x8000) - 0x8000, entries >> 16
+
+
+def _extend(amp: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """T.81 F.2.2.1 EXTEND as arithmetic; size 0 gives 0."""
+    one = torch.ones_like(size)
+    half = one << (size.clamp(min=1) - 1)
+    return torch.where(size == 0, 0, torch.where(amp < half,
+                                                 amp - (one << size) + 1, amp))
+
+
+def _check(name: str, dev, **tensors) -> None:
+    for key, t in tensors.items():
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(
+                f"{name}: {key} must be a contiguous int32 tensor on {dev}, "
+                f"got {t.dtype} on {t.device}")
+
+
+def _check_tables(name: str, tables: torch.Tensor) -> None:
+    if tables.ndim != 2 or tables.shape[1] != SLOT_STRIDE or not (
+            1 <= tables.shape[0] <= MAX_SLOTS):
+        raise ValueError(
+            f"{name}: tables must be (1..{MAX_SLOTS}, {SLOT_STRIDE}), got "
+            f"{tuple(tables.shape)}")
+
+
+def _check_words(name: str, nwords: int) -> None:
+    if not 1 <= nwords <= MAX_WORDS:
+        raise ValueError(
+            f"{name}: {nwords} words; int32 bit offsets take 1 to {MAX_WORDS}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _call(name: str, fn, dev, *args) -> None:
+    """One C entry on PyTorch's current stream of `dev`. A CPU device takes
+    the host build of the kernels' bodies that the tests pass as `lib`."""
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            err = fn(*args, _cuda.stream_handle(dev))
+    else:
+        err = fn(*args, None)
+    _cuda.check(name, err)
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: AC decode at known block starts.
+# ---------------------------------------------------------------------------
+
+
+def decode_ac_indexed_reference(words, off, dc, slot, tables) -> torch.Tensor:
+    """Plain twin of decode_ac_indexed (any device): all blocks step one
+    symbol at a time together until every one has ended."""
+    dev = words.device
+    w = words.to(torch.int64) & _M32
+    nw = w.shape[0]
+    full = tables[:, :FULL_SIZE].to(torch.int64)
+    nblocks = off.shape[0]
+    rows = torch.zeros((nblocks, 64), dtype=torch.int32, device=dev)
+    rows[:, 0] = dc
+    if nblocks == 0:
+        return rows
+    sl = slot.to(torch.int64).clamp(0, tables.shape[0] - 1)
+    pos = off.to(torch.int64)
+    k = torch.ones_like(pos)
+    blk = torch.arange(nblocks, device=dev)
+    active = k < 64
+    while bool(active.any()):
+        wi = pos >> 5
+        w0 = torch.where((wi >= 0) & (wi < nw), w[wi.clamp(0, nw - 1)], 0)
+        w1 = torch.where((wi >= -1) & (wi + 1 < nw),
+                         w[(wi + 1).clamp(0, nw - 1)], 0)
+        sh = pos & 31
+        win = ((w0 << sh) & _M32) | (w1 >> (32 - sh))
+        sym, ln = _sym_len(full[sl, win >> 16])
+        sym = sym.clamp(min=0)  # a window that starts no code ends the block
+        run, size = sym >> 4, sym & 15
+        amp = (win >> (32 - ln - size)) & ((torch.ones_like(size) << size) - 1)
+        eob, zrl = sym == 0, sym == 0xF0
+        kw = k + run
+        emit = active & ~eob & ~zrl & (kw <= 63)
+        rows[blk[emit], kw[emit]] = _extend(amp, size)[emit].to(torch.int32)
+        pos = torch.where(active & ~eob, pos + ln + size, pos)
+        k = torch.where(active, torch.where(
+            eob, 64, torch.where(zrl, k + 16, kw + 1)), k)
+        active = k < 64
+    return rows
+
+
+def _launch_ac_indexed(words, off, dc, slot, tables, rows, lib=None) -> None:
+    """Enqueue kernel D on PyTorch's current stream: prepared contiguous
+    int32 tensors, no checks and no allocation. Counts the launch."""
+    global AC_LAUNCHES
+    lib = lib or _cuda.load("ac_indexed")
+    _call("ac_indexed", lib.jt_ac_indexed, words.device, _ptr(words),
+          ctypes.c_int(words.numel()), _ptr(off), _ptr(dc), _ptr(slot),
+          _ptr(tables), ctypes.c_int(tables.shape[0]), _ptr(rows),
+          ctypes.c_long(off.shape[0]))
+    with _COUNT_LOCK:
+        AC_LAUNCHES += 1
+
+
+def decode_ac_indexed(words, off, dc, slot, tables) -> torch.Tensor:
+    """The destuffed scan as (W,) big-endian words, per block (any order) the
+    bit offset `off` just past its DC code, its absolute `dc` and its AC
+    table's row `slot` in `tables` (build_tables), all int32 tensors on one
+    device -> (B, 64) int32 zig-zag rows with row[0] = dc.
+
+    Each block walks its (run, size) symbols from k = 1 until EOB, k >= 64 or
+    a window that starts no code. CUDA tensors launch kernel D
+    (csrc/ac_indexed.cu); CPU tensors run the plain twin."""
+    dev = words.device
+    if dev.type == "cpu":
+        return decode_ac_indexed_reference(words, off, dc, slot, tables)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_ac_indexed: unsupported device {dev}")
+    _check("decode_ac_indexed", dev, words=words, off=off, dc=dc, slot=slot,
+           tables=tables)
+    _check_tables("decode_ac_indexed", tables)
+    nblocks = off.shape[0]
+    if words.ndim != 1 or off.ndim != 1 or dc.shape != off.shape or (
+            slot.shape != off.shape):
+        raise ValueError(
+            f"decode_ac_indexed: words {tuple(words.shape)}, off "
+            f"{tuple(off.shape)}, dc {tuple(dc.shape)}, slot "
+            f"{tuple(slot.shape)}")
+    _check_words("decode_ac_indexed", words.numel())
+    rows = torch.empty((nblocks, 64), dtype=torch.int32, device=dev)
+    if nblocks:
+        _launch_ac_indexed(words, off, dc, slot, tables, rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: one sequential walk per restart segment.
+# ---------------------------------------------------------------------------
+
+
+def decode_segments_reference(words, seg_off, interval: int, mcu_count: int,
+                              seq, tables, nblocks: int):
+    """Plain twin of decode_segments: a Python walk over each segment's
+    bits, on the host whatever the tensors' device."""
+    dev = words.device
+    data = words.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    data += bytes(8)
+    starts = (seg_off.cpu().numpy().astype(np.int64) * 8).tolist()
+    nseg, nwords = len(starts), words.numel()
+    full = tables[:, :FULL_SIZE].cpu().numpy()
+    syms = (full & 0xFFFF).astype(np.uint16).view(np.int16).astype(np.int32)
+    lens = full >> 16
+    layout = seq.cpu().numpy().tolist()
+    rows = np.zeros((nblocks, 64), dtype=np.int32)
+    status = np.zeros((2, nseg), dtype=np.int32)
+    limit, nbytes = nwords * 32, nwords * 4
+
+    def extend(amp, size):
+        if size == 0:
+            return 0
+        return amp - (1 << size) + 1 if amp < (1 << (size - 1)) else amp
+
+    def window(pos):
+        i = pos >> 3
+        if i >= nbytes:
+            return 0
+        v = int.from_bytes(data[i:i + 5], "big")
+        return (v >> (8 - (pos & 7))) & _M32
+
+    for s in range(nseg):
+        first_mcu = s * interval
+        pos, err = min(starts[s], limit), 0
+        preds = [0] * 4
+        for m in range(max(0, min(interval, mcu_count - first_mcu))):
+            for comp, dc_slot, ac_slot, base, per_mcu in layout:
+                row = rows[base + (first_mcu + m) * per_mcu]
+                win = window(pos)
+                sym = int(syms[dc_slot, win >> 16])
+                ln = int(lens[dc_slot, win >> 16])
+                if sym < 0:
+                    err = 1
+                size = min(max(sym, 0), 15)
+                amp = (win << ln & _M32) >> (32 - size) if size else 0
+                preds[comp & 3] += extend(amp, size)
+                pos = min(pos + ln + size, limit)
+                row[0] = preds[comp & 3]
+                k = 1
+                while k < 64:
+                    win = window(pos)
+                    sym = int(syms[ac_slot, win >> 16])
+                    ln = int(lens[ac_slot, win >> 16])
+                    if sym < 0:
+                        err, sym = 1, 0
+                    size = sym & 15
+                    pos = min(pos + ln + size, limit)
+                    if sym == 0:
+                        break
+                    if sym == 0xF0:
+                        k += 16
+                        continue
+                    k += sym >> 4
+                    if k > 63:
+                        err = 1
+                    else:
+                        amp = (win << ln & _M32) >> (32 - size) if size else 0
+                        row[k] = extend(amp, size)
+                    k += 1
+        status[:, s] = (pos - starts[s], err)
+    return (torch.as_tensor(rows, device=dev),
+            torch.as_tensor(status, device=dev))
+
+
+def _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
+                     status, lib=None) -> None:
+    """Enqueue kernel E on PyTorch's current stream: prepared contiguous
+    int32 tensors (rows zeroed), no checks and no allocation. Counts the
+    launch."""
+    global SEGMENT_LAUNCHES
+    lib = lib or _cuda.load("segment_walk")
+    _call("segment_walk", lib.jt_segment_walk, words.device, _ptr(words),
+          ctypes.c_int(words.numel()), _ptr(seg_off),
+          ctypes.c_int(seg_off.numel()), ctypes.c_long(interval), ctypes.c_long(mcu_count), _ptr(seq),
+          ctypes.c_int(seq.shape[0]), _ptr(tables),
+          ctypes.c_int(tables.shape[0]), _ptr(rows), _ptr(status))
+    with _COUNT_LOCK:
+        SEGMENT_LAUNCHES += 1
+
+
+def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
+                    tables, nblocks: int):
+    """words: (W,) int32, the unstuffed restart segments one after another
+    as big-endian words, with a zero guard behind; seg_off: (S,) int32, each
+    segment's first byte in that stream. Segment s holds MCUs
+    [s * interval, min((s + 1) * interval, mcu_count)). seq: (blocks per
+    MCU, SEQ_FIELDS) int32, per block of the MCU its component, its DC and
+    AC rows in `tables`, and where its rows go: row base + MCU index * rows
+    per MCU. -> (rows (nblocks, 64) int32 with the DC predictors undone per
+    component from 0 at every segment start, status (2, S) int32: each
+    segment's length in bits as walked, then its error flag).
+
+    CUDA tensors launch kernel E (csrc/segment_walk.cu); CPU tensors run
+    the plain twin."""
+    dev = words.device
+    if dev.type == "cpu":
+        return decode_segments_reference(words, seg_off, interval, mcu_count,
+                                         seq, tables, nblocks)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_segments: unsupported device {dev}")
+    _check("decode_segments", dev, words=words, seg_off=seg_off, seq=seq,
+           tables=tables)
+    _check_tables("decode_segments", tables)
+    if words.ndim != 1 or seg_off.ndim != 1 or seq.ndim != 2 or (
+            seq.shape[1] != SEQ_FIELDS):
+        raise ValueError(
+            f"decode_segments: words {tuple(words.shape)}, seg_off "
+            f"{tuple(seg_off.shape)}, seq {tuple(seq.shape)}")
+    nseg = seg_off.shape[0]
+    if interval < 1 or nseg < 1 or (nseg - 1) * interval >= max(mcu_count, 1):
+        raise ValueError(
+            f"decode_segments: {nseg} segments of {interval} MCUs for "
+            f"{mcu_count} MCUs")
+    _check_words("decode_segments", words.numel())
+    rows = torch.zeros((nblocks, 64), dtype=torch.int32, device=dev)
+    status = torch.empty((2, nseg), dtype=torch.int32, device=dev)
+    _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
+                     status)
+    return rows, status
+
+
+# ---------------------------------------------------------------------------
+# Program F: block starts of a scan without restart markers.
+# ---------------------------------------------------------------------------
+
+
+def prefix_index_reference(words, n_mcu: int, seq, classes, tables):
+    """Plain twin of prefix_index (any device): the reference's table
+    program. For every bit position the step of one AC symbol, pointer-doubled
+    over six levels; a binary descent to each position's block end; one MCU
+    hop per position; pointer doubling over MCUs; the MCU starts read off and
+    each MCU's blocks replayed."""
+    dev = words.device
+    w = words.to(torch.int64) & _M32
+    b = torch.stack([(w >> 24) & 255, (w >> 16) & 255, (w >> 8) & 255,
+                     w & 255], dim=1).reshape(-1)
+    nbits = b.shape[0] * 8
+    zero = torch.zeros(2, dtype=torch.int64, device=dev)
+    w24 = (b << 16) | (torch.cat([b[1:], zero[:1]]) << 8) | torch.cat(
+        [b[2:], zero])
+    r = torch.arange(8, device=dev)
+    w16 = ((w24[:, None] >> (8 - r)) & 0xFFFF).reshape(-1)
+    pidx = torch.arange(nbits, device=dev)
+    full = tables[:, :FULL_SIZE].to(torch.int64)
+    layout = seq.cpu().numpy().tolist()
+    levels = 6  # 2^5 = 32 >= the symbols any descent step needs
+    mcu_levels = max(1, (n_mcu - 1).bit_length())
+
+    def clip(idx):
+        return idx.clamp(0, nbits - 1)
+
+    def dc_step(dc_slot, windows):
+        """(size with -1 for none, code length) of the DC code per window; a
+        DC symbol above 16 counts as none."""
+        dsym, dln = _sym_len(full[dc_slot][windows])
+        bad = (dsym < 0) | (dsym > 16)
+        return torch.where(bad, -1, dsym), torch.where(bad, 16, dln)
+
+    fb_pos, fb_err = [], []
+    for dc_slot, ac_slot in classes.cpu().numpy().tolist():
+        sym, ln = _sym_len(full[ac_slot][w16])
+        invalid = sym < 0
+        symv = sym.clamp(min=0)
+        adv0 = torch.where(invalid, 16, ln + (symv & 15))
+        eob = (symv == 0) & ~invalid
+        kinc0 = torch.where(eob | invalid, 0, torch.where(
+            symv == 0xF0, 16, (symv >> 4) + 1))
+        advs, kincs, terms, errs = [adv0], [kinc0], [eob], [invalid]
+        for _ in range(1, levels):
+            a, k, t, e = advs[-1], kincs[-1], terms[-1], errs[-1]
+            nxt = clip(pidx + a)
+            advs.append(a + a[nxt])
+            kincs.append(k + torch.where(t, 0, k[nxt]))
+            terms.append(t | t[nxt])
+            errs.append(e | e[nxt])
+
+        dsym, dln = dc_step(dc_slot, w16)
+        p = clip(pidx + torch.where(dsym < 0, 16, dln + dsym.clamp(0, 16)))
+        err = dsym < 0
+        k = torch.ones_like(pidx)
+        for j in range(levels - 1, -1, -1):
+            ok = ~terms[j][p] & (k + kincs[j][p] <= 63)
+            err = err | (ok & errs[j][p])
+            k = torch.where(ok, k + kincs[j][p], k)
+            p = torch.where(ok, clip(p + advs[j][p]), p)
+        # exactly one closing symbol (EOB, or the one that crosses k = 64)
+        err = err | errs[0][p] | (~terms[0][p] & (k + kincs[0][p] > 64))
+        fb_pos.append(p + advs[0][p])
+        fb_err.append(err)
+
+    cur = pidx
+    for _dc, _ac, ci in layout:
+        cur = fb_pos[ci][clip(cur)]
+    mcu_pos0 = cur
+    jumps = [mcu_pos0]
+    for _ in range(1, mcu_levels):
+        jumps.append(jumps[-1][clip(jumps[-1])])
+    m = torch.arange(n_mcu, device=dev)
+    starts = torch.zeros(n_mcu, dtype=torch.int64, device=dev)
+    for j in range(mcu_levels):
+        starts = torch.where((m >> j) & 1 == 1, jumps[j][clip(starts)], starts)
+    end_pos = mcu_pos0[clip(starts[-1])]
+
+    cur = starts
+    err_any = torch.zeros((), dtype=torch.bool, device=dev)
+    ac_offs, diffs = [], []
+    for dc_slot, _ac, ci in layout:
+        cc = clip(cur)
+        dsym, dln = dc_step(dc_slot, w16[cc])
+        dsize = dsym.clamp(0, 16)
+        amp = w16[clip(cur + dln)] >> (16 - dsize)
+        diffs.append(_extend(amp, dsize))
+        ac_offs.append(cur + dln + dsize)
+        err_any = err_any | fb_err[ci][cc].any()
+        cur = fb_pos[ci][cc]
+    status = torch.stack([end_pos, err_any.to(torch.int64)])
+    return (torch.stack(ac_offs, dim=1).to(torch.int32),
+            torch.stack(diffs, dim=1).to(torch.int32),
+            status.to(torch.int32))
+
+
+def prefix_launches(words, n_mcu, seq, classes, tables, ac_off, diff, status,
+                    scratch, lib=None) -> list:
+    """Program F as its separate launches, in order: [(name, enqueue)], each
+    enqueue() putting one launch on PyTorch's current stream. Prepared
+    contiguous int32 tensors (status zeroed; scratch = prefix_scratch's
+    block ends, two jump tables and zeroed starts), no checks and no
+    allocation. A measurement may run one of them alone."""
+    lib = lib or _cuda.load("prefix_index")
+    dev = words.device
+    nwords, bpm = words.numel(), seq.shape[0]
+    nbits = nwords * 32
+    fb, jump, other, starts = scratch
+    steps = [
+        ("block ends", lambda: _call(
+            "prefix_block_ends", lib.jt_prefix_block_ends, dev, _ptr(words),
+            ctypes.c_int(nwords), _ptr(classes),
+            ctypes.c_int(classes.shape[0]), _ptr(tables),
+            ctypes.c_int(tables.shape[0]), _ptr(fb))),
+        ("MCU hop", lambda first=jump: _call(
+            "prefix_mcu_hop", lib.jt_prefix_mcu_hop, dev, _ptr(fb),
+            ctypes.c_int(nbits), _ptr(seq), ctypes.c_int(bpm), _ptr(first))),
+    ]
+    levels = max(1, (n_mcu - 1).bit_length())
+    for j in range(levels):
+        # Level j reads the table of 2^j-MCU jumps and, but for the last
+        # level, writes the one of 2^(j+1); the two tables take turns.
+        steps.append((f"doubling level {j}", lambda j=j, a=jump, b=other: _call(
+            "prefix_double", lib.jt_prefix_double, dev, _ptr(a), _ptr(b),
+            _ptr(starts), ctypes.c_int(nbits), ctypes.c_long(1 << j),
+            ctypes.c_long(n_mcu), ctypes.c_int(j + 1 < levels))))
+        jump, other = other, jump
+    steps.append(("replay", lambda: _call(
+        "prefix_replay", lib.jt_prefix_replay, dev, _ptr(words),
+        ctypes.c_int(nwords), _ptr(fb), _ptr(starts), ctypes.c_long(n_mcu),
+        _ptr(seq), ctypes.c_int(bpm), _ptr(tables), _ptr(ac_off), _ptr(diff),
+        _ptr(status))))
+    return steps
+
+
+def _launch_prefix(words, n_mcu, seq, classes, tables, ac_off, diff, status,
+                   scratch, lib=None) -> None:
+    """Enqueue all of program F (prefix_launches) on PyTorch's current
+    stream. Counts the call once and every launch."""
+    global PREFIX_LAUNCHES, PREFIX_STAGE_LAUNCHES
+    steps = prefix_launches(words, n_mcu, seq, classes, tables, ac_off, diff,
+                            status, scratch, lib)
+    for _name, enqueue in steps:
+        enqueue()
+    with _COUNT_LOCK:
+        PREFIX_LAUNCHES += 1
+        PREFIX_STAGE_LAUNCHES += len(steps)
+
+
+def prefix_scratch(nwords: int, n_mcu: int, nclasses: int, dev):
+    """Program F's working tensors for a scan of `nwords` words."""
+    nbits = nwords * 32
+    return (torch.empty((nclasses, nbits), dtype=torch.int32, device=dev),
+            torch.empty(nbits, dtype=torch.int32, device=dev),
+            torch.empty(nbits, dtype=torch.int32, device=dev),
+            torch.zeros(n_mcu, dtype=torch.int32, device=dev))
+
+
+def prefix_index(words, n_mcu: int, seq, classes, tables):
+    """The unstuffed scan of a stream without restart markers as (W,)
+    big-endian words with a zero guard; seq: (blocks per MCU, 3) int32, per
+    block of the MCU its DC and AC rows in `tables` and its class; classes:
+    (C, 2) int32, the distinct (DC row, AC row) pairs. -> (ac_off (n_mcu,
+    blocks per MCU) int32: the bit offset just past each block's DC code;
+    diff, same shape: its DC difference; status (2,) int32: the position
+    after the last MCU, and whether a block on the path hit a window that
+    starts no code or overshot k = 64 without EOB).
+
+    CUDA tensors launch program F (csrc/prefix_index.cu); CPU tensors run
+    the plain twin."""
+    dev = words.device
+    if n_mcu < 1:
+        raise ValueError(f"prefix_index: {n_mcu} MCUs")
+    if dev.type == "cpu":
+        return prefix_index_reference(words, n_mcu, seq, classes, tables)
+    if dev.type != "cuda":
+        raise ValueError(f"prefix_index: unsupported device {dev}")
+    _check("prefix_index", dev, words=words, seq=seq, classes=classes,
+           tables=tables)
+    _check_tables("prefix_index", tables)
+    if words.ndim != 1 or seq.ndim != 2 or seq.shape[1] != 3 or (
+            classes.ndim != 2 or classes.shape[1] != 2):
+        raise ValueError(
+            f"prefix_index: words {tuple(words.shape)}, seq "
+            f"{tuple(seq.shape)}, classes {tuple(classes.shape)}")
+    _check_words("prefix_index", words.numel())
+    bpm = seq.shape[0]
+    ac_off = torch.empty((n_mcu, bpm), dtype=torch.int32, device=dev)
+    diff = torch.empty((n_mcu, bpm), dtype=torch.int32, device=dev)
+    status = torch.zeros(2, dtype=torch.int32, device=dev)
+    _launch_prefix(words, n_mcu, seq, classes, tables, ac_off, diff, status,
+                   prefix_scratch(words.numel(), n_mcu, classes.shape[0], dev))
+    return ac_off, diff, status

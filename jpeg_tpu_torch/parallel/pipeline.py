@@ -193,7 +193,8 @@ def decode_stream(
     device="cuda",
 ) -> Iterator:
     """Decode a stream of JPEGs on `device`, keeping `depth` decodes in
-    flight on worker threads, so that the host Huffman walk of stream i+1
+    flight on worker threads, so that the host work of stream i+1 (the parse
+    and the unstuffing, or a host Huffman walk where `entropy` asks for one)
     overlaps the device work and the download of stream i. Yields the
     decoded arrays (tensors on `device` with device_output) in input order,
     each equal to decode() of its stream. Streams may differ in geometry,

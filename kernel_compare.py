@@ -8,32 +8,39 @@ Usage, from the repository root, on a machine with a CUDA device and nvcc:
                               [--candidate-a FILE.cu]... [--flags-a "..."]...
                               [--candidate-b FILE.cu]... [--flags-b "..."]...
                               [--candidate-c FILE.cu]... [--flags-c "..."]...
+                              [--candidate-d FILE.cu]... [--flags-d "..."]...
+                              [--flags-f "..."]...
                               [--previous-only] [--json FILE]
     python3 kernel_compare.py --progressive-4k
 
-The package's own kernels A (pack_level1), B (idct8) and C (dct8) are always
-timed. --previous DIR names a directory that holds pack_level1.cu and idct8.cu
+The package's own kernels A (pack_level1), B (idct8), C (dct8) and D
+(ac_indexed) are always timed. --previous DIR names a directory that holds pack_level1.cu and idct8.cu
 with the C entry points those files had before the tables were pre-packed
 (jt_pack_level1 taking the four LUTs, jt_idct8 taking the basis), e.g. an
 older commit unpacked with `git archive`. --previous-c DIR names a directory
 that holds a dct8.cu whose jt_dct8 still takes the basis (kernel C's first
-design). --candidate-a / -b / -c name
-another source with the current entry point; --flags-a / -b / -c build the
-package's own source once more with extra nvcc flags (e.g. "-DJT_THREADS=256")
-as a further contender; each of the six may be given more than once.
+design). --candidate-a / -b / -c / -d name
+another source with the current entry point; --flags-a / -b / -c / -d build the
+package's own source once more with extra nvcc flags (e.g. "-DJT_THREADS=256",
+"-DJT_D_TILE=64") as a further contender; each of the eight may be given more
+than once. --flags-f does the same for the first launch of program F
+(prefix_index.cu's block ends, the longest of them), held to the output of
+the package's own build.
 --previous-only times the previous sources and the package's kernel
 C and nothing else (for a tree whose own A and B do not build yet).
 
 Inputs are those of chip_smoke.py's main path: the 3840x2160 4:2:0 image's
 194,400 level-1 blocks at q75 and at q95 (dense), its Y and Cb coefficient
-planes (kernel B) and pixel planes (kernel C). Every contender is first held
-against the plain twin on these inputs. Times come from
+planes (kernel B) and pixel planes (kernel C), and what the host index pass
+gives kernel D for the q75 stream. Every contender is first held against the
+plain twin on these inputs. Times come from
 chip_smoke.kernel_only_us (CUDA events around a graph of 20 launches over
 rotating buffers, L2 cold), contenders in turns, forwards then backwards,
 ROUNDS times; each time and the median per contender are printed with the
 card's name and power limit. Last, one warm 4K decode is profiled
 (torch.profiler) to show where kernel B's three launches lie on the device's
-timeline and what runs between them. Then one JSON object on the last line,
+timeline and what runs between them, and how much of the decode's span on the
+device is busy. Then one JSON object on the last line,
 also written to the file --json names, if given.
 
 --progressive-4k does none of that: it times one encode_progressive of the
@@ -96,6 +103,14 @@ def trace_decode(torch, img, card):
     first, last = kernels[0][0], kernels[-1][1]
     report["device_span_us"] = last - first
     report["device_busy_us"] = sum(k[1] - k[0] for k in kernels)
+    by_name: dict = {}
+    for start, end, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    report["longest_us"] = sorted(
+        ((round(us, 1), name[:60]) for name, us in by_name.items()),
+        reverse=True)[:6]
+    print(f"decode trace: longest on the device, by name: "
+          f"{report['longest_us']}", flush=True)
     print(f"decode trace: kernel B launches "
           f"{[round(t, 1) for t in report['idct8_us']]} us; gaps between "
           f"them {report['gaps']}; device span {report['device_span_us']:.0f} "
@@ -132,6 +147,9 @@ def main() -> int:
     ap.add_argument("--flags-b", action="append", default=[])
     ap.add_argument("--candidate-c", action="append", default=[])
     ap.add_argument("--flags-c", action="append", default=[])
+    ap.add_argument("--candidate-d", action="append", default=[])
+    ap.add_argument("--flags-d", action="append", default=[])
+    ap.add_argument("--flags-f", action="append", default=[])
     ap.add_argument("--previous-only", action="store_true")
     ap.add_argument("--json")
     ap.add_argument("--progressive-4k", action="store_true")
@@ -148,7 +166,11 @@ def main() -> int:
     from jpeg_tpu_torch.entropy import huffman
     from jpeg_tpu_torch.models import encoder
     from jpeg_tpu_torch.ops import (
-        _cuda, bitpack, fused, pack, quant, tile, zigzag)
+        _cuda, bitpack, entropy_decode, fused, pack, quant, tile, zigzag)
+
+    # Kernel D's inputs are built as the card tests build them.
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    import torch_port_util as port_util
 
     dev = torch.device("cuda")
     card = cs.card_line()
@@ -271,6 +293,24 @@ def main() -> int:
         c_launchers[f"candidate {src}"] = current_abi_c(
             build(f"candidate{i}_dct8", src), "candidate C")
 
+    def current_abi_d(lib, label):
+        def launch(words, off, dc, slot, tables, rows):
+            _cuda.check(label, lib.jt_ac_indexed(
+                *_ptrs(words), ctypes.c_int(words.numel()),
+                *_ptrs(off, dc, slot, tables), ctypes.c_int(tables.shape[0]),
+                *_ptrs(rows), ctypes.c_long(off.shape[0]), stream()))
+        return launch
+
+    build("ac_indexed")
+    d_launchers = {"current": entropy_decode._launch_ac_indexed}
+    for i, flags in enumerate(args.flags_d):
+        d_launchers[f"current {flags}"] = current_abi_d(build(
+            f"flags{i}_ac_indexed", _cuda._CSRC / "ac_indexed.cu",
+            shlex.split(flags)), "flags D")
+    for i, src in enumerate(args.candidate_d):
+        d_launchers[f"candidate {src}"] = current_abi_d(
+            build(f"candidate{i}_ac_indexed", src), "candidate D")
+
     results = []
     failed = False
 
@@ -359,6 +399,54 @@ def main() -> int:
                  lambda p=plane: (torch.empty(p.shape, dtype=torch.int32,
                                               device=dev),),
                  cs.plane_bytes(*plane.shape), check_c)
+
+    import jpeg_tpu_torch
+
+    d_in = port_util.ac_indexed_inputs(jpeg_tpu_torch.encode(
+        img, cs.QUALITY, cs.SUBSAMPLING, device="cuda"), dev)
+    ref_d = entropy_decode.decode_ac_indexed_reference(*d_in)
+    nblk = d_in[1].shape[0]
+
+    def check_d(out, ref=ref_d):
+        e = cs.int_err(out[0], ref)
+        return "ok (max |err| 0)" if e == 0 else f"DISAGREES (max {e})"
+
+    run_case("D", f"q{cs.QUALITY} {nblk} blocks", d_launchers, d_in,
+             lambda: (torch.empty((nblk, 64), dtype=torch.int32, device=dev),),
+             d_in[0].numel() * 4 + 3 * nblk * 4 + nblk * 256, check_d)
+
+    # Program F's block ends: one walk per bit position and table class.
+    (f_words, _n_mcu, _seq, f_classes, f_tables), _bits = (
+        port_util.prefix_inputs(jpeg_tpu_torch.encode(
+            img, cs.QUALITY, cs.SUBSAMPLING, device="cuda"), dev))
+
+    def block_ends(lib, label):
+        def launch(words, classes, tables, fb):
+            _cuda.check(label, lib.jt_prefix_block_ends(
+                *_ptrs(words), ctypes.c_int(words.numel()), *_ptrs(classes),
+                ctypes.c_int(classes.shape[0]), *_ptrs(tables),
+                ctypes.c_int(tables.shape[0]), *_ptrs(fb), stream()))
+        return launch
+
+    f_launchers = {"current": block_ends(build("prefix_index"), "F")}
+    for i, flags in enumerate(args.flags_f):
+        f_launchers[f"current {flags}"] = block_ends(build(
+            f"flags{i}_prefix_index", _cuda._CSRC / "prefix_index.cu",
+            shlex.split(flags)), "flags F")
+    fb_shape = (f_classes.shape[0], f_words.numel() * 32)
+    fb_ref = torch.empty(fb_shape, dtype=torch.int32, device=dev)
+    f_launchers["current"](f_words, f_classes, f_tables, fb_ref)
+    torch.cuda.synchronize()
+
+    def check_f(out, ref=fb_ref):
+        e = cs.int_err(out[0], ref)
+        return ("ok (equal to the package's)" if e == 0
+                else f"DISAGREES (max {e})")
+
+    run_case("F block ends", f"{fb_shape[1]} bit positions x {fb_shape[0]} "
+             f"classes", f_launchers, (f_words, f_classes, f_tables),
+             lambda: (torch.empty(fb_shape, dtype=torch.int32, device=dev),),
+             f_words.numel() * 4 + fb_shape[0] * fb_shape[1] * 4, check_f)
 
     trace = None
     if not args.previous_only:

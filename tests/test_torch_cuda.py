@@ -23,7 +23,10 @@ against the host result; encode_batched and encode_stream against encode()
 on the card and on the CPU (bytes), decode_batched and decode_stream against
 decode() on the card (pixels), encode_noninterleaved and encode_progressive
 against their CPU bytes; kernels A and B past 2^31 bytes of input against
-their twins on slices (blocks are independent)."""
+their twins on slices (blocks are independent). The device Huffman
+decoders are integers throughout: kernels D and E and program F equal their
+twins run on the same tensors, native.decode_scan and native.index_scan, with
+0 apart, and entropy="indexed" / "device" give the pixels of "sparse"."""
 
 import threading
 
@@ -32,15 +35,17 @@ import pytest
 import torch
 
 import jpeg_tpu_torch
-from jpeg_tpu_torch.entropy import decode_device, huffman
+from jpeg_tpu_torch.entropy import decode_device, huffman, native
+from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
 from jpeg_tpu_torch.models import encoder
-from jpeg_tpu_torch.ops import bitpack, fused, pack, quant
+from jpeg_tpu_torch.ops import bitpack, entropy_decode, fused, pack, quant
 
 import torch_port_fixtures as fixtures
 
 from torch_port_util import (
-    LEVEL1_SIZES, adversarial_idct_planes, adversarial_level1_case,
-    make_image, random_blocks, require_cuda, scan_args)
+    LEVEL1_SIZES, ac_indexed_inputs, adversarial_idct_planes,
+    adversarial_level1_case, make_image, prefix_inputs, random_blocks,
+    regroup_prefix, require_cuda, scan_args, segment_inputs)
 
 BUDGET = bitpack.BLOCK_WORDS * 32
 
@@ -501,3 +506,150 @@ def test_kernels_past_two_gib_of_input():
     for lo, hi in ((0, 64), (line - 64, line + 64), (h - 64, h)):
         ref = fused.fused_dequant_idct_reference(coeffs[lo:hi], qt)
         torch.testing.assert_close(out[lo:hi], ref, atol=1e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The device Huffman decoders: kernels D and E, program F.
+# ---------------------------------------------------------------------------
+
+HUFFMAN_CASES = [
+    ("420", (203, 331), 0, False), ("420", (203, 331), 21, True),
+    ("422", (90, 150), 7, False), ("444", (101, 77), 0, True),
+    ("444", (101, 77), 10, False), ("gray", (75, 97), 0, False),
+    ("gray", (75, 97), 13, True), ("420", (16, 16), 0, False),
+]
+
+
+def _huffman_stream(mode, shape, restart, optimize):
+    img = make_image(*shape, seed=shape[0] + restart)
+    kw = dict(quality=85, restart_interval=restart, optimize_tables=optimize,
+              device="cpu")
+    if mode == "gray":
+        return jpeg_tpu_torch.encode(img[..., 0], **kw)
+    return jpeg_tpu_torch.encode(img, subsampling=mode, **kw)
+
+
+def _huffman_counts():
+    return (entropy_decode.AC_LAUNCHES, entropy_decode.SEGMENT_LAUNCHES,
+            entropy_decode.PREFIX_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape,restart,optimize", HUFFMAN_CASES)
+def test_huffman_kernels_match_twins(mode, shape, restart, optimize):
+    dev = require_cuda()
+    jpg = _huffman_stream(mode, shape, restart, optimize)
+    args = scan_args(jpg)
+    want = np.concatenate(native.decode_scan(*args))
+    # Kernel D on the host index pass's offsets.
+    d_in = ac_indexed_inputs(jpg, dev)
+    rows = entropy_decode.decode_ac_indexed(*d_in)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(rows.cpu().numpy(), want)
+    assert torch.equal(rows, entropy_decode.decode_ac_indexed_reference(*d_in))
+    # Kernel E on the stream's segments (one segment without markers).
+    e_in, bits = segment_inputs(jpg, dev)
+    rows, status = entropy_decode.decode_segments(*e_in)
+    t_rows, t_status = entropy_decode.decode_segments_reference(*e_in)
+    np.testing.assert_array_equal(rows.cpu().numpy(), want)
+    assert torch.equal(rows, t_rows) and torch.equal(status, t_status)
+    assert not status[1].any()
+    assert all(b - 7 <= e <= b for e, b in zip(status[0].tolist(), bits))
+    host_words, seg_off, lens = decode_device.unstuffed_segments(args[0])
+    assert np.array_equal(e_in[0].cpu().numpy(), host_words)
+    assert np.array_equal(e_in[1].cpu().numpy(), seg_off)
+    assert (lens * 8).tolist() == bits
+    # Program F, where there are no markers and more than one MCU.
+    if restart == 0 and args[1] > 1:
+        f_in, true_bits = prefix_inputs(jpg, dev)
+        got = entropy_decode.prefix_index(*f_in)
+        twin = entropy_decode.prefix_index_reference(*f_in)
+        for g, t in zip(got, twin):
+            assert torch.equal(g, t)
+        assert got[2].tolist() == [status[0, 0].item(), 0]
+        off, dc = regroup_prefix(got[0], got[1], args[2])
+        _, want_off, want_dc = native.index_scan(*args)
+        np.testing.assert_array_equal(off.cpu().numpy(), want_off)
+        np.testing.assert_array_equal(dc.cpu().numpy(), want_dc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape,restart,optimize", HUFFMAN_CASES)
+def test_device_entropy_backends_on_card(mode, shape, restart, optimize):
+    require_cuda()
+    jpg = _huffman_stream(mode, shape, restart, optimize)
+    args = scan_args(jpg)
+    want = native.decode_scan(*args)
+    one_mcu = args[1] == 1
+    for fn, launches in (
+            (decode_device.decode_scan_indexed, (1, 0, 0)),
+            (decode_device.decode_scan,
+             (0, 1, 0) if restart or one_mcu else (1, 0, 1))):
+        before = _huffman_counts()
+        got = fn(*args, device="cuda")
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_huffman_counts(), before)) == (
+            launches)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == torch.int32
+            np.testing.assert_array_equal(g.cpu().numpy(), w)
+    px = jpeg_tpu_torch.decode(jpg, device="cuda", entropy="sparse")
+    for entropy in ("indexed", "device"):
+        np.testing.assert_array_equal(
+            jpeg_tpu_torch.decode(jpg, device="cuda", entropy=entropy), px)
+    np.testing.assert_array_equal(
+        jpeg_tpu_torch.decode(jpg, device="cuda", entropy="device",
+                              scale_denom=2),
+        jpeg_tpu_torch.decode(jpg, device="cuda", entropy="sparse",
+                              scale_denom=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entropy", ["indexed", "device"])
+def test_device_entropy_on_fixtures_and_streams_on_card(entropy):
+    require_cuda()
+    for name in ("noninterleaved_444.jpg", "cmyk.jpg", "progressive_420.jpg"):
+        jpg = fixtures.read(name)
+        np.testing.assert_array_equal(
+            jpeg_tpu_torch.decode(jpg, device="cuda", entropy=entropy),
+            jpeg_tpu_torch.decode(jpg, device="cuda", entropy="native"))
+    jpgs = [_huffman_stream(*c) for c in HUFFMAN_CASES[:6]] * 3
+    ref = [jpeg_tpu_torch.decode(j, device="cuda", entropy="sparse")
+           for j in jpgs]
+    before = fused.LAUNCHES
+    got = list(jpeg_tpu_torch.decode_stream(iter(jpgs), depth=4,
+                                            entropy=entropy, device="cuda"))
+    assert fused.LAUNCHES - before == sum(1 if r.ndim == 2 else 3
+                                          for r in ref)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_corrupt_scans_on_card_raise_or_decode():
+    """Flipped scan bytes and a cut scan: the kernels return, the host
+    raises ScanDecodeError or gets rows, and kernel and twin decide alike."""
+    dev = require_cuda()
+    for case in (HUFFMAN_CASES[0], HUFFMAN_CASES[1], HUFFMAN_CASES[5]):
+        jpg = _huffman_stream(*case)
+        scan, n_mcu, mcu_layout, htables, r = scan_args(jpg)
+        rng = np.random.default_rng(4)
+        scans = [scan[: len(scan) // 2]]
+        for _ in range(8):
+            bad = bytearray(scan)
+            i = int(rng.integers(0, len(bad)))
+            bad[i] = (bad[i] ^ int(rng.integers(1, 255))) & 0xFE
+            scans.append(bytes(bad))
+        for bad in scans:
+            outs = []
+            for device in ("cuda", "cpu"):
+                try:
+                    outs.append(decode_device.decode_scan(
+                        bad, n_mcu, mcu_layout, htables, r, device=device))
+                except ScanDecodeError:
+                    outs.append(None)
+            torch.cuda.synchronize()
+            assert (outs[0] is None) == (outs[1] is None)
+            if outs[0] is not None:
+                for g, t in zip(*outs):
+                    np.testing.assert_array_equal(g.cpu().numpy(), t.numpy())

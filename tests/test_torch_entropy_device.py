@@ -1,0 +1,721 @@
+"""The port's device Huffman decoders (entropy="indexed", entropy="device")
+against the JAX package's, on the CPU.
+
+Everything here is integers: tolerance 0 for coefficients, offsets, DC
+differences, end positions and error flags, and for pixels between the
+port's own backends. Against jpeg_tpu.decode the port's stated decode
+tolerance applies (at most 1 level in at most 0.5% of samples: the two IDCTs
+sum in different f32 orders).
+
+On the CPU the wrappers of ops/entropy_decode run their plain twins, so these
+tests hold the twins (and the host halves around them) to the reference's
+jitted programs. The CUDA kernels' own per-thread code is compiled for the
+host with g++ against stand-ins for the CUDA keywords and driven through the
+same launch functions, so its arithmetic is exercised here too."""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import jpeg_tpu
+from jpeg_tpu.entropy import decode_device as JD
+
+import jpeg_tpu_torch
+from jpeg_tpu_torch.entropy import decode_device as PD, native
+from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
+from jpeg_tpu_torch.io import jfif as PJ
+from jpeg_tpu_torch.models import decoder as PDEC
+from jpeg_tpu_torch.ops import entropy_decode as ED
+
+import torch_port_fixtures as fixtures
+from test_torch_decode_streams import remap_huffman_ids
+from torch_port_util import (
+    ac_indexed_inputs, make_image, prefix_inputs, regroup_prefix, scan_args,
+    segment_inputs)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "jpeg_tpu_torch", "csrc")
+
+# Mode -> image size. 7 divides none of the MCU counts (24, 20, 48, 48).
+SIZES = {"420": (64, 96), "422": (40, 56), "444": (48, 64), "gray": (48, 64)}
+CASES = [(m, r, o) for m in SIZES for r in (0, 3, 7) for o in (False, True)]
+_streams: dict = {}
+
+
+def stream(mode, restart, optimal):
+    key = (mode, restart, optimal)
+    if key not in _streams:
+        h, w = SIZES[mode]
+        img = make_image(h, w, seed=h + restart)
+        if mode == "gray":
+            img, kw = img[..., 1], {}
+        else:
+            kw = dict(subsampling=mode)
+        _streams[key] = jpeg_tpu_torch.encode(
+            img, quality=75, restart_interval=restart,
+            optimize_tables=optimal, device="cpu", **kw)
+    return _streams[key]
+
+
+def assert_blocks_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode,restart,optimal", CASES)
+def test_scan_functions_equal_the_reference(mode, restart, optimal):
+    args = scan_args(stream(mode, restart, optimal))
+    want = native.decode_scan(*args)
+    for port_fn, ref_fn in ((PD.decode_scan_indexed, JD.decode_scan_indexed),
+                            (PD.decode_scan, JD.decode_scan)):
+        got = port_fn(*args, device="cpu")
+        assert all(isinstance(g, torch.Tensor) and g.dtype == torch.int32
+                   for g in got)
+        assert_blocks_equal(got, want)
+        try:
+            ref = ref_fn(*args)
+        except JD.ScanDecodeError:
+            # The reference's segment program freezes the cursor and the
+            # predictors of the MCUs it masks past a short tail segment, but
+            # not its error flag (jpeg_tpu/entropy/decode_device.py:136-148),
+            # so garbage decoded there can fail a valid stream. The port
+            # walks no MCU past the count.
+            assert ref_fn is JD.decode_scan and restart == 7
+            continue
+        assert_blocks_equal(got, ref)
+    if restart == 0:
+        got = PD.decode_scan_prefix(*args[:4], device="cpu")
+        assert_blocks_equal(got, want)
+        assert_blocks_equal(got, JD.decode_scan_prefix(*args[:4]))
+
+
+def reference_prefix_inputs(jpg):
+    """The key and the arguments of the reference's _jit_prefix_index program
+    for one restart-free stream, and the padded size of its buffer."""
+    scan, n_mcu, mcu_layout, htables, _ = scan_args(jpg)
+    unstuffed = PD.decode_np.unstuff(scan)
+    nbytes = 1 << max(8, int(len(unstuffed) + 8).bit_length())
+    buf = np.zeros(nbytes, dtype=np.uint8)
+    buf[: len(unstuffed)] = unstuffed
+    seq = [(dc, ac) for (_, bpm, dc, ac) in mcu_layout for _ in range(bpm)]
+    # The reference numbers DC and AC tables apart; the port in one list.
+    dc_slots = tuple(sorted({(0, dc) for dc, _ in seq}))
+    ac_slots = tuple(sorted({(1, ac) for _, ac in seq}))
+    ref_seq = tuple((dc_slots.index((0, dc)), ac_slots.index((1, ac)))
+                    for dc, ac in seq)
+    ac_luts = np.stack([
+        (np.where(s >= 0, l, 16).astype(np.int32) << 16)
+        | (np.where(s >= 0, s, -1).astype(np.int32) & 0xFFFF)
+        for s, l in (JD.decode_np.make_decode_lut(htables[k])
+                     for k in ac_slots)])
+    args = (jnp.asarray(buf),
+            jnp.asarray(JD._packed_dc_luts(htables, dc_slots)),
+            jnp.asarray(ac_luts))
+    return (nbytes * 8, ref_seq, n_mcu), args, nbytes
+
+
+@pytest.mark.parametrize("mode,optimal", [(m, o) for m in SIZES
+                                          for o in (False, True)])
+def test_prefix_twin_equals_the_reference_program(mode, optimal):
+    jpg = stream(mode, 0, optimal)
+    ref_key, ref_args, nbytes = reference_prefix_inputs(jpg)
+    port_args, true_bits = prefix_inputs(jpg, nbytes=nbytes)
+    ac_off, diff, status = ED.prefix_index(*port_args)
+    r_off, r_diff, r_end, r_err = JD._jit_prefix_index(*ref_key)(*ref_args)
+    np.testing.assert_array_equal(ac_off.numpy(), np.asarray(r_off))
+    np.testing.assert_array_equal(diff.numpy(), np.asarray(r_diff))
+    assert status.tolist() == [int(r_end), int(bool(r_err))]
+    assert status[1] == 0 and true_bits - 7 <= status[0] <= true_bits
+
+
+def assert_close(got, ref):
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert diff.max(initial=0) <= 1
+    assert int((diff != 0).sum()) <= 0.005 * diff.size
+
+
+@pytest.mark.parametrize("entropy", ["indexed", "device"])
+@pytest.mark.parametrize("mode,restart,optimal", CASES)
+def test_decode_equals_sparse(mode, restart, optimal, entropy):
+    jpg = stream(mode, restart, optimal)
+    want = jpeg_tpu_torch.decode(jpg, device="cpu", entropy="sparse")
+    got = jpeg_tpu_torch.decode(jpg, device="cpu", entropy=entropy)
+    np.testing.assert_array_equal(got, want)
+    # Restart 7 leaves a short tail segment, where the reference's "device"
+    # program can flag a valid stream (test_scan_functions_equal_the_reference
+    # says how); "indexed" is held to the reference there too.
+    if restart != 7 or entropy == "indexed":
+        assert_close(got, jpeg_tpu.decode(jpg, use_pallas=True,
+                                          entropy=entropy))
+
+
+@pytest.mark.parametrize("entropy", ["indexed", "device"])
+def test_decode_options_with_the_device_backends(entropy):
+    jpg = stream("420", 3, False)
+    for kw in (dict(scale_denom=2), dict(fancy_upsample=False)):
+        np.testing.assert_array_equal(
+            jpeg_tpu_torch.decode(jpg, device="cpu", entropy=entropy, **kw),
+            jpeg_tpu_torch.decode(jpg, device="cpu", entropy="sparse", **kw))
+    planes = jpeg_tpu_torch.decode(jpg, device="cpu", entropy=entropy,
+                                   output="ycbcr")
+    want = jpeg_tpu_torch.decode(jpg, device="cpu", entropy="sparse")
+    np.testing.assert_array_equal(jpeg_tpu_torch.finish_ycbcr(planes), want)
+    out = jpeg_tpu_torch.decode(jpg, device="cpu", entropy=entropy,
+                                device_output=True)
+    assert isinstance(out, torch.Tensor) and out.dtype == torch.uint8
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("entropy", ["indexed", "device"])
+@pytest.mark.parametrize("name", ["noninterleaved_444.jpg", "cmyk.jpg",
+                                  "ycck.jpg", "progressive_420.jpg"])
+def test_fixture_streams_with_the_device_backends(name, entropy):
+    """Multi-scan baseline streams decode each scan on the device;
+    4-component streams finish as with any backend; progressive streams take
+    the host walkers whatever `entropy` says."""
+    jpg = fixtures.read(name)
+    np.testing.assert_array_equal(
+        jpeg_tpu_torch.decode(jpg, device="cpu", entropy=entropy),
+        jpeg_tpu_torch.decode(jpg, device="cpu", entropy="native"))
+
+
+@pytest.mark.parametrize("restart", [0, 4])
+def test_noninterleaved_scans_pad_on_the_device(restart):
+    img = make_image(43, 59, seed=14)  # chroma grids smaller than the MCU grid
+    jpg = jpeg_tpu_torch.encode_noninterleaved(
+        img, quality=80, restart_interval=restart, device="cpu")
+    want = jpeg_tpu_torch.decode(jpg, device="cpu", entropy="native")
+    for entropy in ("indexed", "device"):
+        np.testing.assert_array_equal(
+            jpeg_tpu_torch.decode(jpg, device="cpu", entropy=entropy), want)
+    assert_close(want, jpeg_tpu.decode(jpg, use_pallas=True,
+                                       entropy="device"))
+
+
+@pytest.mark.parametrize("mode", ["420", "gray"])
+def test_other_huffman_ids(mode):
+    """Table ids 2 and 3: "device" takes any ids, "indexed" needs the native
+    runtime's layout."""
+    img = make_image(37, 53, seed=17)
+    normal = jpeg_tpu_torch.encode(img if mode != "gray" else img[..., 0],
+                                   quality=80, restart_interval=3,
+                                   device="cpu")
+    other = remap_huffman_ids(normal, 2)
+    assert {c.dc_id for c in PJ.parse_jpeg(other).components} <= {2, 3}
+    want = jpeg_tpu_torch.decode(normal, device="cpu")
+    np.testing.assert_array_equal(
+        jpeg_tpu_torch.decode(other, device="cpu", entropy="device"), want)
+    assert_close(want, jpeg_tpu.decode(other, use_pallas=True,
+                                       entropy="device"))
+    with pytest.raises(PJ.JpegFormatError, match="unavailable"):
+        jpeg_tpu_torch.decode(other, device="cpu", entropy="indexed")
+    with pytest.raises(jpeg_tpu.io.jfif.JpegFormatError):
+        jpeg_tpu.decode(other, entropy="indexed")
+    if mode == "gray":
+        return  # one table pair only
+    # Mixed ids (DC 0 with AC 1 and the reverse) need the joint slot list.
+    mixed = bytearray(normal)
+    i = normal.index(b"\xff\xda")
+    for c in range(mixed[i + 4]):
+        mixed[i + 6 + 2 * c] ^= 0x01
+    np.testing.assert_array_equal(
+        jpeg_tpu_torch.decode(bytes(mixed), device="cpu", entropy="device"),
+        jpeg_tpu_torch.decode(bytes(mixed), device="cpu", entropy="numpy"))
+
+
+@pytest.mark.parametrize("entropy", ["indexed", "device"])
+def test_undefined_huffman_table_is_a_format_error(entropy):
+    jpg = jpeg_tpu_torch.encode(make_image(16, 16), device="cpu")
+    out = bytearray(jpg)
+    out[jpg.index(b"\xff\xda") + 6] ^= 0x22  # component 1 names tables 2/2
+    with pytest.raises(PJ.JpegFormatError):
+        jpeg_tpu_torch.decode(bytes(out), device="cpu", entropy=entropy)
+
+
+def test_wrong_segment_count_raises():
+    scan, n_mcu, mcu_layout, htables, r = scan_args(stream("420", 3, False))
+    for fn, interval in ((PD.decode_scan, 0), (PD.decode_scan, 5),
+                         (JD.decode_scan, 0)):
+        with pytest.raises(ValueError) as e:
+            fn(scan, n_mcu, mcu_layout, htables, interval)
+        assert type(e.value).__name__ == "ScanDecodeError"
+    with pytest.raises(ScanDecodeError, match="restart segments"):
+        PD.decode_scan(scan_args(stream("420", 0, False))[0], n_mcu,
+                       mcu_layout, htables, 3)
+
+
+@pytest.mark.parametrize("mode,restart", [("420", 0), ("420", 3), ("gray", 0),
+                                          ("444", 7)])
+def test_truncated_and_corrupt_scans_raise_or_decode(mode, restart):
+    """A cut scan runs its cursor past the true bits; flipped bytes give
+    codes no table has, or decode to something: never a hang, never another
+    exception, and the twins stay inside their buffers."""
+    jpg = stream(mode, restart, False)
+    scan, n_mcu, mcu_layout, htables, r = scan_args(jpg)
+    cut = scan[: len(scan) // 2]
+    for fn in (PD.decode_scan, PD.decode_scan_indexed):
+        with pytest.raises(ScanDecodeError):
+            fn(cut, n_mcu, mcu_layout, htables, r, device="cpu")
+    rng = np.random.default_rng(5)
+    for _ in range(12):
+        bad = bytearray(scan)
+        i = int(rng.integers(1, len(bad)))
+        while 0xFF in (bad[i - 1], bad[i]):  # leave markers and stuffing whole
+            i = int(rng.integers(1, len(bad)))
+        bad[i] = (bad[i] ^ int(rng.integers(1, 255))) & 0xFE  # never 0xFF
+        outs = []
+        for fn, kw in ((PD.decode_scan, dict(device="cpu")),
+                       (PD.decode_scan_indexed, dict(device="cpu")),
+                       (native.decode_scan, {})):
+            try:
+                outs.append(fn(bytes(bad), n_mcu, mcu_layout, htables, r,
+                               **kw))
+            except ValueError as e:  # the native runtime raises the base
+                assert fn is native.decode_scan or isinstance(
+                    e, ScanDecodeError)
+                outs.append(None)
+        # The backends agree: all raise, or all give the same rows.
+        assert len({o is None for o in outs}) == 1, (i, bad[i])
+        if outs[0] is not None:
+            assert_blocks_equal(outs[0], outs[2])
+            assert_blocks_equal(outs[1], outs[2])
+
+
+def test_a_scan_too_short_for_its_blocks_is_refused_before_any_allocation(
+        monkeypatch):
+    """A header may claim far more blocks than the scan's bits can hold (two
+    at least per block): "device" raises before it sizes anything by the
+    claim."""
+    scan, n_mcu, mcu_layout, htables, _ = scan_args(stream("420", 0, False))
+    monkeypatch.setattr(ED, "decode_segments", None)
+    monkeypatch.setattr(ED, "prefix_index", None)
+    for claimed in (len(scan) * 4, 1 << 40):
+        with pytest.raises(ScanDecodeError, match="past segment end"):
+            PD.decode_scan(scan, claimed, mcu_layout, htables, 0, device="cpu")
+    # The true count passes the check (and then needs the wrapper).
+    with pytest.raises(TypeError):
+        PD.decode_scan(scan, n_mcu, mcu_layout, htables, 0, device="cpu")
+
+
+def test_table_format():
+    """build_tables: the 16-bit-window entries, the filler for windows that
+    start no code, and a first level that never contradicts the full one."""
+    htables = PJ.parse_jpeg(stream("420", 0, True)).htables
+    slots, _ = PD._scan_slots([(0, 4, 0, 0), (1, 1, 1, 1), (2, 1, 1, 1)])
+    t = ED.build_tables(htables, slots)
+    assert t.shape == (4, ED.SLOT_STRIDE) and t.dtype == np.int32
+    for i, key in enumerate(slots):
+        sym, ln = PD.decode_np.make_decode_lut(htables[key])
+        full = t[i, :ED.FULL_SIZE]
+        np.testing.assert_array_equal(full >> 16, np.where(sym >= 0, ln, 16))
+        np.testing.assert_array_equal(
+            (full & 0xFFFF).astype(np.uint16).view(np.int16),
+            np.where(sym >= 0, sym, -1))
+        first = t[i, ED.FULL_SIZE:]
+        w = np.arange(ED.FULL_SIZE)
+        hit = first[w >> 7] != 0
+        np.testing.assert_array_equal(first[w >> 7][hit], full[hit])
+        assert ((full[~hit] >> 16) > ED.FIRST_BITS).all() and (full != 0).all()
+
+
+def test_decode_refuses_unknown_backend_and_lists_all_six():
+    assert PDEC.ENTROPY_BACKENDS == ("auto", "native", "numpy", "device",
+                                     "indexed", "sparse")
+    with pytest.raises(ValueError, match="unknown entropy backend"):
+        jpeg_tpu_torch.decode(stream("420", 0, False), entropy="gpu",
+                              device="cpu")
+
+
+def test_undefined_quantization_table_is_a_format_error():
+    jpg = jpeg_tpu_torch.encode(make_image(24, 40), device="cpu")
+    out = bytearray(jpg)
+    i = jpg.index(b"\xff\xc0")
+    out[i + 4 + 6 + 2] = 3  # SOF0: component 1's Tq
+    for entropy in PDEC.ENTROPY_BACKENDS:
+        with pytest.raises(PJ.JpegFormatError, match="quantization table"):
+            jpeg_tpu_torch.decode(bytes(out), device="cpu", entropy=entropy)
+    with pytest.raises(PJ.JpegFormatError, match="quantization table"):
+        jpeg_tpu_torch.decode_batched([jpg, bytes(out)], device="cpu")
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    words = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="MCUs"):
+        ED.prefix_index(words, 0, None, None, None)
+    meta = torch.device("meta")
+    for call in (
+            lambda: ED.decode_ac_indexed(words.to(meta), None, None, None,
+                                         None),
+            lambda: ED.decode_segments(words.to(meta), None, 1, 1, None,
+                                       None, 1),
+            lambda: ED.prefix_index(words.to(meta), 2, None, None, None)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    with pytest.raises(ScanDecodeError, match="int32 bit offsets"):
+        PD._guarded_words(np.zeros(4 * ED.MAX_WORDS, dtype=np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' per-thread code, compiled for the host.
+# ---------------------------------------------------------------------------
+
+_STANDIN = r"""
+#define JT_HOST_STANDIN
+#include <cstdint>
+#define __device__
+#define __forceinline__ inline
+#include "ac_indexed.cu"
+#include "segment_walk.cu"
+#include "prefix_index.cu"
+
+using namespace jt;
+typedef const int32_t* I32;
+typedef const uint32_t* U32;
+
+extern "C" int jt_ac_indexed(const void* words, int nwords, const void* off,
+                             const void* dc, const void* slot,
+                             const void* tables, int nslots, void* rows,
+                             long nblocks, void*) {
+  for (long b = 0; b < nblocks; ++b) {
+    int s = ((I32)slot)[b];
+    s = s < 0 ? 0 : (s >= nslots ? nslots - 1 : s);
+    int32_t* row = (int32_t*)rows + b * 64;
+    for (int i = 0; i < 64; ++i) row[i] = 0;
+    BitReader r((U32)words, nwords);
+    I32 full = (I32)tables + (long)s * kSlotStride;
+    ac_block(r, ((I32)off)[b], ((I32)dc)[b], full + kFullSize, full, row);
+  }
+  return 0;
+}
+
+extern "C" int jt_segment_walk(const void* words, int nwords,
+                               const void* seg_off, int nseg, long interval,
+                               long mcu_count, const void* seq,
+                               int bpm, const void* tables, int nslots,
+                               void* rows, void* status, void*) {
+  for (long s = 0; s < nseg; ++s) {
+    long first_mcu = s * interval, n_valid = mcu_count - first_mcu;
+    if (n_valid > interval) n_valid = interval;
+    walk_segment((U32)words, nwords, ((I32)seg_off)[s] * 8, n_valid, first_mcu,
+                 (I32)seq, bpm, (I32)tables + kFullSize, kSlotStride,
+                 (I32)tables, (int32_t*)rows, (int32_t*)status + s,
+                 (int32_t*)status + nseg + s);
+  }
+  return 0;
+}
+
+extern "C" int jt_prefix_block_ends(const void* words, int nwords,
+                                    const void* classes, int nclasses,
+                                    const void* tables, int nslots, void* fb,
+                                    void*) {
+  const int nbits = nwords * 32;
+  for (int c = 0; c < nclasses; ++c) {
+    I32 dc = (I32)tables + (long)((I32)classes)[2 * c] * kSlotStride;
+    I32 ac = (I32)tables + (long)((I32)classes)[2 * c + 1] * kSlotStride;
+    for (int p = 0; p < nbits; ++p) {
+      BitReader r((U32)words, nwords);
+      ((uint32_t*)fb)[(long)c * nbits + p] =
+          block_end(r, p, nbits, dc + kFullSize, dc, ac + kFullSize, ac);
+    }
+  }
+  return 0;
+}
+
+extern "C" int jt_prefix_mcu_hop(const void* fb, int nbits, const void* seq,
+                                 int bpm, void* jump, void*) {
+  for (int p = 0; p < nbits; ++p)
+    ((uint32_t*)jump)[p] = mcu_end((U32)fb, p, nbits, (I32)seq, bpm);
+  return 0;
+}
+
+extern "C" int jt_prefix_double(const void* jin, void* jout, void* starts,
+                                int nbits, long half, long n_mcu, int compose,
+                                void*) {
+  const long n = compose && nbits > half ? nbits : half;
+  for (long t = 0; t < n; ++t)
+    double_step((U32)jin, (uint32_t*)jout, (int32_t*)starts, t, nbits, half,
+                n_mcu, compose);
+  return 0;
+}
+
+extern "C" int jt_prefix_replay(const void* words, int nwords, const void* fb,
+                                const void* starts, long n_mcu,
+                                const void* seq, int bpm, const void* tables,
+                                void* ac_off, void* diff, void* status, void*) {
+  for (long m = 0; m < n_mcu; ++m)
+    if (replay_mcu((U32)words, nwords, (U32)fb, (I32)starts, m, n_mcu,
+                   (I32)seq, bpm, (I32)tables, (int32_t*)ac_off,
+                   (int32_t*)diff, (int32_t*)status))
+      ((int32_t*)status)[1] |= 1;
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def standin(tmp_path_factory):
+    """The three kernels' per-thread bodies behind their C entry points, one
+    loop iteration per CUDA thread."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    d = tmp_path_factory.mktemp("huffman_standin")
+    (d / "standin.cc").write_text(_STANDIN)
+    lib = d / "libstandin.so"
+    subprocess.run(
+        ["g++", "-O1", "-std=c++17", "-x", "c++", "-shared", "-fPIC",
+         f"-I{CSRC}", "-o", str(lib), str(d / "standin.cc")],
+        check=True, capture_output=True, text=True, timeout=300)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.mark.parametrize("mode,restart,optimal", [
+    ("420", 0, False), ("420", 3, True), ("422", 7, False), ("444", 0, True),
+    ("gray", 3, False)])
+def test_kernel_d_body_on_host_standins(standin, mode, restart, optimal):
+    jpg = stream(mode, restart, optimal)
+    inputs = ac_indexed_inputs(jpg)
+    want = np.concatenate(native.decode_scan(*scan_args(jpg)))
+    rows = torch.full((want.shape[0], 64), -7, dtype=torch.int32)
+    before = ED.AC_LAUNCHES
+    ED._launch_ac_indexed(*inputs, rows, lib=standin)
+    assert ED.AC_LAUNCHES == before + 1
+    np.testing.assert_array_equal(rows.numpy(), want)
+    np.testing.assert_array_equal(
+        ED.decode_ac_indexed_reference(*inputs).numpy(), want)
+    # Garbage offsets (every block starting mid-code somewhere) stay in
+    # bounds and equal the twin.
+    rng = np.random.default_rng(3)
+    off = torch.as_tensor(rng.integers(
+        0, inputs[0].numel() * 32 + 64, size=want.shape[0]).astype(np.int32))
+    ED._launch_ac_indexed(inputs[0], off, *inputs[2:], rows, lib=standin)
+    np.testing.assert_array_equal(
+        rows.numpy(),
+        ED.decode_ac_indexed_reference(inputs[0], off, *inputs[2:]).numpy())
+
+
+@pytest.mark.parametrize("mode,restart,optimal", [
+    ("420", 3, False), ("420", 7, True), ("422", 3, True), ("444", 7, False),
+    ("gray", 3, False), ("420", 0, False)])
+def test_kernel_e_body_on_host_standins(standin, mode, restart, optimal):
+    jpg = stream(mode, restart, optimal)
+    (words, seg_off, interval, n_mcu, seq, tables, nblocks), bits = (
+        segment_inputs(jpg))
+    want = np.concatenate(native.decode_scan(*scan_args(jpg)))
+
+    def run(w):
+        rows = torch.zeros((nblocks, 64), dtype=torch.int32)
+        status = torch.full((2, seg_off.shape[0]), -1, dtype=torch.int32)
+        ED._launch_segments(w, seg_off, interval, n_mcu, seq, tables, rows,
+                            status, lib=standin)
+        return rows, status
+
+    rows, status = run(words)
+    t_rows, t_status = ED.decode_segments_reference(
+        words, seg_off, interval, n_mcu, seq, tables, nblocks)
+    np.testing.assert_array_equal(rows.numpy(), want)
+    np.testing.assert_array_equal(t_rows.numpy(), want)
+    np.testing.assert_array_equal(status.numpy(), t_status.numpy())
+    assert (status[1] == 0).all()
+    assert all(b - 7 <= int(e) <= b for e, b in zip(status[0], bits))
+    # Corrupt words: flags and end positions equal the twin's, rows too.
+    rng = np.random.default_rng(8)
+    bad = words.clone()
+    for _ in range(6):
+        bad[int(rng.integers(0, bad.shape[0]))] ^= int(
+            rng.integers(1, 1 << 30))
+    rows, status = run(bad)
+    t_rows, t_status = ED.decode_segments_reference(
+        bad, seg_off, interval, n_mcu, seq, tables, nblocks)
+    np.testing.assert_array_equal(status.numpy(), t_status.numpy())
+    np.testing.assert_array_equal(rows.numpy(), t_rows.numpy())
+
+
+def run_prefix_standin(standin, words, n_mcu, seq, classes, tables):
+    bpm = seq.shape[0]
+    ac_off = torch.full((n_mcu, bpm), -1, dtype=torch.int32)
+    diff = torch.full((n_mcu, bpm), -1, dtype=torch.int32)
+    status = torch.zeros(2, dtype=torch.int32)
+    ED._launch_prefix(
+        words, n_mcu, seq, classes, tables, ac_off, diff, status,
+        ED.prefix_scratch(words.numel(), n_mcu, classes.shape[0],
+                          words.device), lib=standin)
+    return ac_off, diff, status
+
+
+@pytest.mark.parametrize("mode,optimal", [("420", False), ("420", True),
+                                          ("422", False), ("444", True),
+                                          ("gray", False)])
+def test_program_f_bodies_on_host_standins(standin, mode, optimal):
+    jpg = stream(mode, 0, optimal)
+    (words, n_mcu, seq, classes, tables), _ = prefix_inputs(jpg)
+    before = (ED.PREFIX_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES)
+    ac_off, diff, status = run_prefix_standin(
+        standin, words, n_mcu, seq, classes, tables)
+    levels = max(1, (n_mcu - 1).bit_length())
+    assert (ED.PREFIX_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES) == (
+        before[0] + 1, before[1] + 3 + levels)
+    t_off, t_diff, t_status = ED.prefix_index_reference(
+        words, n_mcu, seq, classes, tables)
+    np.testing.assert_array_equal(ac_off.numpy(), t_off.numpy())
+    np.testing.assert_array_equal(diff.numpy(), t_diff.numpy())
+    assert status.tolist() == t_status.tolist() and status[1] == 0
+    # And against the host index pass: offsets and cumulated DCs.
+    args = scan_args(jpg)
+    _, want_off, want_dc = native.index_scan(*args)
+    off, dc = regroup_prefix(ac_off, diff, args[2])
+    np.testing.assert_array_equal(off.numpy(), want_off)
+    np.testing.assert_array_equal(dc.numpy(), want_dc)
+
+
+@pytest.mark.parametrize("mode", ["420", "gray"])
+def test_program_f_on_corrupt_words(standin, mode):
+    """Kernel bodies and twin decide alike on corrupt data: both flag, or
+    both run past the true bits, or both give the same offsets."""
+    jpg = stream(mode, 0, False)
+    (words, n_mcu, seq, classes, tables), true_bits = prefix_inputs(jpg)
+    nbytes = true_bits // 8
+    rng = np.random.default_rng(21)
+    verdicts = set()
+    for _ in range(10):
+        bad = words.clone()
+        bad[int(rng.integers(0, nbytes // 4))] ^= int(rng.integers(1, 1 << 30))
+        got = run_prefix_standin(standin, bad, n_mcu, seq, classes, tables)
+        twin = ED.prefix_index_reference(bad, n_mcu, seq, classes, tables)
+
+        def verdict(out):
+            end, err = out[2].tolist()
+            return "flag" if err else ("overrun" if end > nbytes * 8 else "ok")
+
+        assert verdict(got) == verdict(twin)
+        verdicts.add(verdict(got))
+        if verdict(got) == "ok":
+            np.testing.assert_array_equal(got[0].numpy(), twin[0].numpy())
+            np.testing.assert_array_equal(got[1].numpy(), twin[1].numpy())
+            assert got[2].tolist() == twin[2].tolist()
+    print("verdicts seen:", sorted(verdicts))
+
+
+def test_one_segment_walk_equals_prefix_plus_ac(standin):
+    """Kernel E run over the whole restart-free scan as one segment gives
+    the rows of program F + kernel D: two routes that share no host code."""
+    jpg = stream("420", 0, True)
+    (words, seg_off, interval, n_mcu, seq5, tables, nblocks), _ = (
+        segment_inputs(jpg))
+    rows_e = torch.zeros((nblocks, 64), dtype=torch.int32)
+    status = torch.zeros((2, 1), dtype=torch.int32)
+    ED._launch_segments(words, seg_off, interval, n_mcu, seq5, tables, rows_e,
+                        status, lib=standin)
+    (pwords, _, seq3, classes, _), _ = prefix_inputs(jpg)
+    assert torch.equal(pwords, words)
+    ac_off, diff, pstatus = run_prefix_standin(
+        standin, pwords, n_mcu, seq3, classes, tables)
+    assert pstatus.tolist() == [int(status[0, 0]), 0]
+    off, dc = regroup_prefix(ac_off, diff, scan_args(jpg)[2])
+    rows_d = torch.empty((nblocks, 64), dtype=torch.int32)
+    ED._launch_ac_indexed(pwords, off, dc, ac_indexed_inputs(jpg)[3], tables,
+                          rows_d, lib=standin)
+    np.testing.assert_array_equal(rows_d.numpy(), rows_e.numpy())
+
+
+def test_unstuffed_segments_equal_the_per_segment_functions():
+    """The whole-scan split + unstuff in array operations against
+    decode_np's two functions applied segment by segment."""
+    rng = np.random.default_rng(0)
+    cases = [b"", b"\xff", b"\xff\xd0", b"\x00\xff\xd1", b"\xff\xd0\xff\xd1",
+             b"\xff\x00", b"\xff\xff\xd0\x00", b"\xff\x00\xff\xd3\x00\xff\x00",
+             scan_args(stream("420", 3, False))[0],
+             scan_args(stream("444", 0, True))[0]]
+    for _ in range(500):
+        n = int(rng.integers(0, 60))
+        cases.append(bytes(rng.choice(
+            [0xFF, 0x00, 0xD0, 0xD7, 0x12, 0xFF, 0x00], size=n).astype(
+                np.uint8)))
+    for scan in cases:
+        parts = [PD.decode_np.unstuff(s)
+                 for s in PD.decode_np.split_restart_segments(scan)]
+        flat = np.concatenate(parts)
+        words, seg_off, lens = PD.unstuffed_segments(scan)
+        np.testing.assert_array_equal(words, PD._guarded_words(flat))
+        assert lens.tolist() == [len(u) for u in parts]
+        assert seg_off.tolist() == np.cumsum([0] + lens.tolist())[:-1].tolist()
+        assert words.dtype == seg_off.dtype == np.int32
+
+
+def test_auto_takes_the_device_decoders_on_a_card():
+    """entropy="auto": the host walkers on the CPU, "device" on a card."""
+    assert PDEC._auto_backend(torch.device("cpu")) == "host"
+    assert PDEC._auto_backend(torch.device("cuda")) == "device"
+    assert PDEC._auto_backend(torch.device("cuda", 1)) == "device"
+
+
+@pytest.mark.parametrize("mode", ["420", "gray"])
+def test_program_f_is_given_no_more_than_the_blocks_can_span(mode,
+                                                             monkeypatch):
+    """Bytes behind the last MCU of a scan without markers (a file may carry
+    megabytes of them) do not size program F's working memory: it gets the
+    words the scan's blocks can span at most, and the rows stay the same."""
+    scan, n_mcu, mcu_layout, htables, _ = scan_args(stream(mode, 0, False))
+    want = native.decode_scan(scan, n_mcu, mcu_layout, htables, 0)
+    nblocks = n_mcu * sum(bpm for (_, bpm, _, _) in mcu_layout)
+    most = (nblocks * PD.MAX_BLOCK_BITS + 31) // 32 + 2
+    assert PD.MAX_BLOCK_BITS == 1985
+    seen = []
+    inner = ED.prefix_index
+
+    def spy(words, *args):
+        seen.append(words.numel())
+        return inner(words, *args)
+
+    monkeypatch.setattr(ED, "prefix_index", spy)
+    rng = np.random.default_rng(3)
+    tail = rng.integers(0, 255, size=2 * most * 4, dtype=np.uint8).tobytes()
+    for fn, args in ((PD.decode_scan, (0,)), (PD.decode_scan_prefix, ())):
+        for data in (scan, scan + tail, scan + bytes(len(tail))):
+            got = fn(data, n_mcu, mcu_layout, htables, *args, device="cpu")
+            assert_blocks_equal(got, want)
+    assert len(seen) == 6 and max(seen) == most
+    assert seen[0] == (len(PD.decode_np.unstuff(scan)) + 8 + 3) // 4 < most
+    # A scan that ends inside the kept words still runs out of bits.
+    with pytest.raises(ScanDecodeError, match="past segment end"):
+        PD.decode_scan_prefix(scan[: len(scan) // 2], n_mcu, mcu_layout,
+                              htables, device="cpu")
+
+
+def test_a_header_edit_rebuilds_the_kernels_that_include_it(tmp_path,
+                                                            monkeypatch):
+    """Kernels D, E and F share csrc/huff_decode.cuh: a library older than
+    any header beside its source is built again."""
+    from jpeg_tpu_torch.ops import _cuda
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built >> "$2.log"\ntouch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_cuda, "_BUILD_DIR", tmp_path)
+    src, header = tmp_path / "k.cu", tmp_path / "shared.cuh"
+    lib = tmp_path / "k.so"
+    src.write_text("")
+    header.write_text("")
+
+    def builds():
+        _cuda._build("k", src, lib)
+        logs = list(tmp_path.glob("k.*.tmp.log"))
+        return sum(len(p.read_text().splitlines()) for p in logs)
+
+    os.utime(src, (100, 100))
+    os.utime(header, (100, 100))
+    assert builds() == 1 and builds() == 1
+    os.utime(header, (4e9, 4e9))
+    assert builds() == 2
+    os.utime(lib, (5e9, 5e9))
+    assert builds() == 2
+    os.utime(src, (6e9, 6e9))
+    assert builds() == 3

@@ -4,8 +4,7 @@ The copied host modules (tables, Huffman, JFIF) and the transform parameters
 (mcu_kernel_int, zigzag_qdiv_int, kernel_to_torch) must equal the JAX
 package's exactly: tolerance 0 throughout. The port must import and run
 where jax cannot be imported (every decode backend and stream type
-included), and must name the ROADMAP item for every option it does not
-carry yet."""
+included), and must refuse an entropy backend it does not know."""
 
 import os
 import subprocess
@@ -121,6 +120,11 @@ def test_port_imports_and_runs_without_jax():
         "assert P.decode(opt, device='cpu').shape == (24, 40, 3)\n"
         "sp = P.decode(opt, device='cpu', entropy='sparse', scale_denom=2)\n"
         "assert sp.shape == (12, 20, 3)\n"
+        "import jpeg_tpu_torch.ops.entropy_decode, jpeg_tpu_torch.parallel\n"
+        "for e in ('indexed', 'device'):\n"
+        "    for s in (jpg, opt):\n"
+        "        assert np.array_equal(P.decode(s, device='cpu', entropy=e),\n"
+        "                              P.decode(s, device='cpu'))\n"
         "yc = P.decode(jpg, device='cpu', output='ycbcr')\n"
         "assert np.array_equal(P.finish_ycbcr(yc), out)\n"
         "for name, shape in (('progressive_420.jpg', (131, 203, 3)),\n"
@@ -137,11 +141,51 @@ def test_port_imports_and_runs_without_jax():
     assert proc.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("entropy", ["device", "indexed"])
-def test_unported_options_name_roadmap(entropy):
-    """The device Huffman decoders are accepted names that are not ported
-    yet: they say which ROADMAP item brings them."""
-    jpg = jpeg_tpu_torch.encode(make_image(24, 40), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 8"):
-        jpeg_tpu_torch.decode(jpg, entropy=entropy, device="cpu")
+def test_every_module_of_the_port_imports_without_jax():
+    """Each module under jpeg_tpu_torch/ and chip_smoke.py, imported with jax
+    and jpeg_tpu blocked: none of them may reach for either."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jpeg_tpu'] = None\n"
+        "import jpeg_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    jpeg_tpu_torch.__path__, 'jpeg_tpu_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'jpeg_tpu_torch.ops.entropy_decode' in names\n"
+        "assert 'jpeg_tpu_torch.entropy.decode_device' in names\n"
+        "print('ok', len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    """Every public function of the port that takes a device runs on "cuda"
+    unless the caller says otherwise."""
+    import inspect
+
+    from jpeg_tpu_torch.entropy import decode_device
+
+    fns = [getattr(jpeg_tpu_torch, n) for n in (
+        "encode", "decode", "encode_batched", "decode_batched",
+        "encode_stream", "decode_stream", "encode_noninterleaved")]
+    fns += [decode_device.decode_scan, decode_device.decode_scan_indexed,
+            decode_device.decode_scan_prefix, decode_device.decode_scan_sparse]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("entropy", ["gpu", "Device", ""])
+def test_unknown_entropy_backend_is_refused(entropy):
+    """decode() knows six backends, all of them ported, and refuses any
+    other name before it parses the stream."""
+    from jpeg_tpu_torch.models.decoder import ENTROPY_BACKENDS
+
+    assert sorted(ENTROPY_BACKENDS) == sorted(
+        ("auto", "native", "numpy", "device", "indexed", "sparse"))
+    with pytest.raises(ValueError, match="unknown entropy backend"):
+        jpeg_tpu_torch.decode(b"", entropy=entropy, device="cpu")

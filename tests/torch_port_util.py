@@ -222,3 +222,101 @@ def jax_exact_transform(monkeypatch):
     yield
     monkeypatch.undo()
     clear()
+
+
+# ---------------------------------------------------------------------------
+# Inputs of the device Huffman decoders' kernels (ops/entropy_decode), built
+# from a baseline single-scan stream as entropy/decode_device builds them.
+# ---------------------------------------------------------------------------
+
+
+def ac_indexed_inputs(jpg: bytes, device="cpu"):
+    """(words, off, dc, slot, tables): what decode_scan_indexed hands kernel
+    D for one stream, from the native index pass."""
+    import torch
+
+    from jpeg_tpu_torch.entropy import decode_device as PD, native
+    from jpeg_tpu_torch.ops import entropy_decode as ED
+
+    args = scan_args(jpg)
+    _, n_mcu, mcu_layout, htables, _ = args
+    destuffed, ac_off, dc = native.index_scan(*args)
+    slots, slot_of = PD._scan_slots(mcu_layout)
+    slot = np.concatenate([
+        np.full(bpm * n_mcu, slot_of[(1, ac)], dtype=np.int32)
+        for (_, bpm, _, ac) in mcu_layout])
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        PD._guarded_words(destuffed), ac_off, dc, slot,
+        ED.build_tables(htables, slots)))
+
+
+def segment_inputs(jpg: bytes, device="cpu"):
+    """((words, segment offsets, interval, MCU count, seq, tables, blocks),
+    bits per segment): what decode_scan hands kernel E, built segment by
+    segment with decode_np's functions. A stream without restart markers
+    comes out as one segment."""
+    import torch
+
+    from jpeg_tpu_torch.entropy import decode_device as PD
+    from jpeg_tpu_torch.ops import entropy_decode as ED
+
+    scan, n_mcu, mcu_layout, htables, r = scan_args(jpg)
+    unstuffed = [PD.decode_np.unstuff(s)
+                 for s in PD.decode_np.split_restart_segments(scan)]
+    flat = np.concatenate(unstuffed)
+    lens = np.array([len(u) for u in unstuffed])
+    seg_off = (np.cumsum(lens) - lens).astype(np.int32)
+    slots, slot_of = PD._scan_slots(mcu_layout)
+    seq, base = [], 0
+    for ci, (_, bpm, dc, ac) in enumerate(mcu_layout):
+        seq += [(ci, slot_of[(0, dc)], slot_of[(1, ac)], base + occ, bpm)
+                for occ in range(bpm)]
+        base += bpm * n_mcu
+    return (torch.as_tensor(PD._guarded_words(flat), device=device),
+            torch.as_tensor(seg_off, device=device),
+            r if r else n_mcu, n_mcu,
+            torch.tensor(seq, dtype=torch.int32, device=device),
+            torch.as_tensor(ED.build_tables(htables, slots), device=device),
+            base), [len(u) * 8 for u in unstuffed]
+
+
+def prefix_inputs(jpg: bytes, device="cpu", nbytes=None):
+    """((words, MCU count, seq, classes, tables), true bits): what
+    decode_scan_prefix hands program F for a stream without restart markers.
+    nbytes: pad the scan to that many bytes instead of the guard alone."""
+    import torch
+
+    from jpeg_tpu_torch.entropy import decode_device as PD
+    from jpeg_tpu_torch.ops import entropy_decode as ED
+
+    scan, n_mcu, mcu_layout, htables, _ = scan_args(jpg)
+    unstuffed = PD.decode_np.unstuff(scan)
+    true_bits = len(unstuffed) * 8
+    if nbytes:
+        unstuffed = np.concatenate(
+            [unstuffed, np.zeros(nbytes - len(unstuffed) - 8, dtype=np.uint8)])
+    slots, slot_of = PD._scan_slots(mcu_layout)
+    pairs = [(slot_of[(0, dc)], slot_of[(1, ac)])
+             for (_, bpm, dc, ac) in mcu_layout for _ in range(bpm)]
+    classes = sorted(set(pairs))
+    return (
+        torch.as_tensor(PD._guarded_words(unstuffed), device=device), n_mcu,
+        torch.tensor([(d, a, classes.index((d, a))) for d, a in pairs],
+                     dtype=torch.int32, device=device),
+        torch.tensor(classes, dtype=torch.int32, device=device),
+        torch.as_tensor(ED.build_tables(htables, slots), device=device),
+    ), true_bits
+
+
+def regroup_prefix(ac_off, diff, mcu_layout):
+    """Program F's (MCU, block of the MCU) outputs -> component-major
+    (AC offsets, absolute DCs), the order of native.index_scan."""
+    import torch
+
+    offs, dcs, base = [], [], 0
+    for (_, bpm, _, _) in mcu_layout:
+        offs.append(ac_off[:, base:base + bpm].reshape(-1))
+        dcs.append(torch.cumsum(diff[:, base:base + bpm].reshape(-1),
+                                0).to(torch.int32))
+        base += bpm
+    return torch.cat(offs).contiguous(), torch.cat(dcs).contiguous()
