@@ -8,8 +8,8 @@ Usage, from the repository root, on a machine with a CUDA device:
 Phases, each reported on its own line:
   1. require a CUDA device (exit 2 without one, or without the package);
   2. print the card's name and power limit (nvidia-smi);
-  3. build the six CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc
-     each, all started together) and the native entropy runtime, and print
+  3. build the five CUDA kernel sources from csrc/ with nvcc for sm_90a (one
+     nvcc each, all started together) and the native entropy runtime, and print
      the build seconds and ptxas resource use;
   4. kernel A (packer level 1) against its plain twin on the card: random
      blocks at AC densities 0, 0.15 and 0.3, the adversarial blocks of
@@ -24,19 +24,23 @@ Phases, each reported on its own line:
      ragged width (2160x3848): 0 coefficients apart, and within the
      kernel's contract of the twin run on the CPU (a second witness);
      5c: the device Huffman decoders against their plain twins, 0 apart:
-     kernel D (AC decode at known block starts), kernel E (one walk per
-     restart segment) and program F (block starts without restart markers)
-     on seeded small streams (4:2:0, 4:4:4, 4:2:2, gray, with and without
-     restarts, standard and optimal tables), kernel E over a restart-free
-     stream as one segment against F + D, and at full width: D's rows of
-     the 4K stream equal native.decode_scan's, F's offsets and cumulated
-     DCs equal native.index_scan's, E on the image encoded with a restart
-     interval of one MCU row equals native.decode_scan;
+     kernel D (AC decode at known block starts) and the chunked block-start
+     program, as program F (no restart markers) and as E's route (anchored
+     at every restart segment, then the DC sums and kernel D), on seeded
+     small streams (4:2:0, 4:4:4, 4:2:2, gray, with and without restarts,
+     standard and optimal tables), E's route over a restart-free stream as
+     one segment against F + D, and at full width: D's rows of the 4K
+     stream equal native.decode_scan's; on the eight frames of
+     sync_frames (the 4K stream, a solid black frame, 280-row black bars,
+     gray, q95, restart intervals of 240, 960 and 1 MCU) F's offsets and
+     cumulated DCs equal native.index_scan's and E's rows
+     native.decode_scan's, each with its resolve rounds (SYNC_PASSES) and
+     its time alone, and decode(entropy="device") equals "sparse" exactly;
   6. the main path: a 3840x2160 q75 4:2:0 encode and decode through
      jpeg_tpu_torch.encode/decode on the card, with every launch counter
-     reset first (encode: kernel A once; decode: program F and kernel D once
-     each, since entropy="auto" is the "device" backend on a card, and
-     kernel B three times); the bytes must equal the port's CPU encode, the pixels the
+     reset first (encode: kernel A once; decode: program F (five launches)
+     and kernel D once each, since entropy="auto" is the "device" backend on
+     a card, and kernel B three times); the bytes must equal the port's CPU encode, the pixels the
      port's CPU decode to +-1 in <= 0.5% of samples;
      6b: the same image through encode(use_pallas=True) (kernel C, host
      pack), counted: kernel C 3 launches, kernel A none; coefficients within
@@ -55,8 +59,9 @@ Phases, each reported on its own line:
      finish_ycbcr == decode() exactly; device_output a tensor on cuda:0
      equal to the host result; entropy="indexed" and "device" on the
      colour, gray and restart-240 streams, counted (kernel D once per
-     indexed decode; kernel E once per decode with restarts; program F and
-     kernel D once each without), pixels exactly equal to "sparse"; a 4K
+     indexed decode; E's route and kernel D once each per decode with
+     restarts; program F and kernel D once each without), pixels exactly
+     equal to "sparse"; a 4K
      scan with one flipped byte through "sparse", "indexed" and "device":
      all raise ScanDecodeError or all give the same pixels;
      6g: the committed fixture streams (tests/data/torch_port: progressive,
@@ -100,8 +105,9 @@ Phases, each reported on its own line:
      buffer, in turns), each in ms per image beside the single call's; the
      host index pass beside the host sparse walk; decode by "sparse",
      "indexed" and "device" in turns, end to end and by stage, on the 4K
-     stream, the restart-240 and the restart-960 one, and decode_stream at depth 4 with
-     each; kernels D and E and every launch of program F alone.
+     stream, the restart-240 and the restart-960 one and the two flat
+     frames, and decode_stream at depth 4 with each; kernel D, E's route and
+     every launch of program F alone.
 Then one JSON line of the kernels, and last {"ok": true, "device": ...}.
 Any failed phase exits 1.
 """
@@ -124,8 +130,7 @@ HEIGHT, WIDTH = 2160, 3840  # bench.py's 4K image
 QUALITY, SUBSAMPLING = 75, "420"
 WARM, RUNS = 2, 7
 DIFF_SHARE = 0.005  # decoded samples allowed to differ by 1 from the CPU path
-KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "segment_walk",
-           "prefix_index")
+KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "prefix_index")
 KERNEL_LAUNCHES = 20  # launches per timed replay of kernel_only_us
 COLD_BYTES = 200_000_000  # moved between two uses of a buffer; the L2 holds 50 MB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -164,6 +169,28 @@ def random_blocks(rng, n, density):
     blocks[mask] = rng.integers(-200, 201, size=mask.sum())
     blocks[:, 0] = rng.integers(-800, 800, size=n)
     return blocks
+
+
+def sync_frames(img):
+    """name -> (image, encode keyword arguments): the 4K frames the
+    block-start program is held to and timed on (phase 5c; also
+    kernel_compare.py): the default stream, flat content (a solid black
+    frame, 280-row black bars), gray, q95, and restart intervals of one MCU
+    row, four rows and one MCU."""
+    bars = img.copy()
+    bars[:280] = 0
+    bars[-280:] = 0
+    return {
+        "4K": (img, {}),
+        "4K solid black": (np.zeros_like(img), {}),
+        "4K 280-row black bars": (bars, {}),
+        "4K gray": (img[..., 0], {}),
+        "4K q95": (img, {"quality": 95}),
+        f"4K restart {ROW_RESTART}": (img, {"restart_interval": ROW_RESTART}),
+        f"4K restart {4 * ROW_RESTART}": (
+            img, {"restart_interval": 4 * ROW_RESTART}),
+        "4K restart 1": (img, {"restart_interval": 1}),
+    }
 
 
 def card_line() -> str:
@@ -662,32 +689,87 @@ def run(card: str) -> dict:
                 err_f = max(err_f, e_f)
             print(line, flush=True)
             err_d, err_e = max(err_d, e_d), max(err_e, e_e)
-    # At full width. D and F on the 4K stream; E on the same image encoded
-    # with a restart interval of one MCU row.
+    # At full width. D on the 4K stream; the block-start program (F without
+    # markers, E's route with them) on every frame of sync_frames, each
+    # alone beside its repair passes.
     d4k, rows4k, e = hold_d(jpg_cpu)
     err_d = max(err_d, e)
     print(f"phase 5c: kernel D, 4K q{QUALITY} {SUBSAMPLING}: "
           f"{rows4k.shape[0]} rows equal native.decode_scan's; vs plain: max "
           f"|err| {e}", flush=True)
-    f4k, got_f4k, e = hold_f(jpg_cpu)
-    err_f = max(err_f, e)
-    print(f"phase 5c: program F, 4K: {f4k[0].numel() * 32} bit positions, "
-          f"{f4k[3].shape[0]} table classes, {f4k[1]} MCUs: offsets and "
-          f"cumulated DCs equal native.index_scan's; vs plain: max |err| {e}",
-          flush=True)
-    del got_f4k
-    jpg_rst = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, ROW_RESTART,
-                                    device=dev)
-    e4k, rows_e4k, status_e4k = hold_e(jpg_rst)
-    (t_rows, t_status), secs_e_plain = timed(
-        entropy_decode.decode_segments_reference, *e4k)
-    e = max(int_err(rows_e4k, t_rows), int_err(status_e4k, t_status))
-    err_e = max(err_e, e)
-    print(f"phase 5c: kernel E, 4K restart {ROW_RESTART}: "
-          f"{status_e4k.shape[1]} segments, {rows_e4k.shape[0]} rows equal "
-          f"native.decode_scan's; vs plain: max |err| {e} (the twin's walk "
-          f"{secs_e_plain:.2f} s)", flush=True)
-    del rows4k, rows_e4k, t_rows
+    del rows4k
+
+    def f_alone_us(f_in):
+        """Program F alone, kernel only: its five launches back to back, as
+        a decode runs them."""
+        words, n_mcu, seq, classes, tables = f_in
+        sets = []
+        for _ in range(4):
+            w = words.clone()
+            outs = [torch.empty((n_mcu, seq.shape[0]), dtype=torch.int32,
+                                device=dev) for _ in range(2)]
+            outs.append(torch.empty(2, dtype=torch.int32, device=dev))
+            sets.append(entropy_decode.prefix_launches(
+                w, n_mcu, seq, classes, tables, *outs,
+                entropy_decode.prefix_scratch(w.numel(), n_mcu,
+                                              classes.shape[0], dev)))
+        return kernel_only_us(lambda i: [go() for _, go in sets[i]],
+                              len(sets), torch), sets
+
+    def e_alone_us(e_in):
+        """E's route alone, kernel only: the anchored program, the DC sums
+        and kernel D (_launch_segments), on rotating buffers."""
+        nblocks, nseg = e_in[6], e_in[1].shape[0]
+        sets = [(e_in[0].clone(),
+                 torch.empty((nblocks, 64), dtype=torch.int32, device=dev),
+                 torch.empty((2, nseg), dtype=torch.int32, device=dev))
+                for _ in range(rotation(nblocks * 256))]
+        return kernel_only_us(
+            lambda i: entropy_decode._launch_segments(
+                sets[i][0], *e_in[1:6], *sets[i][1:]), len(sets), torch)
+
+    sync_runs = {}  # frame -> (route, segments, blocks, passes, kernel us)
+    frames_4k = {}
+    for name, (frame, kw) in sync_frames(img).items():
+        kw = {"quality": QUALITY, **kw}
+        if frame.ndim == 3:
+            kw["subsampling"] = SUBSAMPLING
+        stream = jpg_cpu if name == "4K" else jpeg_tpu_torch.encode(
+            frame, device=dev, **kw)
+        frames_4k[name] = stream
+        if not kw.get("restart_interval"):
+            f_in, _got, e = hold_f(stream)
+            passes = entropy_decode.SYNC_PASSES
+            err_f = max(err_f, e)
+            us, _sets = f_alone_us(f_in)
+            sync_runs[name] = ("F", 1, f_in[1] * f_in[2].shape[0], passes, us)
+            if name == "4K":
+                f4k = f_in
+            del _got, _sets
+        else:
+            e_in, rows, status = hold_e(stream)
+            passes = entropy_decode.SYNC_PASSES
+            (t_rows, t_status), secs = timed(
+                entropy_decode.decode_segments_reference, *e_in)
+            e = max(int_err(rows, t_rows), int_err(status, t_status))
+            err_e = max(err_e, e)
+            us = e_alone_us(e_in)
+            sync_runs[name] = ("E", e_in[1].shape[0], e_in[6], passes, us)
+            if kw["restart_interval"] == ROW_RESTART:
+                e4k, secs_e_plain = e_in, secs
+            del rows, status, t_rows, t_status
+        route, nseg, nblocks, passes, us = sync_runs[name]
+        same = np.array_equal(
+            jpeg_tpu_torch.decode(stream, device=dev, entropy="device"),
+            jpeg_tpu_torch.decode(stream, device=dev, entropy="sparse"))
+        print(f"phase 5c: {'program F' if route == 'F' else 'E route'}, "
+              f"{name}: {nseg} segments, {nblocks} blocks, equal to the host "
+              f"walkers; vs plain: max |err| {e}; repair passes {passes}; "
+              f"kernel-only {us:.2f} us; 'device' pixels == 'sparse': "
+              f"{same} [{card}]", flush=True)
+        check(same, f"{name}: 'device' pixels differ from 'sparse'")
+    jpg_rst = frames_4k[f"4K restart {ROW_RESTART}"]
+    jpg_long = frames_4k[f"4K restart {4 * ROW_RESTART}"]
     check(err_d == 0 and err_e == 0 and err_f == 0,
           f"a device Huffman decoder disagrees with its plain twin "
           f"(D {err_d}, E {err_e}, F {err_f})")
@@ -754,7 +836,7 @@ def run(card: str) -> dict:
           f"spills {spills}", flush=True)
     check(per_encode == (1, 0, 0), "a default encode is one launch of kernel A")
     check(per_decode == (0, 3, 0), "a colour decode is three launches of kernel B")
-    f_launches = 3 + max(1, (mcu_rows * mcu_cols - 1).bit_length())
+    f_launches = len(entropy_decode._SYNC_STEPS)
     check(huffman_encode == (0, 0, 0, 0),
           f"an encode launched a Huffman decoder: {huffman_encode}")
     check(huffman_main == (1, 0, 1, f_launches),
@@ -1008,7 +1090,7 @@ def run(card: str) -> dict:
                                           entropy="sparse")
         for backend, want in (
                 ("indexed", (1, 0, 0, 0)),
-                ("device", (0, 1, 0, 0) if restarts else None)):
+                ("device", (1, 1, 0, f_launches) if restarts else None)):
             got, abc, huffman_n = counted_all(lambda: jpeg_tpu_torch.decode(
                 stream, device=dev, entropy=backend),
                 path=huffman_path.get((label, backend)))
@@ -1019,12 +1101,8 @@ def run(card: str) -> dict:
             check(same, f"{label}: {backend!r} pixels differ from sparse")
             check(abc == (0, nb, 0), f"{label} {backend!r}: launches {abc}")
             if want is None:  # no markers: program F once, then kernel D
-                check(huffman_n[:3] == (1, 0, 1) and huffman_n[3] >= 4,
+                check(huffman_n == (1, 0, 1, f_launches),
                       f"{label} 'device': launches {huffman_n}")
-                if label == "colour":
-                    check(huffman_n[3] == f_launches,
-                          f"program F made {huffman_n[3]} launches, not "
-                          f"{f_launches}")
             else:
                 check(huffman_n == want,
                       f"{label} {backend!r}: launches {huffman_n}")
@@ -1068,7 +1146,7 @@ def run(card: str) -> dict:
         one_scan = not parsed.progressive and len(parsed.scans) == 1
         got, n_b = counted(
             lambda: jpeg_tpu_torch.decode(data, device=dev),
-            ((0, 1, 0) if parsed.restart_interval else auto_n) if one_scan
+            ((1, 1, 0) if parsed.restart_interval else auto_n) if one_scan
             else (0, 0, 0))
         worst, ndiff, n = decode_diff(got, ref)
         print(f"phase 6g: {name}: {got.shape}, launches {n_b}; vs "
@@ -1079,12 +1157,12 @@ def run(card: str) -> dict:
               f"{name}: launches {n_b}")
         if name.startswith("noninterleaved"):
             # Three scans: each takes kernel D once with "indexed"; with
-            # "device" kernel E once if it has restart markers, else
-            # program F and kernel D once each.
+            # "device" kernel D and the block-start program once each, as
+            # E's route if it has restart markers, else as program F.
             marked = all(sc.restart_interval for sc in parsed.scans)
             for backend, want in (
                     ("indexed", (3, 0, 0)),
-                    ("device", (0, 3, 0) if marked else (3, 0, 3))):
+                    ("device", (3, 3, 0) if marked else (3, 0, 3))):
                 other, abc, huffman_n = counted_all(
                     lambda: jpeg_tpu_torch.decode(data, device=dev,
                                                   entropy=backend))
@@ -1561,11 +1639,9 @@ def run(card: str) -> dict:
             "decode_device.sparse_payload":
                 lambda: decode_device.sparse_payload(*args),
         }, torch, RUNS)
-    # End to end, the three backends in turns, on both streams and on the
-    # same image with four MCU rows to a restart segment: kernel E walks a
-    # segment in one thread, so its time follows the blocks of one segment.
-    jpg_long = jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING,
-                                     4 * ROW_RESTART, device=dev)
+    # End to end, the three backends in turns, on both streams, on the same
+    # image with four MCU rows to a restart segment (the old kernel E's time
+    # followed the blocks of one segment) and on the flat frames.
     huffman_backends = ("sparse", "indexed", "device")
     ms_turns = {
         label: medians_in_turns({
@@ -1574,7 +1650,10 @@ def run(card: str) -> dict:
             for b in huffman_backends}, torch, RUNS)
         for label, stream in (("4K", jpg),
                               (f"4K restart {ROW_RESTART}", jpg_rst),
-                              (f"4K restart {4 * ROW_RESTART}", jpg_long))}
+                              (f"4K restart {4 * ROW_RESTART}", jpg_long),
+                              ("4K solid black", frames_4k["4K solid black"]),
+                              ("4K 280-row black bars",
+                               frames_4k["4K 280-row black bars"]))}
     ms_stream_turns = medians_in_turns({
         b: (lambda b=b: drain(jpeg_tpu_torch.decode_stream(
             iter(jpgs16), depth=4, entropy=b, device=dev)))
@@ -1583,7 +1662,8 @@ def run(card: str) -> dict:
     # By stage. "indexed": the host index pass and the payload, one upload,
     # kernel D. "device" without markers: unstuff, one upload, program F,
     # regroup + cumsum, kernel D, the flags' readback; with markers: split
-    # + unstuff, one upload, kernel E, the flags' readback.
+    # + unstuff, one upload, E's route (the anchored block-start program, the
+    # DC sums, kernel D), the flags' readback.
     def split_rows(rows):
         return list(torch.split(rows, sizes_4k))
 
@@ -1631,7 +1711,7 @@ def run(card: str) -> dict:
             ("host split + unstuff + words", split_unstuff_words),
             (f"upload ({(e4k[0].numel() + e4k[1].numel()) * 4} B)",
              lambda p: (torch.from_numpy(p[0]).to(dev), p[1])),
-            ("kernel E (with its zero fill)", lambda p:
+            ("E route: block starts + DC sums + kernel D", lambda p:
              entropy_decode.decode_segments(p[0][:p[1]], p[0][p[1]:],
                                             *e4k[2:])),
             ("flags to the host", lambda p: (
@@ -1641,8 +1721,8 @@ def run(card: str) -> dict:
 
     lap("8, the kernels alone")
     # Wrapper calls (CUDA events around one call, host work included) and
-    # the twins on the card; kernel E's twin is a Python walk, timed once
-    # in phase 5c.
+    # the twins on the card; E's twin is a Python walk, timed once in phase
+    # 5c.
     ms_d = median_ms_device(
         lambda: entropy_decode.decode_ac_indexed(*d4k), torch)
     ms_d_plain = median_ms_device(
@@ -1714,73 +1794,40 @@ def run(card: str) -> dict:
                      w, o, d, sl, d4k[4], rows), bytes_d)
     bytes_e = e4k[0].numel() * 4 + nblk_h * 256
     nseg_e = e4k[1].shape[0]
-
-    def e_alone(e_in):
-        return alone(
-            (e_in[0],), (torch.empty((nblk_h, 64), dtype=torch.int32,
-                                     device=dev),
-                         torch.empty((2, e_in[1].shape[0]), dtype=torch.int32,
-                                     device=dev)),
-            lambda w, rows, st: entropy_decode._launch_segments(
-                w, *e_in[1:6], rows, st), bytes_e)
-
-    us_e = e_alone(e4k)
-    # Kernel E's time follows the blocks of one segment, not their sum: the
-    # same image with four MCU rows to a segment.
-    e_long = hold_e(jpg_long)[0]
-    us_e_long = e_alone(e_long)
-    # Program F: all of it (its launches back to back, as a decode runs
-    # them), then each kind of launch on its own.
+    # The block-start program alone was timed in phase 5c, on every frame.
+    us_e = sync_runs[f"4K restart {ROW_RESTART}"][4]
+    us_e_long = sync_runs[f"4K restart {4 * ROW_RESTART}"][4]
+    us_f = sync_runs["4K"][4]
     f_words, f_mcus, f_seq, f_classes, f_tables = f4k
-    f_nbits, f_bpm = f_words.numel() * 32, f_seq.shape[0]
-    f_levels = max(1, (f_mcus - 1).bit_length())
-    bytes_f = f_words.numel() * 4 + 2 * f_mcus * f_bpm * 4
-    f_sets = []
-    for _ in range(4):
-        f_sets.append((
-            f_words.clone(),
-            torch.empty((f_mcus, f_bpm), dtype=torch.int32, device=dev),
-            torch.empty((f_mcus, f_bpm), dtype=torch.int32, device=dev),
-            torch.zeros(2, dtype=torch.int32, device=dev),
-            entropy_decode.prefix_scratch(f_words.numel(), f_mcus,
-                                          f_classes.shape[0], dev)))
-
-    def f_whole(i):
-        w, off, diff, st, scratch = f_sets[i]
-        entropy_decode._launch_prefix(w, f_mcus, f_seq, f_classes, f_tables,
-                                      off, diff, st, scratch)
-
-    us_f = kernel_only_us(f_whole, len(f_sets), torch)
-    # One launch of each kind alone: level 0 composes a jump table, the last
-    # level only extends the starts.
-    f_steps = [entropy_decode.prefix_launches(
-        w, f_mcus, f_seq, f_classes, f_tables, off, diff, st, scratch)
-        for w, off, diff, st, scratch in f_sets]
+    f_nbits = f_words.numel() * 32
+    bytes_f = f_words.numel() * 4 + 2 * f_mcus * f_seq.shape[0] * 4
+    # Each launch of program F alone (on the outputs of the ones before).
+    _us, f_sets = f_alone_us(f4k)
+    for launches in f_sets:
+        for _name, go in launches:
+            go()
     us_f_stages = {
-        label: kernel_only_us(lambda i: f_steps[i][k][1](), len(f_sets), torch)
-        for label, k in (("block ends", 0), ("MCU hop", 1),
-                         ("doubling level, composing", 2),
-                         ("last doubling level", -2), ("replay", -1))}
-    del f_steps, f_sets
+        name: kernel_only_us(lambda i, k=k: f_sets[i][k][1](), len(f_sets),
+                             torch)
+        for k, (name, _go) in enumerate(f_sets[0])}
+    del f_sets
     for label, us, nbytes in (
         (f"kernel D ac_indexed, {nblk_h} blocks", us_d, bytes_d),
-        (f"kernel E segment_walk, {nseg_e} segments, {nblk_h} blocks", us_e,
-         bytes_e),
+        (f"E route (block-start program + DC sums + kernel D), {nseg_e} "
+         f"segments, {nblk_h} blocks", us_e, bytes_e),
         (f"program F prefix_index, {f_nbits} bit positions, {f_mcus} MCUs, "
-         f"{3 + f_levels} launches", us_f, bytes_f),
+         f"{len(us_f_stages)} launches", us_f, bytes_f),
     ):
         print(f"phase 8: {label}: kernel-only {us:.2f} us, {nbytes} bytes, "
               f"bound {bound_us(nbytes):.2f} us, share "
               f"{bound_us(nbytes) / us:.4f} [{card}]", flush=True)
-    print(f"phase 8: kernel E with restart {4 * ROW_RESTART}: "
-          f"{e_long[1].shape[0]} segments of {nblk_h // nseg_e * 4} blocks: "
+    print(f"phase 8: E route with restart {4 * ROW_RESTART}: "
+          f"{sync_runs[f'4K restart {4 * ROW_RESTART}'][1]} segments: "
           f"kernel-only {us_e_long:.2f} us (restart {ROW_RESTART}: {nseg_e} "
-          f"segments of {nblk_h // nseg_e} blocks, {us_e:.2f} us) "
-          f"[{card}]", flush=True)
+          f"segments, {us_e:.2f} us) [{card}]", flush=True)
     print("phase 8: program F by launch, kernel-only: "
           + "; ".join(f"{k} {v:.2f} us" for k, v in us_f_stages.items())
-          + f" ({f_levels} doubling levels, {f_levels - 1} composing) "
-          f"[{card}]", flush=True)
+          + f" [{card}]", flush=True)
     for label, us, nbytes in (
         (f"kernel A pack_level1, {nblk} blocks q{QUALITY}", us_a, bytes_a),
         (f"kernel A pack_level1, {nblk} blocks q95", us_a_q95, bytes_a),
@@ -1876,8 +1923,8 @@ def run(card: str) -> dict:
         (f"kernel B idct8, {tuple(luma.shape)} plane", ms_b, ms_b_plain),
         (f"kernel C dct8, {tuple(y_plane.shape)} plane", ms_c, ms_c_plain),
         (f"kernel D ac_indexed, {nblk_h} blocks", ms_d, ms_d_plain),
-        (f"kernel E segment_walk, {nseg_e} segments (twin: one Python walk "
-         f"on the host)", ms_e, secs_e_plain * 1e3),
+        (f"E route decode_segments, {nseg_e} segments (twin: one Python "
+         f"walk on the host)", ms_e, secs_e_plain * 1e3),
         (f"program F prefix_index, {f_nbits} bit positions", ms_f,
          ms_f_plain),
     ):
@@ -1929,15 +1976,22 @@ def run(card: str) -> dict:
         entry("ac_indexed", "jpeg_tpu_torch/csrc/ac_indexed.cu",
               "jpeg_tpu/entropy/decode_device.py:179", main_launches[3],
               err_d, ms_d, ms_d_plain, us_d, bytes_d, per[3]),
-        entry("segment_walk", "jpeg_tpu_torch/csrc/segment_walk.cu",
+        entry("prefix_index_anchored", "jpeg_tpu_torch/csrc/prefix_index.cu",
               "jpeg_tpu/entropy/decode_device.py:71",
               per_huffman[f"colour restart {ROW_RESTART}", "device"][1],
-              err_e, ms_e, secs_e_plain * 1e3, us_e, bytes_e, per[4]),
+              err_e, ms_e, secs_e_plain * 1e3, us_e, bytes_e, per[4],
+              kernel_us_covers="the anchored program, the DC sums, kernel D",
+              by_frame={k: {"segments": v[1], "blocks": v[2],
+                            "sync_passes": v[3], "kernel_us": v[4]}
+                        for k, v in sync_runs.items() if v[0] == "E"}),
         entry("prefix_index", "jpeg_tpu_torch/csrc/prefix_index.cu",
               "jpeg_tpu/entropy/decode_device.py:866", main_launches[5],
               err_f, ms_f, ms_f_plain, us_f, bytes_f, per[5],
               separate_launches=per_huffman["colour", "device"][3],
-              kernel_us_by_launch=us_f_stages),
+              kernel_us_by_launch=us_f_stages,
+              by_frame={k: {"blocks": v[2], "sync_passes": v[3],
+                            "kernel_us": v[4]}
+                        for k, v in sync_runs.items() if v[0] == "F"}),
     ]}
 
 

@@ -29,7 +29,7 @@
 // which is contiguous in the output, in order, 128 bytes per warp and store.
 //
 // The first levels are read where they lie, through the read-only path, and
-// not copied to shared memory as kernel E copies them: a thread block here
+// not copied to shared memory per thread block: a thread block here
 // lives for a few microseconds, and 8 KB of table per block cost more
 // than they saved. Measured in turns (kernel_compare.py, two runs, NVIDIA
 // H100 80GB HBM3, 700 W, kernel only, L2 cold, the 194,400 blocks of the 4K

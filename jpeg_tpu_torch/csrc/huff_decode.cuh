@@ -1,6 +1,6 @@
-// Shared pieces of the three device Huffman decoders (ac_indexed.cu,
-// segment_walk.cu, prefix_index.cu): the bit reader, the table lookup and the
-// amplitude arithmetic. A thread walks its own bits; nothing here is
+// Shared pieces of the device Huffman decoders (ac_indexed.cu,
+// prefix_index.cu): the bit reader, the table lookup and the amplitude
+// arithmetic. A thread walks its own bits; nothing here is
 // cooperative, so the same code compiles for the host when JT_HOST_STANDIN is
 // defined (the CPU tests run the kernels' per-thread bodies that way).
 //
@@ -14,9 +14,8 @@
 // length 16 and symbol -1, so a corrupt stream always advances. The last
 // kFirstSize entries are a first level indexed by the window's top
 // kFirstBits bits: the same entry when the code is that short, else 0 (no
-// full entry is 0). The first levels (2 KB per table) stay hot in L1, or in
-// shared memory where a kernel copies them (kernel E, whose few threads live
-// long); the 256 KB full table in L2 is read only for the rare long codes.
+// full entry is 0). The first levels (2 KB per table) stay hot in L1; the
+// 256 KB full table in L2 is read only for the rare long codes.
 
 #pragma once
 
@@ -83,18 +82,5 @@ __device__ __forceinline__ int extend(uint32_t amp, int size) {
 }
 
 __device__ __forceinline__ int min_int(int a, int b) { return a < b ? a : b; }
-
-#ifndef JT_HOST_STANDIN
-// Every thread of the block: copy the tables' first levels to shared memory,
-// slot after slot. The caller synchronizes.
-__device__ __forceinline__ void load_first_levels(int32_t* s_first,
-                                                  const int32_t* tables,
-                                                  int nslots) {
-  for (int i = threadIdx.x; i < nslots * kFirstSize; i += blockDim.x) {
-    s_first[i] = tables[(i >> kFirstBits) * kSlotStride + kFullSize +
-                        (i & (kFirstSize - 1))];
-  }
-}
-#endif
 
 }  // namespace jt

@@ -24,10 +24,11 @@ one upload of the scan's words with the offsets and DCs behind them, and
 kernel D decodes every block's AC coefficients in parallel.
 
 "device" (decode_scan): the host only splits the scan at its restart markers
-and removes the byte stuffing. With markers, kernel E walks every segment on
-its own thread. Without (decode_scan_prefix), program F finds every block's
-start on the card, a cumulative sum gives the DCs, and kernel D decodes the
-blocks. The kernels, their twins and their table format are
+and removes the byte stuffing. The card finds every block's start with one
+chunked, self-synchronizing program (csrc/prefix_index.cu): anchored at every
+segment's first byte with markers (decode_segments, which also sums the DCs
+and runs kernel D), from bit 0 without (decode_scan_prefix: program F, then a
+cumulative sum gives the DCs, and kernel D decodes the blocks). The kernels, their twins and their table format are
 ops/entropy_decode's; the reference's canonical-code tables and its second
 LUT form are not carried over, since a GPU thread indexes one table.
 
@@ -375,7 +376,8 @@ def decode_scan_sparse(
 
 # ---------------------------------------------------------------------------
 # The device Huffman decoders: "indexed" (host index + kernel D) and "device"
-# (kernel E per restart segment, or program F + kernel D without markers).
+# (the block-start program anchored at every restart segment, or program F
+# without markers; kernel D after either).
 # ---------------------------------------------------------------------------
 
 # Device tensors that are built once and kept: decode tables per table set,
@@ -533,10 +535,9 @@ def decode_scan_prefix(
 def _decode_prefix(host_words: np.ndarray, true_bits: int, mcu_count: int,
                    mcu_layout: list, htables: dict, device: torch.device):
     """decode_scan_prefix on the unstuffed scan's words."""
-    # Program F's working memory goes by the words it is given (4 bytes per
-    # bit position for each table class and two jump tables), so it is given
-    # no more than these blocks can span: a walk that raises no flag ends
-    # inside them, and what a file carries behind them is never read.
+    # Program F is given no more words than these blocks can span: a walk
+    # that raises no flag ends inside them, and what a file carries behind
+    # them is never read, nor chunked.
     keep = (mcu_count * sum(bpm for (_, bpm, _, _) in mcu_layout)
             * MAX_BLOCK_BITS + 31) // 32
     if keep + _GUARD // 4 < len(host_words):
@@ -592,10 +593,10 @@ def decode_scan(
     removes the byte stuffing (unstuffed_segments); the Huffman walk runs on
     the device.
 
-    A stream with restart markers takes kernel E, one thread per segment; one
-    without (and more than one MCU) takes the parallel prefix index
-    (decode_scan_prefix). Only the segments' end positions and error flags
-    come back to the host."""
+    A stream with restart markers takes the block-start program anchored at
+    every segment (decode_segments); one without (and more than one MCU)
+    takes program F (decode_scan_prefix). Only the segments' end positions
+    and error flags come back to the host."""
     device = torch.device(device)
     host_words, seg_off, seg_bytes = unstuffed_segments(scan)
     r = restart_interval if restart_interval else mcu_count

@@ -4,8 +4,9 @@
   baseline single-scan streams the sparse walk, which yields only the
   nonzero coefficients) -> one upload -> device: densify (sparse payloads),
   or the Huffman decode itself (entropy="indexed": kernel D after a host
-  index pass; entropy="device": kernel E per restart segment, or program F +
-  kernel D; ops/entropy_decode), then
+  index pass; entropy="device": the chunked block-start program, anchored at
+  every restart segment or program F without markers, + kernel D;
+  ops/entropy_decode), then
   scan -> raster block order, de-zigzag, dequant + IDCT + unshift (kernel B,
   ops/fused; the DCT-domain scaled IDCT for scale_denom 2/4/8), round and
   clip, chroma upsample, YCbCr -> RGB, round and clip to uint8 -> crop.
@@ -343,14 +344,16 @@ def _auto_backend(device: torch.device) -> str:
     against 24.882 / 27.396 / 21.054 "sparse". The host has only the
     unstuffing left (1.1-1.6 ms against a 26.5-30.3 ms sparse walk).
 
-    The times above are of segments of 1,440 blocks or none. Kernel E walks
-    a segment in one thread, about 1 us per block of a segment whatever
-    their number (1.50-1.57 ms for segments of 1,440 blocks, 5.84-6.10 ms
-    for 5,760), and program F's working memory is 128 bytes per scan byte
-    with two table classes (82 MB for the 0.64 MB 4K scan), bounded by what
-    the scan's blocks can span (decode_device.MAX_BLOCK_BITS). No stream
-    has been measured on which "sparse" wins on a card, so none is sent
-    there."""
+    Since the block starts are found by one chunked program, with or without
+    restart markers, the time no longer grows with a segment's length: at
+    restart intervals of 240 and 960 MCUs "device" read 9.592 / 11.094 and
+    9.228 / 10.022 ms against 22.510 / 24.329 and 22.350 / 23.224 "sparse",
+    on flat frames (solid black, 280-row black bars) 7.122 / 7.881 and
+    9.382 / 9.198 against 13.705 / 14.572 and 30.813 / 33.312 (chip_smoke.py
+    phase 8, in turns, two calls, NVIDIA H100 80GB HBM3 at 700 W). Its
+    scratch is O(chunks), and a scan is given no more words than its blocks
+    can span (decode_device.MAX_BLOCK_BITS). No stream has been measured on
+    which "sparse" wins on a card, so none is sent there."""
     return "host" if device.type == "cpu" else "device"
 
 
@@ -581,9 +584,10 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
     densify), "indexed" (host index pass: destuff, and per block its bit
     offset and DC; then kernel D decodes every block's AC coefficients on
     the device; needs table ids that fit the native runtime) or "device"
-    (the host only splits at restart markers and unstuffs; kernel E walks
-    the segments, or, without markers, program F finds the block starts and
-    kernel D decodes; any table ids). All give the same coefficients.
+    (the host only splits at restart markers and unstuffs; the chunked
+    block-start program finds the block starts, anchored at every restart
+    segment or from bit 0 without markers, and kernel D decodes; any table
+    ids). All give the same coefficients.
     Progressive streams have host walkers only: "numpy" and "native" select
     one, every other name takes the best."""
     if entropy not in ENTROPY_BACKENDS:

@@ -4,11 +4,13 @@ Three programs of jpeg_tpu/entropy/decode_device.py (jitted XLA there, not
 Pallas) as hand-written CUDA kernels:
   - kernel D, csrc/ac_indexed.cu, for `_decode_ac_indexed` (:179): the AC
     coefficients of every block from its known start (decode_ac_indexed);
-  - kernel E, csrc/segment_walk.cu, for `_decode_block` under `_jit_segments`
-    (:71, :117): one sequential walk per restart segment (decode_segments);
-  - program F, csrc/prefix_index.cu, for `_jit_prefix_index` (:866): every
-    block's start in a scan without restart markers (prefix_index; several
-    launches, one row).
+  - one chunked, self-synchronizing block-start program,
+    csrc/prefix_index.cu (five launches), in two modes: unanchored, program
+    F, for `_jit_prefix_index` (:866): every block's start in a scan without
+    restart markers (prefix_index); anchored, E's route, for `_decode_block`
+    under `_jit_segments` (:71, :117): the block starts of every restart
+    segment from its first byte, then a DC sum per component and segment
+    and kernel D (decode_segments).
 On a CUDA tensor a wrapper launches its kernel, on a CPU tensor it runs the
 plain twin, and nothing else decides. The twins are second formulations: D's
 steps all blocks together in torch ops until the slowest is done, E's is a
@@ -33,13 +35,16 @@ from jpeg_tpu_torch.entropy import decode_np
 from jpeg_tpu_torch.ops import _cuda
 
 # Launches since the last reset (plus one per wrapper call that launches its
-# kernel, nowhere else). F counts once per prefix_index call; its separate
-# launches (block ends, MCU hop, one per doubling level, replay) add up in
-# PREFIX_STAGE_LAUNCHES.
+# kernel, nowhere else). The block-start program counts once per
+# prefix_index call (PREFIX_LAUNCHES) or decode_segments call
+# (SEGMENT_LAUNCHES, which launches kernel D too); its five launches add up
+# in PREFIX_STAGE_LAUNCHES either way. SYNC_PASSES (a module attribute read
+# through __getattr__ below) is the resolve rounds of the last call.
 AC_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 PREFIX_LAUNCHES = 0
 PREFIX_STAGE_LAUNCHES = 0
+_last_passes = None
 # Worker threads launch too (parallel/pipeline), so the increments hold a lock.
 _COUNT_LOCK = threading.Lock()
 
@@ -48,7 +53,8 @@ FIRST_BITS = 9
 FIRST_SIZE = 1 << FIRST_BITS
 SLOT_STRIDE = FULL_SIZE + FIRST_SIZE
 MAX_SLOTS = 8
-SEQ_FIELDS = 5  # kernel E: comp, dc slot, ac slot, row base, rows per MCU
+SEQ_FIELDS = 5  # anchored: comp, dc slot, ac slot, row base, rows per MCU
+MAX_BPM = 10  # blocks per MCU at most (T.81 B.2.3)
 # Bit offsets are int32: a stream of 2^26 words or more is refused.
 MAX_WORDS = (1 << 26) - 1
 _M32 = 0xFFFFFFFF
@@ -293,19 +299,36 @@ def decode_segments_reference(words, seg_off, interval: int, mcu_count: int,
 
 
 def _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
-                     status, lib=None) -> None:
-    """Enqueue kernel E on PyTorch's current stream: prepared contiguous
-    int32 tensors (rows zeroed), no checks and no allocation. Counts the
-    launch."""
-    global SEGMENT_LAUNCHES
-    lib = lib or _cuda.load("segment_walk")
-    _call("segment_walk", lib.jt_segment_walk, words.device, _ptr(words),
-          ctypes.c_int(words.numel()), _ptr(seg_off),
-          ctypes.c_int(seg_off.numel()), ctypes.c_long(interval), ctypes.c_long(mcu_count), _ptr(seq),
-          ctypes.c_int(seq.shape[0]), _ptr(tables),
-          ctypes.c_int(tables.shape[0]), _ptr(rows), _ptr(status))
+                     status, lib=None, ac_lib=None) -> None:
+    """Enqueue the anchored block-start program (csrc/prefix_index.cu, five
+    launches), the DC sums per component and segment, and kernel D on
+    PyTorch's current stream, into the prepared `rows` and `status`. No
+    checks; allocates the program's scratch and its per-block outputs.
+    `lib` and `ac_lib` are the two programs' builds (the CUDA ones unless
+    given). Counts one segment call, the program's launches and kernel
+    D's."""
+    global SEGMENT_LAUNCHES, PREFIX_STAGE_LAUNCHES
+    lib = lib or _cuda.load("prefix_index")
+    dev, nblocks = words.device, rows.shape[0]
+    per_block = torch.empty((4, nblocks), dtype=torch.int32, device=dev)
+    ac_off, diff, slot, group = per_block
+    scratch = sync_scratch(words.numel(), seg_off.numel(), seq.shape[0],
+                           mcu_count, dev, lib)
+    steps = _sync_steps(lib, words, seg_off, interval, mcu_count, seq, tables,
+                        scratch, ac_off, diff, status, slot, group)
+    for _name, enqueue in steps:
+        enqueue()
+    _note_passes(scratch)
     with _COUNT_LOCK:
         SEGMENT_LAUNCHES += 1
+        PREFIX_STAGE_LAUNCHES += len(steps)
+    # Absolute DCs: a running sum of the differences, less its value just
+    # before the first row of the block's component in its segment. A
+    # flagged stream's rows are unspecified, so its rows only stay in bounds.
+    sums = torch.cumsum(diff, 0, dtype=torch.int64)
+    before = torch.cat([sums.new_zeros(1), sums])[group.clamp(0, nblocks)]
+    dc = (sums - before).to(torch.int32)
+    _launch_ac_indexed(words, ac_off, dc, slot, tables, rows, ac_lib)
 
 
 def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
@@ -318,10 +341,11 @@ def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
     AC rows in `tables`, and where its rows go: row base + MCU index * rows
     per MCU. -> (rows (nblocks, 64) int32 with the DC predictors undone per
     component from 0 at every segment start, status (2, S) int32: each
-    segment's length in bits as walked, then its error flag).
+    segment's length in bits as walked, then its error flag). The rows of a
+    flagged segment are unspecified (decoders raise on any flag).
 
-    CUDA tensors launch kernel E (csrc/segment_walk.cu); CPU tensors run
-    the plain twin."""
+    CUDA tensors run the anchored mode of the chunked block-start program
+    (csrc/prefix_index.cu) and kernel D; CPU tensors run the plain twin."""
     dev = words.device
     if dev.type == "cpu":
         return decode_segments_reference(words, seg_off, interval, mcu_count,
@@ -342,7 +366,7 @@ def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
             f"decode_segments: {nseg} segments of {interval} MCUs for "
             f"{mcu_count} MCUs")
     _check_words("decode_segments", words.numel())
-    rows = torch.zeros((nblocks, 64), dtype=torch.int32, device=dev)
+    rows = torch.empty((nblocks, 64), dtype=torch.int32, device=dev)
     status = torch.empty((2, nseg), dtype=torch.int32, device=dev)
     _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
                      status)
@@ -449,43 +473,85 @@ def prefix_index_reference(words, n_mcu: int, seq, classes, tables):
             status.to(torch.int32))
 
 
+class _SyncArgs(ctypes.Structure):
+    """csrc/prefix_index.cu's SyncArgs, field for field."""
+    _fields_ = [
+        ("words", ctypes.c_void_p), ("nwords", ctypes.c_int),
+        ("anchored", ctypes.c_int), ("seg_off", ctypes.c_void_p),
+        ("nseg", ctypes.c_int), ("bpm", ctypes.c_int),
+        ("interval", ctypes.c_long), ("n_mcu", ctypes.c_long),
+        ("seq", ctypes.c_void_p), ("tables", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p), ("ac_off", ctypes.c_void_p),
+        ("diff", ctypes.c_void_p), ("slot", ctypes.c_void_p),
+        ("group", ctypes.c_void_p), ("status", ctypes.c_void_p),
+    ]
+
+
+_SYNC_STEPS = (("layout", "jt_sync_layout"), ("speculate", "jt_sync_speculate"),
+               ("link", "jt_sync_link"), ("resolve", "jt_sync_resolve"),
+               ("write", "jt_sync_write"))
+
+
+def _sync_steps(lib, words, seg_off, interval, n_mcu, seq, tables, scratch,
+                ac_off, diff, status, slot=None, group=None) -> list:
+    """The block-start program's launches, [(name, enqueue)]: anchored when
+    `seg_off` is given (E's contract), else one segment at bit 0 (F's)."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = _SyncArgs(
+        ptr(words), words.numel(), int(seg_off is not None), ptr(seg_off),
+        1 if seg_off is None else seg_off.numel(), seq.shape[0], interval,
+        n_mcu, ptr(seq), ptr(tables), ptr(scratch), ptr(ac_off), ptr(diff),
+        ptr(slot), ptr(group), ptr(status))
+    dev = words.device
+    # The launches hold the tensors, since args holds only their addresses.
+    held = (words, seg_off, seq, tables, scratch, ac_off, diff, slot, group,
+            status)
+    return [(name, lambda fn=getattr(lib, entry), name=name, held=held: _call(
+        f"sync {name}", fn, dev, ctypes.byref(args)))
+        for name, entry in _SYNC_STEPS]
+
+
+def sync_scratch(nwords: int, nseg: int, bpm: int, n_mcu: int, dev,
+                 lib=None):
+    """The block-start program's working memory (O(chunks x lanes) bytes)
+    for `nseg` segments of `n_mcu` MCUs in all in `nwords` words. `lib` (the
+    CUDA build unless a host build is given) sizes it: the chunk size goes
+    by the bits per MCU."""
+    lib = lib or _cuda.load("prefix_index")
+    lib.jt_sync_scratch_bytes.restype = ctypes.c_long
+    nbytes = lib.jt_sync_scratch_bytes(ctypes.c_int(nwords),
+                                       ctypes.c_int(nseg), ctypes.c_int(bpm),
+                                       ctypes.c_long(n_mcu))
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _note_passes(scratch) -> None:
+    global _last_passes
+    _last_passes = scratch[:4].view(torch.int32)
+
+
+def __getattr__(name):
+    if name == "SYNC_PASSES":
+        # The rounds of the last call's resolve step, read where that step
+        # wrote them (on a card this waits for it).
+        return 0 if _last_passes is None else int(_last_passes[0])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def prefix_launches(words, n_mcu, seq, classes, tables, ac_off, diff, status,
                     scratch, lib=None) -> list:
     """Program F as its separate launches, in order: [(name, enqueue)], each
-    enqueue() putting one launch on PyTorch's current stream. Prepared
-    contiguous int32 tensors (status zeroed; scratch = prefix_scratch's
-    block ends, two jump tables and zeroed starts), no checks and no
-    allocation. A measurement may run one of them alone."""
+    enqueue() putting one launch on PyTorch's current stream: the unanchored
+    mode of csrc/prefix_index.cu (layout, speculate, link, resolve, write).
+    Prepared contiguous int32 tensors and prefix_scratch's scratch; no
+    checks and no allocation. `classes` is the contract's and goes unused:
+    the walks read each block's own tables. A measurement may run one launch
+    alone."""
     lib = lib or _cuda.load("prefix_index")
-    dev = words.device
-    nwords, bpm = words.numel(), seq.shape[0]
-    nbits = nwords * 32
-    fb, jump, other, starts = scratch
-    steps = [
-        ("block ends", lambda: _call(
-            "prefix_block_ends", lib.jt_prefix_block_ends, dev, _ptr(words),
-            ctypes.c_int(nwords), _ptr(classes),
-            ctypes.c_int(classes.shape[0]), _ptr(tables),
-            ctypes.c_int(tables.shape[0]), _ptr(fb))),
-        ("MCU hop", lambda first=jump: _call(
-            "prefix_mcu_hop", lib.jt_prefix_mcu_hop, dev, _ptr(fb),
-            ctypes.c_int(nbits), _ptr(seq), ctypes.c_int(bpm), _ptr(first))),
-    ]
-    levels = max(1, (n_mcu - 1).bit_length())
-    for j in range(levels):
-        # Level j reads the table of 2^j-MCU jumps and, but for the last
-        # level, writes the one of 2^(j+1); the two tables take turns.
-        steps.append((f"doubling level {j}", lambda j=j, a=jump, b=other: _call(
-            "prefix_double", lib.jt_prefix_double, dev, _ptr(a), _ptr(b),
-            _ptr(starts), ctypes.c_int(nbits), ctypes.c_long(1 << j),
-            ctypes.c_long(n_mcu), ctypes.c_int(j + 1 < levels))))
-        jump, other = other, jump
-    steps.append(("replay", lambda: _call(
-        "prefix_replay", lib.jt_prefix_replay, dev, _ptr(words),
-        ctypes.c_int(nwords), _ptr(fb), _ptr(starts), ctypes.c_long(n_mcu),
-        _ptr(seq), ctypes.c_int(bpm), _ptr(tables), _ptr(ac_off), _ptr(diff),
-        _ptr(status))))
-    return steps
+    return _sync_steps(lib, words, None, n_mcu, n_mcu, seq, tables, scratch,
+                       ac_off, diff, status)
 
 
 def _launch_prefix(words, n_mcu, seq, classes, tables, ac_off, diff, status,
@@ -497,18 +563,17 @@ def _launch_prefix(words, n_mcu, seq, classes, tables, ac_off, diff, status,
                             status, scratch, lib)
     for _name, enqueue in steps:
         enqueue()
+    _note_passes(scratch)
     with _COUNT_LOCK:
         PREFIX_LAUNCHES += 1
         PREFIX_STAGE_LAUNCHES += len(steps)
 
 
-def prefix_scratch(nwords: int, n_mcu: int, nclasses: int, dev):
-    """Program F's working tensors for a scan of `nwords` words."""
-    nbits = nwords * 32
-    return (torch.empty((nclasses, nbits), dtype=torch.int32, device=dev),
-            torch.empty(nbits, dtype=torch.int32, device=dev),
-            torch.empty(nbits, dtype=torch.int32, device=dev),
-            torch.zeros(n_mcu, dtype=torch.int32, device=dev))
+def prefix_scratch(nwords: int, n_mcu: int, nclasses: int, dev, lib=None):
+    """Program F's working memory for a scan of `nwords` words: sync_scratch
+    of one segment, sized for the most blocks an MCU has, so that any seq
+    fits."""
+    return sync_scratch(nwords, 1, MAX_BPM, n_mcu, dev, lib)
 
 
 def prefix_index(words, n_mcu: int, seq, classes, tables):
@@ -521,8 +586,9 @@ def prefix_index(words, n_mcu: int, seq, classes, tables):
     after the last MCU, and whether a block on the path hit a window that
     starts no code or overshot k = 64 without EOB).
 
-    CUDA tensors launch program F (csrc/prefix_index.cu); CPU tensors run
-    the plain twin."""
+    CUDA tensors run program F, the unanchored mode of the chunked
+    block-start program (csrc/prefix_index.cu); CPU tensors run the plain
+    twin."""
     dev = words.device
     if n_mcu < 1:
         raise ValueError(f"prefix_index: {n_mcu} MCUs")
@@ -542,7 +608,7 @@ def prefix_index(words, n_mcu: int, seq, classes, tables):
     bpm = seq.shape[0]
     ac_off = torch.empty((n_mcu, bpm), dtype=torch.int32, device=dev)
     diff = torch.empty((n_mcu, bpm), dtype=torch.int32, device=dev)
-    status = torch.zeros(2, dtype=torch.int32, device=dev)
+    status = torch.empty(2, dtype=torch.int32, device=dev)
     _launch_prefix(words, n_mcu, seq, classes, tables, ac_off, diff, status,
                    prefix_scratch(words.numel(), n_mcu, classes.shape[0], dev))
     return ac_off, diff, status

@@ -9,8 +9,8 @@ Usage, from the repository root, on a machine with a CUDA device and nvcc:
                               [--candidate-b FILE.cu]... [--flags-b "..."]...
                               [--candidate-c FILE.cu]... [--flags-c "..."]...
                               [--candidate-d FILE.cu]... [--flags-d "..."]...
-                              [--flags-f "..."]...
-                              [--previous-only] [--json FILE]
+                              [--previous-ef DIR] [--flags-f "..."]...
+                              [--previous-only] [--ef-only] [--json FILE]
     python3 kernel_compare.py --progressive-4k
 
 The package's own kernels A (pack_level1), B (idct8), C (dct8) and D
@@ -23,11 +23,20 @@ design). --candidate-a / -b / -c / -d name
 another source with the current entry point; --flags-a / -b / -c / -d build the
 package's own source once more with extra nvcc flags (e.g. "-DJT_THREADS=256",
 "-DJT_D_TILE=64") as a further contender; each of the eight may be given more
-than once. --flags-f does the same for the first launch of program F
-(prefix_index.cu's block ends, the longest of them), held to the output of
-the package's own build.
+than once.
 --previous-only times the previous sources and the package's kernel
 C and nothing else (for a tree whose own A and B do not build yet).
+
+The block-start program (csrc/prefix_index.cu: program F, and E's route
+with the DC sums and kernel D) is timed on the eight 4K frames of
+chip_smoke.sync_frames, held to its plain twins first, with its resolve
+rounds, its scratch and each of its launches alone. --previous-ef DIR names
+a directory that holds prefix_index.cu and segment_walk.cu as they were
+before the chunked program (program F in 18 launches at 4K, kernel E; commit
+c3598a5 or older), timed in turns with it on the same inputs; --flags-f
+builds the package's program once more with extra nvcc flags (e.g.
+"-DJT_CHUNK_BITS=1024", "-DJT_LANES=1") as a further contender. --ef-only
+runs this comparison and nothing else.
 
 Inputs are those of chip_smoke.py's main path: the 3840x2160 4:2:0 image's
 194,400 level-1 blocks at q75 and at q95 (dense), its Y and Cb coefficient
@@ -58,6 +67,7 @@ import pathlib
 import shlex
 import statistics
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -68,6 +78,245 @@ ROUNDS = 3
 
 def _ptrs(*tensors):
     return [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+
+
+def _old_f_steps(lib, words, n_mcu, seq, classes, tables, out, stream):
+    """The launches of program F as it was before the chunked program (18 at
+    4K): block ends per bit position and class, the MCU hop, the doubling
+    levels, the replay; `out` = (ac_off, diff, status, block ends, two jump
+    tables, zeroed starts)."""
+    ac_off, diff, status, fb, jump, other, starts = out
+    nwords, bpm, nbits = words.numel(), seq.shape[0], words.numel() * 32
+    c_int, c_long = ctypes.c_int, ctypes.c_long
+    steps = [lambda: lib.jt_prefix_block_ends(
+        *_ptrs(words), c_int(nwords), *_ptrs(classes), c_int(classes.shape[0]),
+        *_ptrs(tables), c_int(tables.shape[0]), *_ptrs(fb), stream()),
+        lambda first=jump: lib.jt_prefix_mcu_hop(
+            *_ptrs(fb), c_int(nbits), *_ptrs(seq), c_int(bpm), *_ptrs(first),
+            stream())]
+    levels = max(1, (n_mcu - 1).bit_length())
+    for j in range(levels):
+        steps.append(lambda j=j, a=jump, b=other: lib.jt_prefix_double(
+            *_ptrs(a, b, starts), c_int(nbits), c_long(1 << j), c_long(n_mcu),
+            c_int(j + 1 < levels), stream()))
+        jump, other = other, jump
+    steps.append(lambda: lib.jt_prefix_replay(
+        *_ptrs(words), c_int(nwords), *_ptrs(fb, starts), c_long(n_mcu),
+        *_ptrs(seq), c_int(bpm), *_ptrs(tables, ac_off, diff, status),
+        stream()))
+    return steps
+
+
+def compare_ef(args, torch, card, dev, img, build, results):
+    """Program F and kernel E as they were (--previous-ef DIR, a tree of
+    jpeg_tpu_torch/csrc from before the chunked program) against the chunked
+    block-start program (and its --flags-f builds), in turns, forwards and
+    backwards, kernel only, on the frames of chip_smoke.sync_frames:
+    unanchored on the streams without markers, anchored (the program alone,
+    and the whole route with the DC sums and kernel D) on those with."""
+    import jpeg_tpu_torch
+    from jpeg_tpu_torch.ops import _cuda, entropy_decode as ED
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    import torch_port_util as port_util
+
+    stream = lambda: _cuda.stream_handle(dev)  # noqa: E731
+    # Every source builds at once, one nvcc each.
+    jobs = {"chunked": ("prefix_index", None, ())}
+    for i, flags in enumerate(args.flags_f):
+        jobs[f"chunked {flags}"] = (f"flags{i}_prefix_index",
+                                    _cuda._CSRC / "prefix_index.cu",
+                                    shlex.split(flags))
+    if args.previous_ef:
+        prev = pathlib.Path(args.previous_ef)
+        jobs["previous F"] = ("previous_prefix_index",
+                              prev / "prefix_index.cu", ())
+        jobs["previous E"] = ("previous_segment_walk",
+                              prev / "segment_walk.cu", ())
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda j: build(*j), jobs.values())))
+    old_f, old_e = libs.pop("previous F", None), libs.pop("previous E", None)
+    new = libs
+
+    def timed_in_turns(kernel, case, contenders, nbytes):
+        times = {name: [] for name in contenders}
+        order = list(contenders) + list(contenders)[::-1]
+        for _ in range(ROUNDS):
+            for name in order:
+                launch, nbuf = contenders[name]
+                times[name].append(cs.kernel_only_us(launch, nbuf, torch))
+        for name, ts in times.items():
+            med = statistics.median(ts)
+            print(f"{kernel} {case} [{name}]: kernel-only {med:.2f} us (each: "
+                  f"{', '.join(f'{t:.2f}' for t in ts)}); {nbytes} bytes, "
+                  f"bound {cs.bound_us(nbytes):.2f} us [{card}]", flush=True)
+            results.append({"kernel": kernel, "case": case, "version": name,
+                            "kernel_us": med, "each_us": ts, "bytes": nbytes,
+                            "bound_us": cs.bound_us(nbytes)})
+
+    def by_launch(kernel, case, sets):
+        """Each launch of the package's program alone, on the outputs of the
+        launches before it (sets: per buffer set, [(name, enqueue)])."""
+        us = {name: cs.kernel_only_us(lambda i, k=k: sets[i][k][1](),
+                                      len(sets), torch)
+              for k, (name, _go) in enumerate(sets[0])}
+        print(f"{kernel} {case} [chunked] by launch, kernel-only: "
+              + "; ".join(f"{k} {v:.2f} us" for k, v in us.items())
+              + f" [{card}]", flush=True)
+        results.append({"kernel": kernel, "case": case, "version": "chunked",
+                        "kernel_us_by_launch": us})
+
+    def note(kernel, case, name, agrees, extra=""):
+        print(f"{kernel} {case} [{name}]: vs plain twin: "
+              f"{'ok (max |err| 0)' if agrees else 'DISAGREES'}{extra}",
+              flush=True)
+        results.append({"kernel": kernel, "case": case, "version": name,
+                        "agrees": bool(agrees)})
+
+    nsets = 4
+    for case, (frame, kw) in cs.sync_frames(img).items():
+        kw = {"quality": cs.QUALITY, **kw}
+        if frame.ndim == 3:
+            kw["subsampling"] = cs.SUBSAMPLING
+        jpg = jpeg_tpu_torch.encode(frame, device=dev, **kw)
+        if not kw.get("restart_interval"):
+            f_in, _bits = port_util.prefix_inputs(jpg, dev)
+            words, n_mcu, seq, classes, tables = f_in
+            bpm = seq.shape[0]
+            twin = ED.prefix_index_reference(*f_in)
+            nbytes = words.numel() * 4 + 2 * n_mcu * bpm * 4
+            contenders = {}
+
+            def outs():
+                return [torch.empty((n_mcu, bpm), dtype=torch.int32,
+                                    device=dev) for _ in range(2)] + [
+                    torch.zeros(2, dtype=torch.int32, device=dev)]
+
+            if old_f is not None:
+                nbits = words.numel() * 32
+                sets = []
+                for _ in range(nsets):
+                    w = words.clone()
+                    o = outs() + [
+                        torch.empty((classes.shape[0], nbits),
+                                    dtype=torch.int32, device=dev),
+                        torch.empty(nbits, dtype=torch.int32, device=dev),
+                        torch.empty(nbits, dtype=torch.int32, device=dev),
+                        torch.zeros(n_mcu, dtype=torch.int32, device=dev)]
+                    sets.append((w, o, _old_f_steps(
+                        old_f, w, n_mcu, seq, classes, tables, o, stream)))
+                for st in sets[0][2]:
+                    _cuda.check("previous F", st())
+                torch.cuda.synchronize()
+                o = sets[0][1]
+                note("F", case, f"previous ({len(sets[0][2])} launches)",
+                     all(torch.equal(g, t) for g, t in zip(o[:3], twin)))
+
+                def old_launch(i, sets=sets):
+                    for st in sets[i][2]:
+                        _cuda.check("previous F", st())
+
+                contenders[f"previous ({len(sets[0][2])} launches)"] = (
+                    old_launch, nsets)
+            for name, lib in new.items():
+                sets = []
+                for _ in range(nsets):
+                    w, o = words.clone(), outs()
+                    scratch = ED.prefix_scratch(w.numel(), n_mcu,
+                                                classes.shape[0], dev, lib)
+                    sets.append((o, scratch, ED.prefix_launches(
+                        w, n_mcu, seq, classes, tables, *o, scratch, lib)))
+                for _n, enqueue in sets[0][2]:
+                    enqueue()
+                torch.cuda.synchronize()
+                o, scratch = sets[0][0], sets[0][1]
+                passes = int(scratch[:4].view(torch.int32)[0])
+                note("F", case, name,
+                     all(torch.equal(g, t) for g, t in zip(o, twin)),
+                     f"; repair passes {passes}; scratch {scratch.numel()} "
+                     f"bytes")
+                results.append({"kernel": "F", "case": case, "version": name,
+                                "sync_passes": passes,
+                                "scratch_bytes": scratch.numel()})
+
+                def new_launch(i, sets=sets):
+                    for _n, enqueue in sets[i][2]:
+                        enqueue()
+
+                contenders[name] = (new_launch, nsets)
+                if name == "chunked":
+                    launch_sets = [steps for _o, _s, steps in sets]
+            timed_in_turns("F", case, contenders, nbytes)
+            by_launch("F", case, launch_sets)
+            continue
+        e_in, _bits = port_util.segment_inputs(jpg, dev)
+        words, seg_off, interval, n_mcu, seq, tables, nblocks = e_in
+        t_rows, t_status = ED.decode_segments_reference(*e_in)
+        nseg = seg_off.numel()
+        nbytes = words.numel() * 4 + nseg * 4 + nblocks * 256
+        contenders = {}
+        if old_e is not None:
+            sets = [(torch.zeros((nblocks, 64), dtype=torch.int32, device=dev),
+                     torch.empty((2, nseg), dtype=torch.int32, device=dev))
+                    for _ in range(nsets)]
+
+            def old_e_launch(i, sets=sets):
+                rows, status = sets[i]
+                _cuda.check("previous E", old_e.jt_segment_walk(
+                    *_ptrs(words), ctypes.c_int(words.numel()),
+                    *_ptrs(seg_off), ctypes.c_int(nseg),
+                    ctypes.c_long(interval), ctypes.c_long(n_mcu),
+                    *_ptrs(seq), ctypes.c_int(seq.shape[0]), *_ptrs(tables),
+                    ctypes.c_int(tables.shape[0]), *_ptrs(rows, status),
+                    stream()))
+
+            old_e_launch(0)
+            torch.cuda.synchronize()
+            note("E", case, "previous", torch.equal(sets[0][0], t_rows)
+                 and torch.equal(sets[0][1], t_status))
+            contenders["previous"] = (old_e_launch, nsets)
+        for name, lib in new.items():
+            route = [(torch.empty((nblocks, 64), dtype=torch.int32,
+                                  device=dev),
+                      torch.empty((2, nseg), dtype=torch.int32, device=dev))
+                     for _ in range(nsets)]
+
+            def route_launch(i, route=route, lib=lib):
+                ED._launch_segments(words, seg_off, interval, n_mcu, seq,
+                                    tables, *route[i], lib=lib)
+
+            route_launch(0)
+            torch.cuda.synchronize()
+            passes = ED.SYNC_PASSES
+            note("E", case, f"{name} + sums + D",
+                 torch.equal(route[0][0], t_rows)
+                 and torch.equal(route[0][1], t_status),
+                 f"; repair passes {passes}")
+            results.append({"kernel": "E", "case": case, "version": name,
+                            "sync_passes": passes})
+            alone = []
+            for _ in range(nsets):
+                per_block = torch.empty((4, nblocks), dtype=torch.int32,
+                                        device=dev)
+                status = torch.empty((2, nseg), dtype=torch.int32, device=dev)
+                scratch = ED.sync_scratch(words.numel(), nseg, seq.shape[0],
+                                          n_mcu, dev, lib)
+                alone.append(ED._sync_steps(
+                    lib, words, seg_off, interval, n_mcu, seq, tables,
+                    scratch, per_block[0], per_block[1], status,
+                    per_block[2], per_block[3]))
+
+            def alone_launch(i, alone=alone):
+                for _n, enqueue in alone[i]:
+                    enqueue()
+
+            if name == "chunked":
+                launch_sets = alone
+
+            contenders[f"{name}, program alone"] = (alone_launch, nsets)
+            contenders[f"{name} + sums + D"] = (route_launch, nsets)
+        timed_in_turns("E", case, contenders, nbytes)
+        by_launch("E", case, launch_sets)
 
 
 def trace_decode(torch, img, card):
@@ -150,6 +399,8 @@ def main() -> int:
     ap.add_argument("--candidate-d", action="append", default=[])
     ap.add_argument("--flags-d", action="append", default=[])
     ap.add_argument("--flags-f", action="append", default=[])
+    ap.add_argument("--previous-ef")
+    ap.add_argument("--ef-only", action="store_true")
     ap.add_argument("--previous-only", action="store_true")
     ap.add_argument("--json")
     ap.add_argument("--progressive-4k", action="store_true")
@@ -185,9 +436,15 @@ def main() -> int:
                 print(f"build {name}: {ln.strip()}", flush=True)
         return lib
 
+    img = cs.make_image(cs.HEIGHT, cs.WIDTH)
+    if args.ef_only:
+        results = []
+        compare_ef(args, torch, card, dev, img, build, results)
+        return finish(args, {"card": card, "results": results,
+                             "decode_trace": None})
+
     # Inputs.
     mode = Subsampling(cs.SUBSAMPLING)
-    img = cs.make_image(cs.HEIGHT, cs.WIDTH)
     dimg = tile.pad_to_multiple(torch.as_tensor(img, device=dev),
                                 mode.mcu_height, mode.mcu_width)
     luts_np = bitpack.luts_from_tables(huffman.standard_tables())
@@ -415,43 +672,19 @@ def main() -> int:
              lambda: (torch.empty((nblk, 64), dtype=torch.int32, device=dev),),
              d_in[0].numel() * 4 + 3 * nblk * 4 + nblk * 256, check_d)
 
-    # Program F's block ends: one walk per bit position and table class.
-    (f_words, _n_mcu, _seq, f_classes, f_tables), _bits = (
-        port_util.prefix_inputs(jpeg_tpu_torch.encode(
-            img, cs.QUALITY, cs.SUBSAMPLING, device="cuda"), dev))
-
-    def block_ends(lib, label):
-        def launch(words, classes, tables, fb):
-            _cuda.check(label, lib.jt_prefix_block_ends(
-                *_ptrs(words), ctypes.c_int(words.numel()), *_ptrs(classes),
-                ctypes.c_int(classes.shape[0]), *_ptrs(tables),
-                ctypes.c_int(tables.shape[0]), *_ptrs(fb), stream()))
-        return launch
-
-    f_launchers = {"current": block_ends(build("prefix_index"), "F")}
-    for i, flags in enumerate(args.flags_f):
-        f_launchers[f"current {flags}"] = block_ends(build(
-            f"flags{i}_prefix_index", _cuda._CSRC / "prefix_index.cu",
-            shlex.split(flags)), "flags F")
-    fb_shape = (f_classes.shape[0], f_words.numel() * 32)
-    fb_ref = torch.empty(fb_shape, dtype=torch.int32, device=dev)
-    f_launchers["current"](f_words, f_classes, f_tables, fb_ref)
-    torch.cuda.synchronize()
-
-    def check_f(out, ref=fb_ref):
-        e = cs.int_err(out[0], ref)
-        return ("ok (equal to the package's)" if e == 0
-                else f"DISAGREES (max {e})")
-
-    run_case("F block ends", f"{fb_shape[1]} bit positions x {fb_shape[0]} "
-             f"classes", f_launchers, (f_words, f_classes, f_tables),
-             lambda: (torch.empty(fb_shape, dtype=torch.int32, device=dev),),
-             f_words.numel() * 4 + fb_shape[0] * fb_shape[1] * 4, check_f)
+    compare_ef(args, torch, card, dev, img, build, results)
 
     trace = None
     if not args.previous_only:
         trace = trace_decode(torch, img, card)
-    out = {"card": card, "results": results, "decode_trace": trace}
+    return finish(args, {"card": card, "results": results,
+                         "decode_trace": trace}, failed)
+
+
+def finish(args, out, failed=False) -> int:
+    """Write the JSON object (to --json too) and give the exit code: 1 if a
+    contender disagreed with its twin."""
+    failed = failed or any(r.get("agrees") is False for r in out["results"])
     if args.json:
         path = pathlib.Path(args.json)
         path.parent.mkdir(parents=True, exist_ok=True)

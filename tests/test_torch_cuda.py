@@ -509,7 +509,8 @@ def test_kernels_past_two_gib_of_input():
 
 
 # ---------------------------------------------------------------------------
-# The device Huffman decoders: kernels D and E, program F.
+# The device Huffman decoders: kernel D and the block-start program (F's
+# mode and E's route).
 # ---------------------------------------------------------------------------
 
 HUFFMAN_CASES = [
@@ -547,7 +548,7 @@ def test_huffman_kernels_match_twins(mode, shape, restart, optimize):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(rows.cpu().numpy(), want)
     assert torch.equal(rows, entropy_decode.decode_ac_indexed_reference(*d_in))
-    # Kernel E on the stream's segments (one segment without markers).
+    # E's route on the stream's segments (one segment without markers).
     e_in, bits = segment_inputs(jpg, dev)
     rows, status = entropy_decode.decode_segments(*e_in)
     t_rows, t_status = entropy_decode.decode_segments_reference(*e_in)
@@ -584,7 +585,7 @@ def test_device_entropy_backends_on_card(mode, shape, restart, optimize):
     for fn, launches in (
             (decode_device.decode_scan_indexed, (1, 0, 0)),
             (decode_device.decode_scan,
-             (0, 1, 0) if restart or one_mcu else (1, 0, 1))):
+             (1, 1, 0) if restart or one_mcu else (1, 0, 1))):
         before = _huffman_counts()
         got = fn(*args, device="cuda")
         torch.cuda.synchronize()

@@ -370,10 +370,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 _STANDIN = r"""
 #define JT_HOST_STANDIN
 #include <cstdint>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 #include "ac_indexed.cu"
-#include "segment_walk.cu"
 #include "prefix_index.cu"
 
 using namespace jt;
@@ -396,84 +396,139 @@ extern "C" int jt_ac_indexed(const void* words, int nwords, const void* off,
   return 0;
 }
 
-extern "C" int jt_segment_walk(const void* words, int nwords,
-                               const void* seg_off, int nseg, long interval,
-                               long mcu_count, const void* seq,
-                               int bpm, const void* tables, int nslots,
-                               void* rows, void* status, void*) {
-  for (long s = 0; s < nseg; ++s) {
-    long first_mcu = s * interval, n_valid = mcu_count - first_mcu;
-    if (n_valid > interval) n_valid = interval;
-    walk_segment((U32)words, nwords, ((I32)seg_off)[s] * 8, n_valid, first_mcu,
-                 (I32)seq, bpm, (I32)tables + kFullSize, kSlotStride,
-                 (I32)tables, (int32_t*)rows, (int32_t*)status + s,
-                 (int32_t*)status + nseg + s);
+// The block-start program: one loop iteration per CUDA thread, and the
+// threads of a launch in reverse order.
+extern "C" int jt_sync_layout(const SyncArgs* a, void*) {
+  Sync s = make_sync(*a);
+  int acc = 0;
+  for (int g = 0; g < a->nseg; ++g) {
+    s.base[g] = acc;
+    acc += segment_chunks(s, g);
   }
+  s.base[a->nseg] = acc;
+  for (int i = 0; i < 2 * a->nseg + 2; ++i) clear_status(s, i);
   return 0;
 }
 
-extern "C" int jt_prefix_block_ends(const void* words, int nwords,
-                                    const void* classes, int nclasses,
-                                    const void* tables, int nslots, void* fb,
-                                    void*) {
-  const int nbits = nwords * 32;
-  for (int c = 0; c < nclasses; ++c) {
-    I32 dc = (I32)tables + (long)((I32)classes)[2 * c] * kSlotStride;
-    I32 ac = (I32)tables + (long)((I32)classes)[2 * c + 1] * kSlotStride;
-    for (int p = 0; p < nbits; ++p) {
-      BitReader r((U32)words, nwords);
-      ((uint32_t*)fb)[(long)c * nbits + p] =
-          block_end(r, p, nbits, dc + kFullSize, dc, ac + kFullSize, ac);
+template <int A> void speculate_all(const Sync& s) {
+  const long total = s.base[s.a.nseg];
+  for (long i = s.maxc * s.lanes - 1; i >= 0; --i) {
+    const long c = i / s.lanes;
+    const int b = (int)(i % s.lanes);
+    if (c < total) speculate<A>(s, c, b, first_look(s, c, b), Stage());
+  }
+}
+
+extern "C" int jt_sync_speculate(const SyncArgs* a, void*) {
+  Sync s = make_sync(*a);
+  if (a->anchored) speculate_all<1>(s); else speculate_all<0>(s);
+  return 0;
+}
+
+template <int A> void link_all(const Sync& s) {
+  const long total = s.base[s.a.nseg];
+  for (long i = s.maxc * s.lanes - 1; i >= 0; --i) {
+    const long c = i / s.lanes;
+    if (c < total) link<A>(s, c, (int)(i % s.lanes), chunk_info(s, c), Stage());
+  }
+}
+
+extern "C" int jt_sync_link(const SyncArgs* a, void*) {
+  Sync s = make_sync(*a);
+  if (a->anchored) link_all<1>(s); else link_all<0>(s);
+  return 0;
+}
+
+// One chunk per thread: each round's scan of the lane maps, then its seeds,
+// then its walks in reverse order, so that a round resolves no more than
+// the kernel's would.
+template <int A> void resolve_all(const Sync& s) {
+  const long total = s.base[s.a.nseg];
+  if (total == s.a.nseg) {  // as the kernel: every chunk starts its segment
+    s.passes[0] = 0;
+    return;
+  }
+  std::vector<int> lane(total);
+  unresolve_range(s, 0, total);
+  int rounds = 0;
+  bool open = true;
+  while (open) {
+    uint64_t f = identity_map();
+    for (long c = 0; c < total; ++c) {
+      lane[c] = apply_map(f, 0);
+      f = compose_maps(f, chunk_map(s, c));
     }
+    for (long c = 0; c < total; ++c) seed_range<A>(s, c, c + 1, lane[c]);
+    open = false;
+    for (long c = total - 1; c >= 0; --c)
+      open = walk_range<A>(s, c, c + 1) || open;
+    ++rounds;
   }
+  range_prefix(s, 0, total, 0);
+  s.passes[0] = rounds;
+}
+
+extern "C" int jt_sync_resolve(const SyncArgs* a, void*) {
+  Sync s = make_sync(*a);
+  if (a->anchored) resolve_all<1>(s); else resolve_all<0>(s);
   return 0;
 }
 
-extern "C" int jt_prefix_mcu_hop(const void* fb, int nbits, const void* seq,
-                                 int bpm, void* jump, void*) {
-  for (int p = 0; p < nbits; ++p)
-    ((uint32_t*)jump)[p] = mcu_end((U32)fb, p, nbits, (I32)seq, bpm);
-  return 0;
+template <int A> void write_all(const Sync& s) {
+  const long total = s.base[s.a.nseg];
+  for (long c = total - 1; c >= 0; --c)
+    write_chunk<A>(s, c, chunk_info(s, c), Stage());
 }
 
-extern "C" int jt_prefix_double(const void* jin, void* jout, void* starts,
-                                int nbits, long half, long n_mcu, int compose,
-                                void*) {
-  const long n = compose && nbits > half ? nbits : half;
-  for (long t = 0; t < n; ++t)
-    double_step((U32)jin, (uint32_t*)jout, (int32_t*)starts, t, nbits, half,
-                n_mcu, compose);
-  return 0;
-}
-
-extern "C" int jt_prefix_replay(const void* words, int nwords, const void* fb,
-                                const void* starts, long n_mcu,
-                                const void* seq, int bpm, const void* tables,
-                                void* ac_off, void* diff, void* status, void*) {
-  for (long m = 0; m < n_mcu; ++m)
-    if (replay_mcu((U32)words, nwords, (U32)fb, (I32)starts, m, n_mcu,
-                   (I32)seq, bpm, (I32)tables, (int32_t*)ac_off,
-                   (int32_t*)diff, (int32_t*)status))
-      ((int32_t*)status)[1] |= 1;
+extern "C" int jt_sync_write(const SyncArgs* a, void*) {
+  Sync s = make_sync(*a);
+  if (a->anchored) write_all<1>(s); else write_all<0>(s);
   return 0;
 }
 """
 
 
-@pytest.fixture(scope="module")
-def standin(tmp_path_factory):
-    """The three kernels' per-thread bodies behind their C entry points, one
-    loop iteration per CUDA thread."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    d = tmp_path_factory.mktemp("huffman_standin")
-    (d / "standin.cc").write_text(_STANDIN)
-    lib = d / "libstandin.so"
+def build_standin(directory, flags=()):
+    """The kernels' per-thread bodies behind their C entry points, built
+    with g++ into `directory`."""
+    (directory / "standin.cc").write_text(_STANDIN)
+    lib = directory / "libstandin.so"
     subprocess.run(
         ["g++", "-O1", "-std=c++17", "-x", "c++", "-shared", "-fPIC",
-         f"-I{CSRC}", "-o", str(lib), str(d / "standin.cc")],
+         *flags, f"-I{CSRC}", "-o", str(lib), str(directory / "standin.cc")],
         check=True, capture_output=True, text=True, timeout=300)
     return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def standins(tmp_path_factory):
+    """standins(chunk_bits=None, lanes=None): the host build of the kernels
+    at that chunk size (None: the size the program picks from the bits per
+    MCU) and lane cap, built once per module."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    built = {}
+
+    def get(chunk_bits=None, lanes=None):
+        key = (chunk_bits, lanes)
+        if key not in built:
+            flags = [f"-DJT_CHUNK_BITS={chunk_bits}"] if chunk_bits else []
+            if lanes:
+                flags.append(f"-DJT_LANES={lanes}")
+            built[key] = build_standin(
+                tmp_path_factory.mktemp("huffman_standin"), flags)
+        return built[key]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def standin(standins):
+    return standins()
+
+
+# Fixed chunk sizes, and the program's own choice (None).
+CHUNK_BITS = [32, 64, 1024, None]
 
 
 @pytest.mark.parametrize("mode,restart,optimal", [
@@ -501,67 +556,88 @@ def test_kernel_d_body_on_host_standins(standin, mode, restart, optimal):
         ED.decode_ac_indexed_reference(inputs[0], off, *inputs[2:]).numpy())
 
 
+def run_segments_standin(lib, words, seg_off, interval, n_mcu, seq, tables,
+                         nblocks):
+    rows = torch.full((nblocks, 64), -7, dtype=torch.int32)
+    status = torch.full((2, seg_off.shape[0]), -1, dtype=torch.int32)
+    before = (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES)
+    ED._launch_segments(words, seg_off, interval, n_mcu, seq, tables, rows,
+                        status, lib=lib, ac_lib=lib)
+    assert (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES) == (
+        before[0] + 1, before[1] + 5, before[2] + 1)
+    return rows, status
+
+
+def segment_of_rows(seg_off, interval, n_mcu, seq, nblocks):
+    """The restart segment of every row, from kernel E's row layout."""
+    out = np.empty(nblocks, dtype=np.int64)
+    m = np.arange(n_mcu)
+    for _comp, _dc, _ac, base, per in seq.tolist():
+        out[base + m * per] = m // interval
+    return out
+
+
+@pytest.mark.parametrize("chunk_bits", CHUNK_BITS)
 @pytest.mark.parametrize("mode,restart,optimal", [
     ("420", 3, False), ("420", 7, True), ("422", 3, True), ("444", 7, False),
-    ("gray", 3, False), ("420", 0, False)])
-def test_kernel_e_body_on_host_standins(standin, mode, restart, optimal):
+    ("gray", 3, False), ("420", 0, False), ("444", 1, False)])
+def test_kernel_e_body_on_host_standins(standins, mode, restart, optimal,
+                                        chunk_bits):
+    """The anchored block-start program + DC sums + kernel D, E's route."""
+    lib = standins(chunk_bits)
     jpg = stream(mode, restart, optimal)
-    (words, seg_off, interval, n_mcu, seq, tables, nblocks), bits = (
-        segment_inputs(jpg))
+    inputs, bits = segment_inputs(jpg)
+    words, seg_off, interval, n_mcu, seq, tables, nblocks = inputs
     want = np.concatenate(native.decode_scan(*scan_args(jpg)))
-
-    def run(w):
-        rows = torch.zeros((nblocks, 64), dtype=torch.int32)
-        status = torch.full((2, seg_off.shape[0]), -1, dtype=torch.int32)
-        ED._launch_segments(w, seg_off, interval, n_mcu, seq, tables, rows,
-                            status, lib=standin)
-        return rows, status
-
-    rows, status = run(words)
-    t_rows, t_status = ED.decode_segments_reference(
-        words, seg_off, interval, n_mcu, seq, tables, nblocks)
+    rows, status = run_segments_standin(lib, *inputs)
+    t_rows, t_status = ED.decode_segments_reference(*inputs)
     np.testing.assert_array_equal(rows.numpy(), want)
     np.testing.assert_array_equal(t_rows.numpy(), want)
     np.testing.assert_array_equal(status.numpy(), t_status.numpy())
     assert (status[1] == 0).all()
     assert all(b - 7 <= int(e) <= b for e, b in zip(status[0], bits))
-    # Corrupt words: flags and end positions equal the twin's, rows too.
+    # Corrupt words: flags and end positions equal the twin's always, rows
+    # where the segment's status is clean.
     rng = np.random.default_rng(8)
     bad = words.clone()
     for _ in range(6):
         bad[int(rng.integers(0, bad.shape[0]))] ^= int(
             rng.integers(1, 1 << 30))
-    rows, status = run(bad)
-    t_rows, t_status = ED.decode_segments_reference(
-        bad, seg_off, interval, n_mcu, seq, tables, nblocks)
+    rows, status = run_segments_standin(lib, bad, *inputs[1:])
+    t_rows, t_status = ED.decode_segments_reference(bad, *inputs[1:])
     np.testing.assert_array_equal(status.numpy(), t_status.numpy())
-    np.testing.assert_array_equal(rows.numpy(), t_rows.numpy())
+    clean = (status[1] == 0).numpy()[segment_of_rows(
+        seg_off, interval, n_mcu, seq, nblocks)]
+    np.testing.assert_array_equal(rows.numpy()[clean], t_rows.numpy()[clean])
 
 
 def run_prefix_standin(standin, words, n_mcu, seq, classes, tables):
     bpm = seq.shape[0]
     ac_off = torch.full((n_mcu, bpm), -1, dtype=torch.int32)
     diff = torch.full((n_mcu, bpm), -1, dtype=torch.int32)
-    status = torch.zeros(2, dtype=torch.int32)
+    status = torch.full((2,), -1, dtype=torch.int32)
     ED._launch_prefix(
         words, n_mcu, seq, classes, tables, ac_off, diff, status,
         ED.prefix_scratch(words.numel(), n_mcu, classes.shape[0],
-                          words.device), lib=standin)
+                          words.device, lib=standin), lib=standin)
     return ac_off, diff, status
 
 
+@pytest.mark.parametrize("chunk_bits", CHUNK_BITS)
 @pytest.mark.parametrize("mode,optimal", [("420", False), ("420", True),
                                           ("422", False), ("444", True),
                                           ("gray", False)])
-def test_program_f_bodies_on_host_standins(standin, mode, optimal):
+def test_program_f_bodies_on_host_standins(standins, mode, optimal,
+                                           chunk_bits):
+    lib = standins(chunk_bits)
     jpg = stream(mode, 0, optimal)
     (words, n_mcu, seq, classes, tables), _ = prefix_inputs(jpg)
     before = (ED.PREFIX_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES)
     ac_off, diff, status = run_prefix_standin(
-        standin, words, n_mcu, seq, classes, tables)
-    levels = max(1, (n_mcu - 1).bit_length())
+        lib, words, n_mcu, seq, classes, tables)
     assert (ED.PREFIX_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES) == (
-        before[0] + 1, before[1] + 3 + levels)
+        before[0] + 1, before[1] + 5)
+    assert ED.SYNC_PASSES >= 1
     t_off, t_diff, t_status = ED.prefix_index_reference(
         words, n_mcu, seq, classes, tables)
     np.testing.assert_array_equal(ac_off.numpy(), t_off.numpy())
@@ -575,10 +651,12 @@ def test_program_f_bodies_on_host_standins(standin, mode, optimal):
     np.testing.assert_array_equal(dc.numpy(), want_dc)
 
 
+@pytest.mark.parametrize("chunk_bits", CHUNK_BITS)
 @pytest.mark.parametrize("mode", ["420", "gray"])
-def test_program_f_on_corrupt_words(standin, mode):
+def test_program_f_on_corrupt_words(standins, mode, chunk_bits):
     """Kernel bodies and twin decide alike on corrupt data: both flag, or
     both run past the true bits, or both give the same offsets."""
+    lib = standins(chunk_bits)
     jpg = stream(mode, 0, False)
     (words, n_mcu, seq, classes, tables), true_bits = prefix_inputs(jpg)
     nbytes = true_bits // 8
@@ -587,7 +665,7 @@ def test_program_f_on_corrupt_words(standin, mode):
     for _ in range(10):
         bad = words.clone()
         bad[int(rng.integers(0, nbytes // 4))] ^= int(rng.integers(1, 1 << 30))
-        got = run_prefix_standin(standin, bad, n_mcu, seq, classes, tables)
+        got = run_prefix_standin(lib, bad, n_mcu, seq, classes, tables)
         twin = ED.prefix_index_reference(bad, n_mcu, seq, classes, tables)
 
         def verdict(out):
@@ -603,26 +681,94 @@ def test_program_f_on_corrupt_words(standin, mode):
     print("verdicts seen:", sorted(verdicts))
 
 
-def test_one_segment_walk_equals_prefix_plus_ac(standin):
-    """Kernel E run over the whole restart-free scan as one segment gives
-    the rows of program F + kernel D: two routes that share no host code."""
+@pytest.mark.parametrize("chunk_bits", CHUNK_BITS)
+def test_one_segment_walk_equals_prefix_plus_ac(standins, chunk_bits):
+    """The anchored route over the whole restart-free scan as one segment
+    gives the rows of program F + kernel D: the program's two modes, with
+    host code of their own around each."""
+    lib = standins(chunk_bits)
     jpg = stream("420", 0, True)
-    (words, seg_off, interval, n_mcu, seq5, tables, nblocks), _ = (
-        segment_inputs(jpg))
-    rows_e = torch.zeros((nblocks, 64), dtype=torch.int32)
-    status = torch.zeros((2, 1), dtype=torch.int32)
-    ED._launch_segments(words, seg_off, interval, n_mcu, seq5, tables, rows_e,
-                        status, lib=standin)
-    (pwords, _, seq3, classes, _), _ = prefix_inputs(jpg)
+    inputs, _ = segment_inputs(jpg)
+    words, nblocks = inputs[0], inputs[-1]
+    rows_e, status = run_segments_standin(lib, *inputs)
+    (pwords, n_mcu, seq3, classes, tables), _ = prefix_inputs(jpg)
     assert torch.equal(pwords, words)
     ac_off, diff, pstatus = run_prefix_standin(
-        standin, pwords, n_mcu, seq3, classes, tables)
+        lib, pwords, n_mcu, seq3, classes, tables)
     assert pstatus.tolist() == [int(status[0, 0]), 0]
     off, dc = regroup_prefix(ac_off, diff, scan_args(jpg)[2])
     rows_d = torch.empty((nblocks, 64), dtype=torch.int32)
     ED._launch_ac_indexed(pwords, off, dc, ac_indexed_inputs(jpg)[3], tables,
-                          rows_d, lib=standin)
+                          rows_d, lib=lib)
     np.testing.assert_array_equal(rows_d.numpy(), rows_e.numpy())
+
+
+def flat_stream(kind: str, restart: int) -> bytes:
+    """Flat content, where runs of identical blocks can hold a walk that
+    starts at a wrong block of the MCU in step with the wrong one."""
+    if kind == "gray bars":
+        img = make_image(64, 80, seed=4)[..., 0]
+        img[:24] = 0
+        return jpeg_tpu_torch.encode(img, quality=75, device="cpu",
+                                     restart_interval=restart)
+    if kind == "bars 420":
+        img = make_image(64, 80, seed=5)
+        img[:24] = 0
+        img[-16:] = 0
+        sub = "420"
+    else:
+        img = np.zeros((48, 96, 3), np.uint8)
+        img[..., 1] = 30 if kind == "solid 444" else 0
+        sub = kind.split()[1]
+    return jpeg_tpu_torch.encode(img, quality=75, subsampling=sub,
+                                 device="cpu", restart_interval=restart)
+
+
+FLAT_KINDS = ["solid 420", "solid 444", "bars 420", "gray bars"]
+FLAT_PASSES: dict = {}
+
+
+@pytest.mark.parametrize("kind", FLAT_KINDS)
+def test_flat_streams_on_host_standins(standins, kind):
+    """Solid frames and flat bars at a small chunk size, with every lane and
+    with one (speculation from block 0 of the MCU only): both modes equal
+    their twins and the host walkers exactly, and the resolve rounds run."""
+    passes = []
+    for lanes in (None, 1):
+        lib = standins(64, lanes)
+        for restart in (0, 5):
+            jpg = flat_stream(kind, restart)
+            args = scan_args(jpg)
+            want = np.concatenate(native.decode_scan(*args))
+            inputs, bits = segment_inputs(jpg)
+            rows, status = run_segments_standin(lib, *inputs)
+            passes.append(ED.SYNC_PASSES)
+            np.testing.assert_array_equal(rows.numpy(), want)
+            t_rows, t_status = ED.decode_segments_reference(*inputs)
+            np.testing.assert_array_equal(status.numpy(), t_status.numpy())
+            if restart:
+                continue
+            f_in, _ = prefix_inputs(jpg)
+            got = run_prefix_standin(lib, *f_in)
+            passes.append(ED.SYNC_PASSES)
+            twin = ED.prefix_index_reference(*f_in)
+            for g, t in zip(got, twin):
+                np.testing.assert_array_equal(g.numpy(), t.numpy())
+            _, want_off, want_dc = native.index_scan(*args)
+            off, dc = regroup_prefix(got[0], got[1], args[2])
+            np.testing.assert_array_equal(off.numpy(), want_off)
+            np.testing.assert_array_equal(dc.numpy(), want_dc)
+    print(f"{kind}: resolve rounds {passes}")
+    FLAT_PASSES[kind] = passes
+
+
+def test_flat_streams_ran_repair_passes(standins):
+    """On at least one flat stream the one-lane build needed more than two
+    resolve rounds: the loop that makes the program exact really ran."""
+    for kind in FLAT_KINDS:
+        if kind not in FLAT_PASSES:  # this test alone, or another order
+            test_flat_streams_on_host_standins(standins, kind)
+    assert max(max(v) for v in FLAT_PASSES.values()) > 2, FLAT_PASSES
 
 
 def test_unstuffed_segments_equal_the_per_segment_functions():
