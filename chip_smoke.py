@@ -89,6 +89,25 @@ Phases, each reported on its own line:
      6l: encode_noninterleaved at 4K and encode_progressive at 1024x768
      4:2:0 and 640x480 gray: card bytes equal CPU bytes, the card decode
      equals the decode of the baseline stream of the same image exactly;
+     6m: the mesh layer (jpeg_tpu_torch.parallel) on the one card:
+     make_mesh() is (1, 1); on a (2, 3) mesh of six positions on cuda:0,
+     the K = 8 frames of 6h: encode_batch without stripe restarts (DC by
+     ppermute, host pack) equals encode() per image; with stripe restarts
+     the device pack (kernel A once per position) and the host pack equal
+     encode(restart_interval=10800), no device-pack fallback; with
+     optimize_tables device pack == host pack; decode_batch with "auto"
+     (kernel B 18 launches, D 8, F 8) and "sparse" equals the stacked
+     decode() exactly; kernels A and B against their twins on position
+     (0, 0)'s stripe; encode_mosaic of 2x2 4K tiles (7680x4320) on a (1, 6)
+     mesh, device and host pack, equals encode(restart_interval=21600);
+     6n: encode_mosaic_stream of 4x4 4K tiles (15360x8640, 132.7 MPix) from
+     a source callable, a restart segment per MCU row: hash equal to
+     encode(restart_interval=960), kernel A once per stripe, the peak device
+     memory of each (the stream's under a quarter of the whole image's);
+     then the two-pass optimize_tables at 2x2;
+     6o: python -m jpeg_tpu_torch, every subcommand in a subprocess of its
+     own (all started together) on 4K BMPs in a temporary folder: the
+     outputs equal the library calls', encode --trace-dir writes a trace;
   7. smaller encodes (4:4:4 1001x777, 4:2:2, aligned restarts) byte-identical
      to the CPU path;
   8. median timings over warm runs: encode (default, use_pallas,
@@ -107,7 +126,10 @@ Phases, each reported on its own line:
      "indexed" and "device" in turns, end to end and by stage, on the 4K
      stream, the restart-240 and the restart-960 one and the two flat
      frames, and decode_stream at depth 4 with each; kernel D, E's route and
-     every launch of program F alone.
+     every launch of program F alone; in turns, encode_batch on the (2, 3)
+     mesh against encode_batched K=8, decode_batch against decode_batched
+     K=8 (ms per image), and encode_mosaic_stream of the 4x4 tiles against
+     encode() of the whole image (MPix/s).
 Then one JSON line of the kernels, and last {"ok": true, "device": ...}.
 Any failed phase exits 1.
 """
@@ -1435,6 +1457,279 @@ def run(card: str) -> dict:
         check(same_px, f"progressive {label} decodes to other pixels than "
               "the baseline stream")
 
+    lap("6m")
+    # Phase 6m: the mesh layer (parallel.mesh/shard/batch/mosaic) on the one
+    # card: a (2, 3) mesh of six positions, all on cuda:0.
+    from jpeg_tpu_torch.parallel import (
+        batch as pbatch, mesh as pmesh, mosaic as pmosaic, shard as pshard)
+
+    t_phase = time.perf_counter()
+    default_mesh = pmesh.make_mesh()
+    print(f"phase 6m: make_mesh() on this machine: {default_mesh}", flush=True)
+    if torch.cuda.device_count() == 1:
+        check(default_mesh.shape == {"batch": 1, "mcu": 1},
+              f"make_mesh() on one card is {default_mesh.shape}")
+    mesh6 = pmesh.make_mesh(6, batch_axis=2, devices=[dev] * 6)
+    check(mesh6.shape == {"batch": 2, "mcu": 3}, f"mesh {mesh6.shape}")
+    mcu_rows_4k = HEIGHT // mode.mcu_height
+    stripe_mcus = mcu_rows_4k // 3 * (WIDTH // mode.mcu_width)  # 10,800
+    got, n_b = counted(lambda: pbatch.encode_batch(
+        batch8, QUALITY, SUBSAMPLING, mesh=mesh6, stripe_restart=False),
+        path="encode_batch_mesh_host_pack")
+    print(f"phase 6m: encode_batch K={BATCH_ENCODE} on {mesh6.shape}, no "
+          f"stripe restarts (DC by ppermute, host pack): equal to encode() "
+          f"per image: {got == jpgs8}; launches {n_b}", flush=True)
+    check(got == jpgs8, "encode_batch(stripe_restart=False) differs from "
+          "encode()")
+    check(n_b == (0, 0, 0), f"the host-packed encode_batch launched {n_b}")
+    want_r = [jpeg_tpu_torch.encode(im, QUALITY, SUBSAMPLING,
+                                    restart_interval=stripe_mcus, device=dev)
+              for im in batch8]
+    pbatch.DEVICE_PACK_FALLBACKS = 0
+    got_dp, n_b = counted(lambda: pbatch.encode_batch(
+        batch8, QUALITY, SUBSAMPLING, mesh=mesh6, device_pack=True),
+        path="encode_batch_mesh")
+    got_hp = pbatch.encode_batch(batch8, QUALITY, SUBSAMPLING, mesh=mesh6)
+    fallbacks = pbatch.DEVICE_PACK_FALLBACKS
+    print(f"phase 6m: encode_batch, stripe restarts of {stripe_mcus} MCUs: "
+          f"device pack == host pack: {got_dp == got_hp}; equal to "
+          f"encode(restart_interval={stripe_mcus}): {got_dp == want_r}; "
+          f"launches {n_b}; device-pack fallbacks {fallbacks}", flush=True)
+    check(got_dp == got_hp == want_r, "encode_batch with stripe restarts "
+          "differs from encode() or between its packs")
+    check(n_b == (6, 0, 0), f"encode_batch(device_pack) launched {n_b}, not "
+          "kernel A once per position")
+    check(fallbacks == 0, f"{fallbacks} device-pack fallbacks at q{QUALITY}")
+    opt_dp, n_b = counted(lambda: pbatch.encode_batch(
+        batch8, QUALITY, SUBSAMPLING, mesh=mesh6, device_pack=True,
+        optimize_tables=True))
+    opt_hp = pbatch.encode_batch(batch8, QUALITY, SUBSAMPLING, mesh=mesh6,
+                                 optimize_tables=True)
+    print(f"phase 6m: encode_batch optimize_tables: device pack == host "
+          f"pack: {opt_dp == opt_hp}; {sum(map(len, opt_dp))} bytes against "
+          f"{sum(map(len, got_dp))} standard; launches {n_b}", flush=True)
+    check(opt_dp == opt_hp, "optimize_tables device pack differs from host")
+    check(opt_dp != got_dp, "optimize_tables gave the standard tables' bytes")
+    check(pbatch.DEVICE_PACK_FALLBACKS == 0, "device-pack fallback in 6m")
+    px8 = np.stack([jpeg_tpu_torch.decode(j, device=dev) for j in jpgs8])
+    for entropy, want in (("auto", (8, 0, 8)), ("sparse", (0, 0, 0))):
+        got, abc, huffman_n = counted_all(
+            lambda: pbatch.decode_batch(jpgs8, mesh=mesh6, entropy=entropy),
+            path=f"decode_batch_mesh_{entropy}")
+        print(f"phase 6m: decode_batch K={BATCH_ENCODE} on {mesh6.shape}, "
+              f"entropy {entropy!r}: equal to decode() per image: "
+              f"{np.array_equal(got, px8)}; launches (A, B, C) {abc}, "
+              f"(D, E, F) {huffman_n[:3]}", flush=True)
+        check(got.shape == px8.shape and np.array_equal(got, px8),
+              f"decode_batch {entropy!r} differs from decode()")
+        check(abc == (0, 18, 0), f"decode_batch launched {abc}: kernel B is "
+              "3 launches per position")
+        check(huffman_n[:3] == want, f"decode_batch {entropy!r}: (D, E, F) "
+              f"{huffman_n[:3]}, expected {want}")
+    # Kernels A and B against their twins on position (0, 0)'s stripe: the
+    # first 720 rows of images 0-3.
+    stripe = torch.as_tensor(batch8[:4, :HEIGHT // 3], device=dev)
+    blk, tb, _ = pshard._stripe_blocks(stripe, qy, qc, mode)
+    e, n = level1_err(pack.pack_level1(blk, tb, *luts, packed=packed),
+                      pack.pack_level1_reference(blk, tb, *luts), budget)
+    print(f"phase 6m: kernel A vs plain, position (0, 0)'s stripe: {n} "
+          f"blocks, max |err| {e}", flush=True)
+    check(e == 0, f"kernel A disagrees with its twin on a stripe ({e})")
+    err_a = max(err_a, e)
+    del stripe, blk, tb
+    stripe_planes = [coefficient_planes(jfif.parse_jpeg(j))[1]
+                     for j in jpgs8[:4]]
+    for c in range(len(comps)):
+        rows = stripe_planes[0][c][0].shape[0] // 3
+        plane = torch.cat([p[c][0][:rows] for p in stripe_planes])
+        qt = stripe_planes[0][c][1]
+        e = float((fused.fused_dequant_idct(plane, qt)
+                   - fused.fused_dequant_idct_reference(plane, qt)
+                   ).abs().max())
+        print(f"phase 6m: kernel B vs plain, position (0, 0)'s stacked "
+              f"stripe plane {tuple(plane.shape)}: max |err| {e:.3g}",
+              flush=True)
+        check(e <= 1e-2, f"kernel B disagrees with its twin on the stripe "
+              f"plane {tuple(plane.shape)} ({e})")
+        err_b = max(err_b, e)
+    del stripe_planes, plane
+    big4 = pmosaic.assemble_tiles(np.stack(list(frames(4))).reshape(
+        2, 2, HEIGHT, WIDTH, 3))
+    mesh16 = pmesh.make_mesh(6, batch_axis=1, devices=[dev] * 6)
+    mosaic_r = (2 * HEIGHT // mode.mcu_height // 6) * (2 * WIDTH
+                                                        // mode.mcu_width)
+    want_big4 = jpeg_tpu_torch.encode(big4, QUALITY, SUBSAMPLING,
+                                      restart_interval=mosaic_r, device=dev)
+    for dp_flag in (True, False):
+        got, n_b = counted(lambda: pmosaic.encode_mosaic(
+            big4, QUALITY, SUBSAMPLING, mesh=mesh16, device_pack=dp_flag))
+        print(f"phase 6m: encode_mosaic 2x2 4K tiles ({2 * WIDTH}x"
+              f"{2 * HEIGHT}) on {mesh16.shape}, device_pack={dp_flag}: "
+              f"{len(got)} bytes, equal to encode(restart_interval="
+              f"{mosaic_r}): {got == want_big4}; launches {n_b}", flush=True)
+        check(got == want_big4, "encode_mosaic differs from encode()")
+        check(n_b == ((6, 0, 0) if dp_flag else (0, 0, 0)),
+              f"encode_mosaic launched {n_b}")
+    check(pbatch.DEVICE_PACK_FALLBACKS == 0, "device-pack fallback in 6m")
+    print(f"phase 6m: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    lap("6n")
+    # Phase 6n: encode_mosaic_stream of a 4x4 grid of 4K tiles, stripe by
+    # stripe from a source callable, against encode() of the whole image.
+    t_phase = time.perf_counter()
+    big16 = pmosaic.assemble_tiles(np.stack(list(frames(16))).reshape(
+        4, 4, HEIGHT, WIDTH, 3))
+    bh, bw = big16.shape[:2]
+    row_mcus = bw // mode.mcu_width  # 960
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want16 = jpeg_tpu_torch.encode(big16, QUALITY, SUBSAMPLING,
+                                   restart_interval=row_mcus, device=dev)
+    peak_full16 = torch.cuda.max_memory_allocated()
+    pulls = []
+
+    def source16(a, b):
+        pulls.append((a, b))
+        return big16[a:b]
+
+    torch.cuda.reset_peak_memory_stats()
+    got16, n_b = counted(lambda: pmosaic.encode_mosaic_stream(
+        source16, bh, bw, QUALITY, SUBSAMPLING, rst_rows=1, device=dev),
+        path="encode_mosaic_stream")
+    peak_stream16 = torch.cuda.max_memory_allocated()
+    same16 = digest(got16) == digest(want16)
+    print(f"phase 6n: encode_mosaic_stream 4x4 4K tiles ({bw}x{bh}, "
+          f"{bw * bh / 1e6:.1f} MPix), rst_rows=1 ({len(pulls)} stripes of "
+          f"{pulls[0][1]} rows): {len(got16)} bytes, hash equal to "
+          f"encode(restart_interval={row_mcus}): {same16}; launches {n_b}; "
+          f"peak device memory: stream {peak_stream16} bytes, whole-image "
+          f"encode {peak_full16} bytes [{card}]", flush=True)
+    check(same16, "encode_mosaic_stream differs from encode() of the image")
+    check(n_b == (len(pulls), 0, 0),
+          f"encode_mosaic_stream launched {n_b} over {len(pulls)} stripes")
+    check(peak_stream16 < peak_full16 / 4, "the stream's device memory is "
+          "not bounded by a stripe")
+    check(pbatch.DEVICE_PACK_FALLBACKS == 0, "device-pack fallback in 6n")
+    del want16
+    bh4, bw4 = big4.shape[:2]
+    want_opt = jpeg_tpu_torch.encode(big4, QUALITY, SUBSAMPLING,
+                                      restart_interval=bw4 // mode.mcu_width,
+                                      optimize_tables=True, device=dev)
+    got_opt = pmosaic.encode_mosaic_stream(
+        lambda a, b: big4[a:b], bh4, bw4, QUALITY, SUBSAMPLING,
+        optimize_tables=True, device=dev)
+    print(f"phase 6n: encode_mosaic_stream 2x2 4K tiles, optimize_tables "
+          f"(two passes): {len(got_opt)} bytes, equal to encode(): "
+          f"{got_opt == want_opt}", flush=True)
+    check(got_opt == want_opt, "two-pass encode_mosaic_stream differs")
+    print(f"phase 6n: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    lap("6o")
+    # Phase 6o: python -m jpeg_tpu_torch, every subcommand in a subprocess
+    # of its own (all started together), on a 4K BMP in a temporary folder.
+    import contextlib
+    import io
+    import tempfile
+
+    from jpeg_tpu_torch import cli
+    from jpeg_tpu_torch.io import bmp
+    from jpeg_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        bmp.write_bmp(str(tmp / "a.bmp"), batch8[0])
+        bmp.write_bmp(str(tmp / "b.bmp"), batch8[1])
+        (tmp / "a.jpg").write_bytes(jpgs8[0])
+        (tmp / "b.jpg").write_bytes(jpgs8[1])
+        a, b = str(tmp / "a.bmp"), str(tmp / "b.bmp")
+        runs = {
+            "encode": ["encode", a, str(tmp / "e.jpg"), "--trace-dir",
+                       str(tmp / "trace")],
+            "encode -q 90 -r 240 --optimize-tables": [
+                "encode", a, str(tmp / "e2.jpg"), "-q", "90", "-r", "240",
+                "--optimize-tables"],
+            "decode": ["decode", str(tmp / "a.jpg"), str(tmp / "d.bmp")],
+            "decode --entropy sparse": [
+                "decode", str(tmp / "a.jpg"), str(tmp / "d2.bmp"),
+                "--entropy", "sparse"],
+            "roundtrip": ["roundtrip", a],
+            "info": ["info", str(tmp / "a.jpg")],
+            "mosaic --devices 1": ["mosaic", a, str(tmp / "m.jpg"),
+                                   "--devices", "1"],
+            "mosaic --stream": ["mosaic", a, str(tmp / "s.jpg"), "--stream"],
+            "batch": ["batch", a, b, "-o", str(tmp / "enc")],
+            "batch --decode": ["batch", str(tmp / "a.jpg"),
+                               str(tmp / "b.jpg"), "--decode", "-o",
+                               str(tmp / "dec")],
+        }
+
+        def run_cli(argv):
+            return subprocess.run(
+                [sys.executable, "-m", "jpeg_tpu_torch", *argv], cwd=root,
+                capture_output=True, text=True, timeout=300)
+
+        with ThreadPoolExecutor(len(runs)) as ex:
+            procs = dict(zip(runs, ex.map(run_cli, runs.values())))
+        for name, proc in procs.items():
+            print(f"phase 6o: python -m jpeg_tpu_torch {name}: exit "
+                  f"{proc.returncode}: "
+                  f"{(proc.stdout.strip().splitlines() or [''])[0][:160]}",
+                  flush=True)
+            check(proc.returncode == 0, f"CLI {name} failed: "
+                  f"{proc.stderr[-2000:]}")
+        round_jpg = jpeg_tpu_torch.encode(batch8[0], device=dev)
+        round_px = jpeg_tpu_torch.decode(round_jpg, device=dev)
+        info_text = io.StringIO()
+        with contextlib.redirect_stdout(info_text):
+            cli.main(["info", str(tmp / "a.jpg")])
+        outputs = {
+            "encode": ((tmp / "e.jpg").read_bytes(), jpgs8[0]),
+            "encode -q 90 -r 240 --optimize-tables": (
+                (tmp / "e2.jpg").read_bytes(),
+                jpeg_tpu_torch.encode(batch8[0], 90, restart_interval=240,
+                                      optimize_tables=True, device=dev)),
+            "decode": (bmp.read_bmp(str(tmp / "d.bmp")), px8[0]),
+            "decode --entropy sparse": (bmp.read_bmp(str(tmp / "d2.bmp")),
+                                        px8[0]),
+            "roundtrip": (procs["roundtrip"].stdout.strip(), (
+                f"quality=75 subsampling=420: {len(round_jpg)} bytes, "
+                f"bpp={metrics.bits_per_pixel(round_jpg, img.shape):.3f}, "
+                f"PSNR={metrics.psnr(round_px, batch8[0]):.2f} dB")),
+            "info": (procs["info"].stdout, info_text.getvalue()),
+            "mosaic --devices 1": ((tmp / "m.jpg").read_bytes(),
+                                   pmosaic.encode_mosaic(
+                                       batch8[0], mesh=pmesh.make_mesh(
+                                           1, batch_axis=1))),
+            "mosaic --stream": ((tmp / "s.jpg").read_bytes(),
+                                jpeg_tpu_torch.encode(
+                                    batch8[0], restart_interval=WIDTH // 16,
+                                    device=dev)),
+            "batch": ([(tmp / "enc" / n).read_bytes()
+                       for n in ("a.jpg", "b.jpg")], jpgs8[:2]),
+            "batch --decode": ([bmp.read_bmp(str(tmp / "dec" / n))
+                                for n in ("a.bmp", "b.bmp")], list(px8[:2])),
+        }
+        for name, (got, want) in outputs.items():
+            if isinstance(got, list):
+                same = len(got) == len(want) and all(
+                    np.array_equal(g, w) for g, w in zip(got, want))
+            elif isinstance(got, np.ndarray):
+                same = np.array_equal(got, want)
+            else:
+                same = got == want
+            print(f"phase 6o: {name}: output equal to the library call's: "
+                  f"{same}", flush=True)
+            check(same, f"CLI {name} wrote other output than the library")
+        trace = tmp / "trace" / "trace.json"
+        check(trace.exists() and trace.stat().st_size > 0,
+              "encode --trace-dir wrote no trace")
+        kernel_events = trace.read_text().count('"cat": "kernel"')
+        print(f"phase 6o: --trace-dir wrote {trace.stat().st_size} bytes, "
+              f"{kernel_events} device kernel events", flush=True)
+    print(f"phase 6o: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     lap("7")
     # Phase 7: smaller encodes, byte-identical to the CPU path.
     for (h, w), sub, r in (((777, 1001), "444", 0), ((480, 640), "422", 0),
@@ -1539,6 +1834,58 @@ def run(card: str) -> dict:
         jpgs4, batch_mode="fused", device_output=True, device=dev), torch)
     # encode_stream with its pinned staging buffer and with the pageable
     # upload straight from the caller's array, in turns like the batch modes.
+    # The mesh layer against the single-device batch entry points, and the
+    # streamed mosaic against encode() of the whole image, in turns.
+    lap("8, the mesh layer")
+    ms_mesh = medians_in_turns({
+        f"encode_batch K={BATCH_ENCODE} on (2, 3) positions, device pack":
+            lambda: pbatch.encode_batch(batch8, QUALITY, SUBSAMPLING,
+                                        mesh=mesh6, device_pack=True),
+        f"encode_batched K={BATCH_ENCODE}":
+            lambda: jpeg_tpu_torch.encode_batched(batch8, QUALITY,
+                                                  SUBSAMPLING, device=dev),
+    }, torch)
+    ms_mesh.update(medians_in_turns({
+        f"decode_batch K={BATCH_ENCODE} on (2, 3) positions":
+            lambda: pbatch.decode_batch(jpgs8, mesh=mesh6),
+        f"decode_batched K={BATCH_ENCODE}":
+            lambda: jpeg_tpu_torch.decode_batched(jpgs8, device=dev),
+    }, torch))
+    # Where the mesh entry points' time goes, by stage (host clock, a
+    # synchronize after each stage).
+    grid8 = pshard._image_grid(batch8, mesh6, mode)
+    infos8 = [jfif.parse_jpeg(j) for j in jpgs8]
+    q8 = [infos8[0].qtables[k] for k in (0, 1)]
+    mesh_stages = {
+        f"encode_batch K={BATCH_ENCODE}, device pack": stage_medians([
+            ("upload of the stripes (shard)",
+             lambda _: pshard._image_grid(batch8, mesh6, mode)),
+            ("per-position programs (transform, DPCM, kernel A, level 2)",
+             lambda _: pshard.sharded_encode_packed(grid8, qy, qc, htables,
+                                                    mesh6, mode)),
+            ("the same + status and word downloads + 8 finalizes + JFIF",
+             lambda _: pbatch._encode_batch_device_packed(
+                 grid8, batch8.shape, qy, qc, mesh6, mode)),
+        ], torch),
+        f"decode_batch K={BATCH_ENCODE}, 'auto'": stage_medians([
+            ("parse + 8 device entropy decodes + stripes to positions",
+             lambda _: pbatch._block_grids(infos8, mesh6, mcu_rows_4k,
+                                           WIDTH // mode.mcu_width, "auto")),
+            ("per-position finish (kernel B x18, upsample with halo rows, "
+             "colour)", lambda g: pshard.sharded_decode_pixels(
+                 *g, *q8, WIDTH // mode.mcu_width, mesh6, mode)),
+            ("download + assembly (to_host)", pmesh.to_host),
+        ], torch),
+    }
+    del grid8
+    ms_mosaic = medians_in_turns({
+        "encode_mosaic_stream": lambda: pmosaic.encode_mosaic_stream(
+            lambda a, b: big16[a:b], bh, bw, QUALITY, SUBSAMPLING,
+            device=dev),
+        "encode() of the materialized image": lambda: jpeg_tpu_torch.encode(
+            big16, QUALITY, SUBSAMPLING, restart_interval=row_mcus,
+            device=dev),
+    }, torch, runs=3)
     lap("8, the streams")
     staging_default = pipeline.PINNED_STAGING
     enc_stream_ts = {(st, d): [] for st in (True, False) for d in (1, 2, 4)}
@@ -1888,6 +2235,19 @@ def run(card: str) -> dict:
     print(f"phase 8: peak device memory: encode_batched K={BATCH_ENCODE} "
           f"{peak_enc_batch} bytes; decode_batched K={BATCH_DECODE} fused "
           f"{peak_dec_batch} bytes [{card}]", flush=True)
+    for label, ms in ms_mesh.items():
+        print(f"phase 8: {label}, 4K, in turns: {ms:.3f} ms median of "
+              f"{TURN_RUNS}, {ms / BATCH_ENCODE:.3f} ms per image "
+              f"({mpix * BATCH_ENCODE / ms * 1e3:.1f} MPix/s) [{card}]",
+              flush=True)
+    for path, stages in mesh_stages.items():
+        print(f"phase 8: {path} 4K stages on (2, 3) positions: "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+              + f" [{card}]", flush=True)
+    for label, ms in ms_mosaic.items():
+        print(f"phase 8: 4x4 4K tiles ({bw}x{bh}), {label}, in turns: "
+              f"{ms:.3f} ms median of 3 ({bw * bh / ms / 1e3:.1f} MPix/s) "
+              f"[{card}]", flush=True)
     print(f"phase 8: decode_batched K={BATCH_DECODE} parts: the "
           f"{BATCH_DECODE} sparse walks on {BATCH_DECODE} threads "
           f"{ms_batch_walks:.3f} ms (one walk alone {ms_batch_walk_1:.3f} "
@@ -1951,7 +2311,10 @@ def run(card: str) -> dict:
         "sparse_decode", "native_decode", "encode_batched_k8",
         "decode_batched_fused_k4", "decode_batched_pipelined_k4",
         "encode_stream_per_image", "decode_stream_per_image",
-        "indexed_decode", "device_decode", "device_decode_restarts")
+        "indexed_decode", "device_decode", "device_decode_restarts",
+        "encode_batch_mesh_host_pack", "encode_batch_mesh",
+        "decode_batch_mesh_auto", "decode_batch_mesh_sparse",
+        "encode_mosaic_stream")
 
     # Per kernel A-F, each path's count as it was read just after the path
     # ran (path_counts); decode_batched's "auto" mode is one of the other two.

@@ -1,8 +1,10 @@
 """ctypes binding for the native (C++) entropy runtime.
 
-Compiles the JAX package's jpeg_tpu/native/entropy.cc (read by path, never
-imported) on first use with g++ -O3 into jpeg_tpu_torch/build/. A missing
-compiler or a failed build raises, in the encoder and in the decoder alike:
+Compiles the port's own copy of the runtime, jpeg_tpu_torch/csrc/entropy.cc
+(byte for byte the JAX package's jpeg_tpu/native/entropy.cc, so that the
+port builds where that package is absent), on first use with g++ -O3 into
+jpeg_tpu_torch/build/. A missing compiler or a failed build raises, in the
+encoder and in the decoder alike:
 the NumPy walkers (entropy/decode_np, entropy/progressive_np) are for
 entropy="numpy" and for scan layouts the native runtime does not take, never
 a silent stand-in for a runtime that did not build.
@@ -21,9 +23,9 @@ import numpy as np
 
 from jpeg_tpu_torch.entropy.huffman import HuffTable
 
-_REPO = pathlib.Path(__file__).resolve().parent.parent.parent
-_SRC = _REPO / "jpeg_tpu" / "native" / "entropy.cc"
-_BUILD_DIR = _REPO / "jpeg_tpu_torch" / "build"
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc" / "entropy.cc"
+_BUILD_DIR = _PKG / "build"
 _LIB_PATH = _BUILD_DIR / "libjtentropy.so"
 
 _lock = threading.Lock()

@@ -68,12 +68,19 @@ def _interleaved_blocks(rgb, qy, qc, mode: Subsampling, restart_mcus: int):
 def _pack_device(blocks, tbl, luts, n_units: int, restart_units: int):
     """Device pack of (B, 64) DPCM'd blocks: kernel A (level 1), then level
     2 per restart segment -> (words (nseg, nwords) int64 holding uint32,
-    totals (nseg,), ok (nseg,)). The segments must tile the n_units MCUs
-    evenly; an interval of 0, or of at least n_units, is one segment."""
+    totals (nseg,), ok (nseg,)). Segments are restart_units of the n_units
+    MCUs each; an interval of 0, or of at least n_units, is one segment. A
+    last segment that is shorter is filled out with blocks of zero bits,
+    which level 2 places nowhere."""
     r = int(restart_units)
     buf, t_b = pack.pack_level1(blocks, tbl, *luts[:4], packed=luts[4])
-    nseg = 1 if r == 0 or r >= n_units else n_units // r
-    seg_blocks = blocks.shape[0] // nseg
+    seg_units = n_units if r == 0 or r >= n_units else r
+    nseg = -(-n_units // seg_units)
+    seg_blocks = blocks.shape[0] // n_units * seg_units
+    fill = nseg * seg_blocks - blocks.shape[0]
+    if fill:
+        buf = torch.cat([buf, buf.new_zeros((fill, buf.shape[1]))])
+        t_b = torch.cat([t_b, t_b.new_zeros(fill)])
     nwords = seg_blocks * WORDS_PER_BLOCK + 2
     return pack.pack_level2(
         buf.reshape(nseg, seg_blocks, -1), t_b.reshape(nseg, seg_blocks), nwords)

@@ -1,5 +1,6 @@
 """YCbCr <-> RGB (BT.601 full-range, JFIF) constants, the encode-side planes
-of the fused DCT path and the decode-side colour map."""
+of the fused DCT path, the decode-side colour map, and the CLI's two helpers
+(rgb_to_ycbcr for --grayscale, cmyk_to_rgb for CMYK output)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,35 @@ YCBCR_TO_RGB = np.array(
     ],
     dtype=np.float32,
 )
+
+
+def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) float/uint8 RGB in [0,255] -> (..., 3) float32 YCbCr in
+    [0,255]: each channel one f32 multiply-add chain over (r, g, b) in the
+    order of its RGB_TO_YCBCR row, then the offset. jpeg_tpu's form is an
+    XLA dot whose summation order XLA picks per channel, so the two agree
+    to f32 rounding (an ulp of 255 is 1.5e-5), not always bit for bit."""
+    x = rgb.to(torch.float32)
+    out = []
+    for row, off in zip(RGB_TO_YCBCR, YCBCR_OFFSET):
+        acc = x[..., 0] * float(row[0])
+        acc = acc + x[..., 1] * float(row[1])
+        acc = acc + x[..., 2] * float(row[2])
+        out.append(acc + float(off))
+    return torch.stack(out, dim=-1)
+
+
+def cmyk_to_rgb(cmyk) -> np.ndarray:
+    """(..., 4) uint8 CMYK (PIL-mode samples, as decode() returns for Adobe
+    4-component streams) -> (..., 3) uint8 RGB, bit-exact with PIL's
+    Image.convert("RGB"): channel = round((255-C) * (255-K) / 255).
+    NumPy on the host: it runs on decoded pixels (the CLI's output paths)."""
+    a = np.asarray(cmyk).astype(np.int32)
+    if a.shape[-1] != 4:
+        raise ValueError(f"expected (..., 4) CMYK, got {a.shape}")
+    inv = 255 - a
+    rgb = (inv[..., :3] * inv[..., 3:4] + 127) // 255
+    return rgb.astype(np.uint8)
 
 
 def rgb_to_ycbcr_planes(rgb: torch.Tensor):

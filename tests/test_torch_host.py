@@ -163,6 +163,53 @@ def test_every_module_of_the_port_imports_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_builds_and_runs_alone(tmp_path):
+    """jpeg_tpu_torch/ copied alone (no jpeg_tpu/ beside it, no build
+    directory) builds its native runtime from its own csrc/entropy.cc and
+    encodes + decodes a 64x48 image on the CPU to the in-tree port's bytes
+    and pixels. The copy of entropy.cc is the JAX package's byte for byte."""
+    import hashlib
+    import shutil
+
+    with open(os.path.join(REPO, "jpeg_tpu_torch", "csrc", "entropy.cc"),
+              "rb") as f:
+        ours = f.read()
+    with open(os.path.join(REPO, "jpeg_tpu", "native", "entropy.cc"),
+              "rb") as f:
+        assert ours == f.read()
+    shutil.copytree(os.path.join(REPO, "jpeg_tpu_torch"),
+                    tmp_path / "jpeg_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    assert not (tmp_path / "jpeg_tpu").exists()
+    code = (
+        "import sys, hashlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jpeg_tpu'] = None\n"
+        "import numpy as np\n"
+        "import jpeg_tpu_torch as P\n"
+        "from jpeg_tpu_torch.entropy import native\n"
+        "img = (np.arange(48 * 64 * 3) % 253).astype(np.uint8).reshape(48, 64, 3)\n"
+        "jpg = P.encode(img, quality=80, device='cpu', device_pack=False)\n"
+        "px = P.decode(jpg, device='cpu', entropy='native')\n"
+        "print(P.__file__, native._LIB_PATH, native._SRC)\n"
+        "print(hashlib.sha256(jpg).hexdigest(), hashlib.sha256(px.tobytes()).hexdigest())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    where, digests = proc.stdout.strip().splitlines()[-2:]
+    pkg, lib, src = where.split()
+    for path in (pkg, lib, src):
+        assert path.startswith(str(tmp_path)), where
+    assert os.path.exists(lib)
+    img = (np.arange(48 * 64 * 3) % 253).astype(np.uint8).reshape(48, 64, 3)
+    jpg = jpeg_tpu_torch.encode(img, quality=80, device="cpu",
+                                device_pack=False)
+    px = jpeg_tpu_torch.decode(jpg, device="cpu", entropy="native")
+    assert digests.split() == [hashlib.sha256(jpg).hexdigest(),
+                               hashlib.sha256(px.tobytes()).hexdigest()]
+
+
 def test_entry_points_default_to_the_card():
     """Every public function of the port that takes a device runs on "cuda"
     unless the caller says otherwise."""
@@ -174,7 +221,8 @@ def test_entry_points_default_to_the_card():
         "encode", "decode", "encode_batched", "decode_batched",
         "encode_stream", "decode_stream", "encode_noninterleaved")]
     fns += [decode_device.decode_scan, decode_device.decode_scan_indexed,
-            decode_device.decode_scan_prefix, decode_device.decode_scan_sparse]
+            decode_device.decode_scan_prefix, decode_device.decode_scan_sparse,
+            jpeg_tpu_torch.parallel.encode_mosaic_stream]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 

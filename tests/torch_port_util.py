@@ -320,3 +320,37 @@ def regroup_prefix(ac_off, diff, mcu_layout):
                                 0).to(torch.int32))
         base += bpm
     return torch.cat(offs).contiguous(), torch.cat(dcs).contiguous()
+
+
+@pytest.fixture
+def jax_exact_sharded(jax_exact_transform):
+    """jax_exact_transform for jpeg_tpu.parallel as well: the four cached
+    shard_map builders of jpeg_tpu/parallel/shard.py are cleared on entry
+    and on exit, so that the sharded programs trace under the exact
+    transform and no other test sees them."""
+    import jpeg_tpu.parallel.shard as JS
+
+    builders = (JS._build_sharded_packed_fn, JS._build_sharded_hist_fn,
+                JS._build_sharded_fn, JS._build_sharded_decode)
+    for b in builders:
+        b.cache_clear()
+    yield
+    for b in builders:
+        b.cache_clear()
+
+
+def cpu_mesh(n=8, batch_axis=None):
+    """The port's mesh of n positions on the CPU, jpeg_tpu's virtual
+    8-device mesh's counterpart."""
+    from jpeg_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, batch_axis=batch_axis, devices=["cpu"] * n)
+
+
+def parallel_images(rng, b=4, h=64, w=48):
+    """tests/test_parallel.py's images: gradient base + noise in [-12, 12]."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    grad = np.stack([xx * 255 / w, yy * 255 / h, (xx + yy) * 128 / (h + w)],
+                    -1)
+    noise = rng.integers(-12, 13, size=(b, h, w, 3))
+    return np.clip(grad[None] + noise, 0, 255).astype(np.uint8)
