@@ -100,6 +100,16 @@ Phases, each reported on its own line:
      decode() exactly; kernels A and B against their twins on position
      (0, 0)'s stripe; encode_mosaic of 2x2 4K tiles (7680x4320) on a (1, 6)
      mesh, device and host pack, equals encode(restart_interval=21600);
+     6p: the mesh over torch.distributed ranks (make_multihost_mesh): this
+     script again with --rank as 2 gloo ranks of 3 positions each on
+     cuda:0, then as 1 NCCL rank of 6 positions; every rank drives
+     encode_batch (device pack, host pack without stripe restarts,
+     optimize_tables) and decode_batch "auto" on (2, 3), encode_mosaic of
+     the 2x2 4K tiles and decode_batch of its stream on (1, 6), each path
+     counted once (per rank: kernel A once per position, B three times, D
+     and F once per image of its batch rows) and then timed; every rank's
+     streams and pixels hash equal to 6m's, and it prints the bytes that
+     reached it from the other rank;
      6n: encode_mosaic_stream of 4x4 4K tiles (15360x8640, 132.7 MPix) from
      a source callable, a restart segment per MCU row: hash equal to
      encode(restart_interval=960), kernel A once per stripe, the peak device
@@ -138,10 +148,13 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -163,6 +176,10 @@ BATCH_ENCODE, BATCH_DECODE = 8, 4  # images per encode_batched / decode_batched
 STREAM_ENCODE, STREAM_DECODE = 32, 16  # images per encode_stream / decode_stream
 STREAM_RUNS = 3  # timed runs of each encode_stream form (1 warm run before)
 ROLL = 97  # columns between two frames of a batch or a stream
+RANK_POSITIONS = 6  # phase 6p: positions of each mesh, spread over the ranks
+RANK_TIMEOUT_S = 180  # phase 6p: a rank's collectives, its init included
+RANK_WAIT_S = 360  # phase 6p: one process group's ranks, start to exit
+RANK_RUNS = 3  # phase 6p: timed runs of each path after its counted run
 
 
 class PhaseError(Exception):
@@ -409,6 +426,195 @@ def build_all():
                      if "registers" in ln or "bytes stack" in ln]
             print(f"phase 3: built {name} in {secs:.2f} s: {' | '.join(usage)}",
                   flush=True)
+
+
+def reset_counts():
+    """Every kernel's launch count to 0, once the card is idle."""
+    import torch
+
+    from jpeg_tpu_torch.ops import entropy_decode, fused, pack
+
+    torch.cuda.synchronize()
+    pack.LAUNCHES = 0
+    fused.LAUNCHES = 0
+    fused.DCT_LAUNCHES = 0
+    entropy_decode.AC_LAUNCHES = 0
+    entropy_decode.SEGMENT_LAUNCHES = 0
+    entropy_decode.PREFIX_LAUNCHES = 0
+    entropy_decode.PREFIX_STAGE_LAUNCHES = 0
+
+
+def read_counts():
+    """((A, B, C), (D, E, F, F's separate launches)) since the reset."""
+    import torch
+
+    from jpeg_tpu_torch.ops import entropy_decode, fused, pack
+
+    torch.cuda.synchronize()
+    return ((pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES),
+            (entropy_decode.AC_LAUNCHES, entropy_decode.SEGMENT_LAUNCHES,
+             entropy_decode.PREFIX_LAUNCHES,
+             entropy_decode.PREFIX_STAGE_LAUNCHES))
+
+
+def hash_streams(streams) -> str:
+    """One digest of a list of JFIF streams, in order."""
+    return hashlib.sha256(b"".join(hashlib.sha256(s).digest()
+                                   for s in streams)).hexdigest()
+
+
+def hash_pixels(px) -> str:
+    """One digest of a pixel array, its shape included."""
+    return hashlib.sha256(repr(px.shape).encode()
+                          + np.ascontiguousarray(px).tobytes()).hexdigest()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_paths(pbatch, pmosaic, mesh23, mesh16):
+    """Phase 6p's paths on a rank: (name, call, digest of the result). A
+    call takes the results of the paths before it, by name: the decodes
+    decode the encodes' streams."""
+    img = make_image(HEIGHT, WIDTH)
+    batch8 = np.stack([np.roll(img, i * ROLL, axis=1)
+                       for i in range(BATCH_ENCODE)])
+    big4 = pmosaic.assemble_tiles(batch8[:4].reshape(2, 2, HEIGHT, WIDTH, 3))
+    return (
+        ("encode_batch", lambda done: pbatch.encode_batch(
+            batch8, QUALITY, SUBSAMPLING, mesh=mesh23, device_pack=True),
+         hash_streams),
+        ("encode_batch_no_restart", lambda done: pbatch.encode_batch(
+            batch8, QUALITY, SUBSAMPLING, mesh=mesh23, stripe_restart=False),
+         hash_streams),
+        ("encode_batch_optimize", lambda done: pbatch.encode_batch(
+            batch8, QUALITY, SUBSAMPLING, mesh=mesh23, device_pack=True,
+            optimize_tables=True), hash_streams),
+        ("decode_batch", lambda done: pbatch.decode_batch(
+            done["encode_batch_no_restart"], mesh=mesh23), hash_pixels),
+        ("encode_mosaic", lambda done: [pmosaic.encode_mosaic(
+            big4, QUALITY, SUBSAMPLING, mesh=mesh16, device_pack=True)],
+         hash_streams),
+        ("decode_mosaic", lambda done: pbatch.decode_batch(
+            done["encode_mosaic"], mesh=mesh16), hash_pixels),
+    )
+
+
+def rank_main(address: str, world: str, rank: str, backend: str,
+              out: str) -> int:
+    """One rank of phase 6p: `chip_smoke.py --rank ADDRESS WORLD RANK
+    BACKEND OUT`. Joins the process group, holds RANK_POSITIONS / WORLD
+    positions on cuda:0 of the (2, 3) and (1, 6) meshes of
+    make_multihost_mesh, and drives every path of rank_paths: once counted
+    (launches of every kernel, wall ms, bytes from other ranks), then
+    RANK_RUNS times timed, all ranks starting each run together; then the
+    stages of decode_batch on (2, 3) (stage_medians). Writes {"paths":
+    {path: {"hash", "launches", "first_ms", "ms", "xrank_bytes"}},
+    "decode_stages": {stage: median ms}} to OUT as JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from jpeg_tpu_torch.config import Subsampling
+    from jpeg_tpu_torch.io import jfif
+    from jpeg_tpu_torch.parallel import batch as pbatch, mesh as pmesh
+    from jpeg_tpu_torch.parallel import mosaic as pmosaic, shard as pshard
+
+    world, rank = int(world), int(rank)
+    dev = torch.device(DEVICE, 0)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{address}", world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        n = RANK_POSITIONS // world
+        mesh23 = pmesh.make_multihost_mesh(batch_axis=2, devices=[dev] * n,
+                                           backend=backend)
+        mesh16 = pmesh.make_multihost_mesh(batch_axis=1, devices=[dev] * n,
+                                           backend=backend)
+        report, done = {}, {}
+        for name, fn, digest in rank_paths(pbatch, pmosaic, mesh23, mesh16):
+            dist.barrier()
+            reset_counts()
+            before = pmesh.XRANK_BYTES
+            t0 = time.perf_counter()
+            done[name] = fn(done)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            abc, huffman_n = read_counts()
+            xrank = pmesh.XRANK_BYTES - before
+            times = []
+            for _ in range(RANK_RUNS):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn(done)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            report[name] = {"hash": digest(done[name]),
+                            "launches": abc + huffman_n,
+                            "first_ms": first,
+                            "ms": statistics.median(times),
+                            "xrank_bytes": xrank}
+        # Where decode_batch's time goes on this rank: phase 8's stages of
+        # the single-process mesh, the last one now an all_gather too.
+        mode = Subsampling(SUBSAMPLING)
+        infos = [jfif.parse_jpeg(j) for j in done["encode_batch_no_restart"]]
+        mcu_cols = WIDTH // mode.mcu_width
+        q = [infos[0].qtables[k] for k in (0, 1)]
+        stages = stage_medians([
+            ("entropy decodes + stripes to positions",
+             lambda _: pbatch._block_grids(infos, mesh23,
+                                           HEIGHT // mode.mcu_height,
+                                           mcu_cols, "auto")),
+            ("per-position finish", lambda g: pshard.sharded_decode_pixels(
+                *g, *q, mcu_cols, mesh23, mode)),
+            ("to_host", lambda g: pmesh.to_host(g, mesh23)),
+        ], torch)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    pathlib.Path(out).write_text(json.dumps({"paths": report,
+                                             "decode_stages": stages}))
+    return 0
+
+
+def run_ranks(backend: str, world: int, tmp: str) -> list:
+    """Phase 6p's ranks of one process group: this script again, `world`
+    subprocesses with --rank, all started together on a free port. Every
+    rank must exit 0 within RANK_WAIT_S; the first to fail ends the others.
+    Returns each rank's report (rank_main)."""
+    port = free_port()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")  # the ranks meet on lo
+    logs = [pathlib.Path(tmp, f"{backend}{r}.log") for r in range(world)]
+    outs = [pathlib.Path(tmp, f"{backend}{r}.json") for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(pathlib.Path(__file__).resolve()),
+                     "--rank", f"127.0.0.1:{port}", str(world), str(r),
+                     backend, str(outs[r])],
+                    stdout=log, stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + RANK_WAIT_S
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = logs[r].read_text()[-3000:]
+            check(False, f"phase 6p: {backend} rank {r} of {world} exited "
+                  f"{p.returncode}:\n{tail}")
+    return [json.loads(o.read_text()) for o in outs]
 
 
 def skewed_tables(blocks, huffman, symbols, torch):
@@ -795,24 +1001,6 @@ def run(card: str) -> dict:
     check(err_d == 0 and err_e == 0 and err_f == 0,
           f"a device Huffman decoder disagrees with its plain twin "
           f"(D {err_d}, E {err_e}, F {err_f})")
-
-    def reset_counts():
-        torch.cuda.synchronize()
-        pack.LAUNCHES = 0
-        fused.LAUNCHES = 0
-        fused.DCT_LAUNCHES = 0
-        entropy_decode.AC_LAUNCHES = 0
-        entropy_decode.SEGMENT_LAUNCHES = 0
-        entropy_decode.PREFIX_LAUNCHES = 0
-        entropy_decode.PREFIX_STAGE_LAUNCHES = 0
-
-    def read_counts():
-        """((A, B, C), (D, E, F, F's separate launches)) since the reset."""
-        torch.cuda.synchronize()
-        return ((pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES),
-                (entropy_decode.AC_LAUNCHES, entropy_decode.SEGMENT_LAUNCHES,
-                 entropy_decode.PREFIX_LAUNCHES,
-                 entropy_decode.PREFIX_STAGE_LAUNCHES))
 
     # Every path of the JSON line's "launches_per": its counts as they were
     # read just after it ran, ((A, B, C), (D, E, F, F's separate launches)).
@@ -1573,6 +1761,77 @@ def run(card: str) -> dict:
     check(pbatch.DEVICE_PACK_FALLBACKS == 0, "device-pack fallback in 6m")
     print(f"phase 6m: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    lap("6p")
+    # Phase 6p: the mesh over torch.distributed ranks (make_multihost_mesh):
+    # this script again as 2 gloo ranks of 3 positions each on cuda:0 (NCCL
+    # refuses two ranks on one card), then as 1 NCCL rank of 6 positions
+    # (NCCL's all_reduce and all_gather on CUDA tensors). Every rank's
+    # streams and pixels must hash equal to 6m's single-process results;
+    # its launches are counted per path.
+    t_phase = time.perf_counter()
+    want_6p = {
+        "encode_batch": hash_streams(want_r),
+        "encode_batch_no_restart": hash_streams(jpgs8),
+        "encode_batch_optimize": hash_streams(opt_dp),
+        "decode_batch": hash_pixels(px8),
+        "encode_mosaic": hash_streams([want_big4]),
+        "decode_mosaic": hash_pixels(
+            jpeg_tpu_torch.decode(want_big4, device=dev)[None]),
+    }
+    rank_path_names = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, world in (("gloo", 2), ("nccl", 1)):
+            n = RANK_POSITIONS // world
+            # Per rank (A, B, C, D, E, F): kernel A once per position, B
+            # three times; D and F once per image of the rank's batch rows
+            # (4 of a (2, 3) row), D and E's route once for the mosaic's
+            # stream with restarts (its one row is every rank's).
+            want_n = {
+                "encode_batch": (n, 0, 0, 0, 0, 0),
+                "encode_batch_no_restart": (0,) * 6,
+                "encode_batch_optimize": (n, 0, 0, 0, 0, 0),
+                "decode_batch": (0, 3 * n, 0, 8 // world, 0, 8 // world),
+                "encode_mosaic": (n, 0, 0, 0, 0, 0),
+                "decode_mosaic": (0, 3 * n, 0, 1, 1, 0),
+            }
+            t0 = time.perf_counter()
+            reports = run_ranks(backend, world, tmp)
+            print(f"phase 6p: {backend}, {world} rank(s) of {n} positions on "
+                  f"{dev}: exited 0 in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            for r, rep in enumerate(reports):
+                check(list(rep["paths"]) == list(want_6p),
+                      f"{backend} rank {r} ran {list(rep['paths'])}")
+                print(f"phase 6p: {backend} rank {r} of {world}, decode_batch "
+                      f"stages, medians of {RUNS}: " + "; ".join(
+                          f"{k} {v:.3f} ms"
+                          for k, v in rep["decode_stages"].items())
+                      + f" [{card}]", flush=True)
+                for name, got in rep["paths"].items():
+                    abc, huffman_n = got["launches"][:3], got["launches"][3:]
+                    path = f"{name}_{backend}{world}_rank{r}"
+                    path_counts[path] = (tuple(abc), tuple(huffman_n))
+                    rank_path_names.append(path)
+                    same = got["hash"] == want_6p[name]
+                    a, b, _, d, _, f = got["launches"][:6]
+                    print(f"phase 6p: {backend} rank {r} of {world}, {name}: "
+                          f"hash equal to 6m's: {same}; launches (A, B, D, F) "
+                          f"{(a, b, d, f)}; first call {got['first_ms']:.3f} "
+                          f"ms, median of {RANK_RUNS} {got['ms']:.3f} ms; "
+                          f"bytes from other ranks {got['xrank_bytes']} "
+                          f"[{card}]", flush=True)
+                    check(same, f"{backend} rank {r}: {name} differs from "
+                          "the single-process result")
+                    check(tuple(got["launches"][:6]) == want_n[name],
+                          f"{backend} rank {r}: {name} launched "
+                          f"{got['launches'][:6]}, expected {want_n[name]}")
+                    check((got["xrank_bytes"] > 0) == (world > 1),
+                          f"{backend} rank {r}: {name} took "
+                          f"{got['xrank_bytes']} bytes from other ranks")
+    print(f"phase 6p: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     lap("6n")
     # Phase 6n: encode_mosaic_stream of a 4x4 grid of 4K tiles, stripe by
     # stripe from a source callable, against encode() of the whole image.
@@ -1629,7 +1888,6 @@ def run(card: str) -> dict:
     # of its own (all started together), on a 4K BMP in a temporary folder.
     import contextlib
     import io
-    import tempfile
 
     from jpeg_tpu_torch import cli
     from jpeg_tpu_torch.io import bmp
@@ -1865,7 +2123,7 @@ def run(card: str) -> dict:
                                                     mesh6, mode)),
             ("the same + status and word downloads + 8 finalizes + JFIF",
              lambda _: pbatch._encode_batch_device_packed(
-                 grid8, batch8.shape, qy, qc, mesh6, mode)),
+                 grid8, batch8.shape, batch8.shape, qy, qc, mesh6, mode)),
         ], torch),
         f"decode_batch K={BATCH_ENCODE}, 'auto'": stage_medians([
             ("parse + 8 device entropy decodes + stripes to positions",
@@ -2314,7 +2572,7 @@ def run(card: str) -> dict:
         "indexed_decode", "device_decode", "device_decode_restarts",
         "encode_batch_mesh_host_pack", "encode_batch_mesh",
         "decode_batch_mesh_auto", "decode_batch_mesh_sparse",
-        "encode_mosaic_stream")
+        "encode_mosaic_stream", *rank_path_names)
 
     # Per kernel A-F, each path's count as it was read just after the path
     # ran (path_counts); decode_batched's "auto" mode is one of the other two.
@@ -2367,6 +2625,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(*sys.argv[2:])
     print(f"phase 1: CUDA device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
     try:

@@ -9,6 +9,9 @@ packed on its own position (kernel A + level 2) and the host only finalizes
 and stitches the segments with RSTn. On decode the host (or, with
 entropy="device", the card) resolves each stream's Huffman layer and the
 positions finish the stripes with halo rows for the chroma upsample.
+On a mesh over several ranks (mesh.make_multihost_mesh) every rank passes
+the whole batch, runs its own positions, and gets every stream or pixel:
+the host steps run identically on every rank.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import decoder, encoder, layout
 from jpeg_tpu_torch.ops import bitpack, quant
 from jpeg_tpu_torch.parallel import shard
-from jpeg_tpu_torch.parallel.mesh import make_mesh, to_host
+from jpeg_tpu_torch.parallel.mesh import grid_map, make_mesh, to_host
 
 # Batches (and encode_mosaic_stream stripes) whose device pack overflowed
 # the 288-bit per-block budget (bitpack.BLOCK_WORDS) and were packed on the
@@ -49,23 +52,16 @@ def tables_from_histograms(hists: np.ndarray) -> dict:
     }
 
 
-def _grid_shape(grid) -> tuple:
-    """(B, H, W) of the images a grid of (b, h, W, 3) stripes holds."""
-    return (sum(t.shape[0] for t in grid[:, 0]),
-            sum(t.shape[1] for t in grid[0]), grid[0, 0].shape[2])
-
-
-def _encode_batch_device_packed(padded, orig_shape, qy, qc, mesh, mode,
-                                optimize_tables: bool = False,
+def _encode_batch_device_packed(grid, padded_shape, orig_shape, qy, qc, mesh,
+                                mode, optimize_tables: bool = False,
                                 ) -> list[bytes] | None:
     """Device path: every stripe entropy-packs its own restart segment on its
     own position; the host only finalizes (stuff/pad) and stitches with
     RSTn. With optimize_tables, a first pass psums global symbol histograms
     (the blocks never leave the devices) and the optimal tables feed the
-    packing pass. `padded` is the sharded grid (or the host array) of the
-    padded images. Returns None if any stripe overflowed the per-block
-    budget."""
-    grid = shard._image_grid(padded, mesh, mode)
+    packing pass. `grid` holds the padded images' stripes, `padded_shape`
+    is their (B, H, W, 3). Returns None if any stripe overflowed the
+    per-block budget."""
     if optimize_tables:
         htables = tables_from_histograms(to_host(shard.sharded_histograms(
             grid, qy, qc, mesh, mode, stripe_restart=True)))
@@ -73,18 +69,18 @@ def _encode_batch_device_packed(padded, orig_shape, qy, qc, mesh, mode,
         htables = huffman.standard_tables()
     words, totals, ok = shard.sharded_encode_packed(
         grid, qy, qc, htables, mesh, mode)
-    if not bool(to_host(ok).all()):
+    if not bool(to_host(ok, mesh).all()):
         return None
-    totals_np = to_host(totals)
+    totals_np = to_host(totals, mesh)
     # Download each stripe's words only as far as the longest segment:
-    # (B, sp, maxw), stripe j of image i at [i, j].
+    # (B, sp, maxw), stripe j of image i at [i, j]. Every rank gathers the
+    # same totals, so every rank cuts at the same maxw.
     maxw = (int(totals_np.max()) + 31) // 32
-    words_np = np.concatenate(
-        [np.concatenate([w[:, None, :maxw].cpu().numpy() for w in row],
-                        axis=1) for row in words]).astype(np.uint32)
+    words_np = to_host(grid_map(lambda w: w[:, None, :maxw], words),
+                       mesh).astype(np.uint32)
     b, h0, w0 = orig_shape[0], orig_shape[1], orig_shape[2]
     sp = mesh.shape["mcu"]
-    _, hp, wp = _grid_shape(grid)
+    hp, wp = padded_shape[1], padded_shape[2]
     mcu_cols = wp // mode.mcu_width
     mcu_rows = hp // mode.mcu_height
     dri = (mcu_rows // sp) * mcu_cols if sp > 1 else 0
@@ -142,7 +138,7 @@ def encode_batch(
 
     if device_pack and stripe_restart:
         out = _encode_batch_device_packed(
-            grid, imgs.shape, qy, qc, mesh, mode,
+            grid, padded.shape, imgs.shape, qy, qc, mesh, mode,
             optimize_tables=optimize_tables)
         if out is not None:
             return out
@@ -150,7 +146,7 @@ def encode_batch(
 
     y, cb, cr, hists = shard.sharded_encode_blocks(
         grid, qy, qc, mesh, mode, stripe_restart=stripe_restart)
-    y, cb, cr = to_host(y), to_host(cb), to_host(cr)
+    y, cb, cr = to_host(y, mesh), to_host(cb, mesh), to_host(cr, mesh)
 
     hv = mode.h_factor * mode.v_factor
     hp, wp = padded.shape[1], padded.shape[2]
@@ -171,22 +167,27 @@ def encode_batch(
 
 
 def _block_grids(infos, mesh, mcu_rows: int, mcu_cols: int, entropy: str):
-    """Entropy-decode every stream on its batch row's first position
+    """Entropy-decode every stream of a batch row that this process holds
+    a position of, on its first position of the row
     (decoder._device_blocks: raster-order zig-zag blocks per component, on
     the card by the device Huffman decoders for "auto"), stack each row's
-    images and send every stripe to its position: three grids (y, cb, cr)
-    of (b_local, n_local, 64) int32 blocks."""
+    images and send every local stripe to its position: three grids (y,
+    cb, cr) of (b_local, n_local, 64) int32 blocks, None at other ranks'
+    positions (every rank holds all the streams)."""
     dp, sp = mesh.devices.shape
     bl = len(infos) // dp
     grids = [np.empty((dp, sp), dtype=object) for _ in range(3)]
     for r in range(dp):
+        cols = [j for j in range(sp) if mesh.is_local((r, j))]
+        if not cols:
+            continue
         per_img = [decoder._device_blocks(info, mcu_rows, mcu_cols, entropy,
-                                          mesh.devices[r, 0])
+                                          mesh.devices[r, cols[0]])
                    for info in infos[r * bl:(r + 1) * bl]]
         for c in range(3):
             rows = torch.stack([z[c] for z in per_img])
             nl = rows.shape[1] // sp
-            for j in range(sp):
+            for j in cols:
                 grids[c][r, j] = rows[:, j * nl:(j + 1) * nl].to(
                     mesh.devices[r, j])
     return grids
@@ -198,9 +199,10 @@ def decode_batch(jpegs, mesh=None, entropy: str = "auto") -> np.ndarray:
     The data-parallel twin of encode_batch: each stream's Huffman layer is
     resolved by the port's `entropy` backend (decode()'s names: "auto" is
     "device" on a card, the block-start program + kernel D; the native walk
-    on the CPU) on its batch row's first position, then the positions finish
-    every image's stripes, with halo rows for the triangular chroma
-    upsample. Bit-identical to per-image decode() on the mesh's devices.
+    on the CPU) on this process's first position of its batch row, then
+    the positions finish every image's stripes, with halo rows for the
+    triangular chroma upsample. Bit-identical to per-image decode() on the
+    mesh's devices.
 
     All streams must share geometry, sampling mode and quant tables; B must
     divide over the ``batch`` axis and the MCU-row count over the ``mcu``
@@ -237,7 +239,7 @@ def decode_batch(jpegs, mesh=None, entropy: str = "auto") -> np.ndarray:
         if not same:
             raise ValueError("decode_batch requires homogeneous streams")
 
-    dev0 = mesh.devices[0, 0]
+    dev0 = mesh.devices[mesh.local_positions()[0]]
     cy = comps0[0]
     is_rgb = i0.adobe_transform == 0 or (
         i0.adobe_transform is None
@@ -260,5 +262,5 @@ def decode_batch(jpegs, mesh=None, entropy: str = "auto") -> np.ndarray:
     qy = i0.qtables[comps0[0].qtab_id]
     qc = i0.qtables[comps0[1].qtab_id]
     px = to_host(shard.sharded_decode_pixels(*grids, qy, qc, mcu_cols, mesh,
-                                             mode))
+                                             mode), mesh)
     return px[:, : i0.height, : i0.width]

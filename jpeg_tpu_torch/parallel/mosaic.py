@@ -34,9 +34,11 @@ def encode_mosaic(
     device_pack: bool = False,
 ) -> bytes:
     """Encode one large image into a single JFIF stream, stripe-sharded over
-    the mesh's ``mcu`` axis (mesh: None takes every CUDA device as stripes).
-    `image`: (H, W, 3) uint8, any size. The restart interval is one stripe's
-    MCUs, which the DRI field caps at 65,535: use enough stripes."""
+    the mesh's ``mcu`` axis (mesh: None takes every CUDA device as stripes;
+    a (1, n) mesh of make_multihost_mesh spreads them over the ranks, and
+    every rank gets the stream). `image`: (H, W, 3) uint8, any size. The
+    restart interval is one stripe's MCUs, which the DRI field caps at
+    65,535: use enough stripes."""
     image = np.asarray(image)
     if image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3), got {image.shape}")

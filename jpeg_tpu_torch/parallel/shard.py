@@ -19,7 +19,9 @@ own decoder sequence per stripe (kernel B through
 models/decoder._reconstruct_plane, round and clip, the upsample, the colour
 map), so its pixels equal decode()'s bit for bit.
 
-Values cross positions as grids of per-position tensors (mesh.is_grid).
+Values cross positions as grids of per-position tensors (mesh.is_grid);
+on a mesh over several ranks a grid holds None at the other ranks'
+positions, and the collectives take the mesh.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ def _stripe_step(grid, qy, qc, *, mode: Subsampling, stripe_restart: bool,
             recv = grid_map(lambda x: x.new_zeros(x.shape[0]), blocks)
         else:
             recv = ppermute(grid_map(lambda x: x[:, -1, 0], blocks), "mcu",
-                            [(i, i + 1) for i in range(sp - 1)])
+                            [(i, i + 1) for i in range(sp - 1)], mesh)
         out.append(grid_map(_dpcm, blocks, recv))
     y, cb, cr = out
 
@@ -106,7 +108,7 @@ def _stripe_step(grid, qy, qc, *, mode: Subsampling, stripe_restart: bool,
         dc_c2, ac_c2 = symbols.symbol_histogram(crb.reshape(-1, 64))
         return torch.stack([dc_l, ac_l, dc_c1 + dc_c2, ac_c1 + ac_c2])
 
-    hists = psum(grid_map(hist, y, cb, cr), ("batch", "mcu"))
+    hists = psum(grid_map(hist, y, cb, cr), ("batch", "mcu"), mesh)
     return y, cb, cr, hists
 
 
@@ -160,12 +162,13 @@ def sharded_histograms(imgs, qy, qc, mesh: Mesh,
                        mode: Subsampling = Subsampling.YUV420,
                        stripe_restart: bool = True):
     """Pass 1 of the device-packed optimized-table batch encode: the global
-    (4, 256) int32 symbol histograms psum'd over the whole mesh (on the
-    first position's device), the blocks never leaving the devices. Same
-    geometry contract as sharded_encode_blocks."""
+    (4, 256) int32 symbol histograms psum'd over the whole mesh (on this
+    process's first position's device), the blocks never leaving the
+    devices. Same geometry contract as sharded_encode_blocks."""
     grid = _image_grid(imgs, mesh, mode)
-    return _stripe_step(grid, qy, qc, mode=mode,
-                        stripe_restart=bool(stripe_restart), mesh=mesh)[3][0, 0]
+    hists = _stripe_step(grid, qy, qc, mode=mode,
+                         stripe_restart=bool(stripe_restart), mesh=mesh)[3]
+    return hists[mesh.local_positions()[0]]
 
 
 def sharded_encode_blocks(imgs, qy, qc, mesh: Mesh,
@@ -180,15 +183,16 @@ def sharded_encode_blocks(imgs, qy, qc, mesh: Mesh,
     Returns (y, cb, cr, hists): grids of per-component (b_local, n_local,
     64) int32 zig-zag blocks in MCU scan order with DC already DPCM'd
     (to_host gives (B, N_comp, 64)), and the (4, 256) global symbol
-    histograms [dc_luma, ac_luma, dc_chroma, ac_chroma]."""
+    histograms [dc_luma, ac_luma, dc_chroma, ac_chroma] (on this process's
+    first position's device)."""
     grid = _image_grid(imgs, mesh, mode)
     y, cb, cr, hists = _stripe_step(grid, qy, qc, mode=mode,
                                     stripe_restart=bool(stripe_restart),
                                     mesh=mesh)
-    return y, cb, cr, hists[0, 0]
+    return y, cb, cr, hists[mesh.local_positions()[0]]
 
 
-def _halo_triangle_vertical(grid):
+def _halo_triangle_vertical(grid, mesh: Mesh):
     """Vertical doubling with 3:1 triangular weights across stripe
     boundaries. grid: (b, h_local, w) chroma stripes along the mcu axis.
     The filter needs one row of halo on each side; the boundary rows travel
@@ -199,11 +203,11 @@ def _halo_triangle_vertical(grid):
     if sp == 1:
         return grid_map(lambda x: subsample._triangle_axis(x, -2), grid)
     from_above = ppermute(grid_map(lambda x: x[:, -1, :], grid), "mcu",
-                          [(i, i + 1) for i in range(sp - 1)])
+                          [(i, i + 1) for i in range(sp - 1)], mesh)
     from_below = ppermute(grid_map(lambda x: x[:, 0, :], grid), "mcu",
-                          [(i, i - 1) for i in range(1, sp)])
+                          [(i, i - 1) for i in range(1, sp)], mesh)
     out = np.empty(grid.shape, dtype=object)
-    for i, j in np.ndindex(grid.shape):
+    for i, j in mesh.local_positions():
         x = grid[i, j]
         top = x[:, 0, :] if j == 0 else from_above[i, j]
         bot = x[:, -1, :] if j == sp - 1 else from_below[i, j]
@@ -216,7 +220,8 @@ def _halo_triangle_vertical(grid):
     return out
 
 
-def _stripe_decode(y, cb, cr, qy, qc, *, mode: Subsampling, mcu_cols: int):
+def _stripe_decode(y, cb, cr, qy, qc, *, mode: Subsampling, mcu_cols: int,
+                   mesh: Mesh):
     """Decode finish over the mesh: grids of raster-order zig-zag blocks
     (b, n_local, 64) per component -> a grid of (b, h_local, W, 3) uint8
     pixels. Per position: dequant + IDCT (kernel B on the b stripes stacked
@@ -241,7 +246,8 @@ def _stripe_decode(y, cb, cr, qy, qc, *, mode: Subsampling, mcu_cols: int):
     parts = grid_map(planes, y, cb, cr)
     yp, cbp, crp = (grid_map(lambda p, k=k: p[k], parts) for k in range(3))
     if vf == 2:
-        cbp, crp = _halo_triangle_vertical(cbp), _halo_triangle_vertical(crp)
+        cbp = _halo_triangle_vertical(cbp, mesh)
+        crp = _halo_triangle_vertical(crp, mesh)
     return grid_map(lambda a, b, c: decoder._rgb_from_planes([a, b, c], False),
                     yp, cbp, crp)
 
@@ -262,4 +268,5 @@ def sharded_decode_pixels(y_zz, cb_zz, cr_zz, qy, qc, mcu_cols: int,
                 f"{n_mcu // mcu_cols} MCU rows not divisible over {sp} "
                 "stripes")
     y, cb, cr = (mesh_mod.shard(z, mesh) for z in (y_zz, cb_zz, cr_zz))
-    return _stripe_decode(y, cb, cr, qy, qc, mode=mode, mcu_cols=int(mcu_cols))
+    return _stripe_decode(y, cb, cr, qy, qc, mode=mode, mcu_cols=int(mcu_cols),
+                          mesh=mesh)

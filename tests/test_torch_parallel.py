@@ -51,8 +51,9 @@ def test_mesh_shapes():
         cpu_mesh(8, 3)
     with pytest.raises(ValueError):
         PM.make_mesh(9, devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        PM.make_multihost_mesh()
+    # Neither an address nor an initialized process group: it raises.
+    with pytest.raises(RuntimeError, match="no initialized"):
+        PM.make_multihost_mesh(devices=["cpu"] * 4)
 
 
 def test_make_mesh_without_cuda_raises(monkeypatch):
