@@ -63,7 +63,13 @@ Phases, each reported on its own line:
      restarts; program F and kernel D once each without), pixels exactly
      equal to "sparse"; a 4K
      scan with one flipped byte through "sparse", "indexed" and "device":
-     all raise ScanDecodeError or all give the same pixels;
+     all raise ScanDecodeError or all give the same pixels; the colour and
+     gray streams with use_pallas=False (jpeg_tpu's default formulation:
+     one (64, 64) matmul per plane): kernel B never launched (3 and 1 times
+     by the default decode), the samples after the IDCT (gray pixels,
+     colour output="ycbcr" planes) within +-1 in <= 0.5% of the default
+     decode's, the colour pixels within 3 (a chroma level moves R or B by up
+     to 1.772) in <= 0.5%, the two forms timed in turns (medians of 7);
      6g: the committed fixture streams (tests/data/torch_port: progressive,
      non-interleaved, CMYK, YCCK), card decode against CPU decode; the
      non-interleaved one also with "indexed" and "device";
@@ -127,8 +133,11 @@ Phases, each reported on its own line:
      call and its plain twin on the card (CUDA events around one call); and
      each kernel alone (kernel_only_us: events around a graph of 20 launches
      on prepared buffers, L2 cold) beside the bytes it must move and the
-     time the card's memory needs for them; encode_batched (K = 8, with its
-     peak device memory), decode_batched (K = 4, fused and pipelined in
+     time the card's memory needs for them; kernel B's library call, one
+     torch.addmm of the Y and a chroma plane's f32 blocks against
+     diag(q) @ kron(D, D), timed the same way, and for kernel C the addmm
+     of its scaled DCT alone (the rounding is further calls);
+     encode_batched (K = 8, with its peak device memory), decode_batched (K = 4, fused and pipelined in
      turns), encode_stream (32 images) and decode_stream (16 streams) at
      depth 1, 2 and 4 (encode_stream with and without its pinned staging
      buffer, in turns), each in ms per image beside the single call's; the
@@ -644,7 +653,8 @@ def run(card: str) -> dict:
     from jpeg_tpu_torch.parallel import pipeline
     from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
     from jpeg_tpu_torch.ops import (
-        bitpack, entropy_decode, fused, pack, quant, symbols, tile, zigzag)
+        bitpack, dct, entropy_decode, fused, mcu_conv, pack, quant, symbols,
+        tile, zigzag)
 
     # The adversarial inputs are shared with the CPU and card tests.
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
@@ -1346,6 +1356,57 @@ def run(card: str) -> dict:
               and np.array_equal(verdicts["sparse"], verdicts["device"]),
               "the backends decode the corrupt scan to different pixels")
     del verdicts
+
+    # decode(use_pallas=False), jpeg_tpu's default formulation: one (64, 64)
+    # matmul per plane on the card and no launch of kernel B; the default
+    # decode (kernel B) in turns with it. The matmul sums each sample in
+    # another order than kernel B, so a sample on a .5 boundary may round the
+    # other way: the samples after the IDCT (the gray pixels, the colour
+    # stream's output="ycbcr" planes) are held to the decode contract, +-1 in
+    # <= DIFF_SHARE; after the colour map a chroma sample 1 apart moves R or
+    # B by up to 1.772, so the colour pixels may differ by up to 3.
+    ms_no_pallas = {}
+    for label, stream, px_card, nb in (("colour", jpg, px, 3),
+                                       ("gray", jpg_g, px_g, 1)):
+        got, n_b = counted(lambda: jpeg_tpu_torch.decode(
+            stream, device=dev, use_pallas=False), auto_n,
+            path="use_pallas_false_decode" if label == "colour" else None)
+        check(n_b == (0, 0, 0), f"{label} use_pallas=False: launches {n_b}")
+        _, n_default = counted(lambda: jpeg_tpu_torch.decode(
+            stream, device=dev), auto_n)
+        check(n_default == (0, nb, 0),
+              f"{label} default decode: launches {n_default}")
+        pairs = [(got, px_card)]
+        if label == "colour":
+            planes_np = jpeg_tpu_torch.decode(stream, device=dev,
+                                              use_pallas=False, output="ycbcr")
+            check(np.array_equal(jpeg_tpu_torch.finish_ycbcr(planes_np), got),
+                  "use_pallas=False: finish_ycbcr differs from decode()")
+            pairs = list(zip(planes_np.planes, jpeg_tpu_torch.decode(
+                stream, device=dev, output="ycbcr").planes))
+        for a, b in pairs:  # the samples after the IDCT
+            worst, ndiff, n = decode_diff(a, b)
+            print(f"phase 6f: {label} 4K use_pallas=False, samples after the "
+                  f"IDCT {a.shape} vs the default decode's: max |diff| "
+                  f"{worst}, {ndiff} of {n} differ", flush=True)
+        diff = np.abs(got.astype(np.int32) - px_card.astype(np.int32))
+        worst, ndiff = int(diff.max(initial=0)), int((diff != 0).sum())
+        check(worst <= (3 if label == "colour" else 1)
+              and ndiff <= DIFF_SHARE * diff.size,
+              f"{label} use_pallas=False: pixels {worst} apart in {ndiff}")
+        ms_no_pallas[label] = medians_in_turns({
+            "default (kernel B)": lambda: jpeg_tpu_torch.decode(
+                stream, device=dev),
+            "use_pallas=False": lambda: jpeg_tpu_torch.decode(
+                stream, device=dev, use_pallas=False),
+        }, torch, runs=RUNS)
+        print(f"phase 6f: {label} 4K decode use_pallas=False: launches "
+              f"(A, B, C) {n_b}, default {n_default}; pixels vs the default "
+              f"decode: max |diff| {worst}, {ndiff} of {diff.size} differ "
+              f"(by 1: {int((diff == 1).sum())}); in turns, medians of "
+              f"{RUNS}: " + "; ".join(f"{k} {v:.3f} ms"
+                                       for k, v in ms_no_pallas[label].items())
+              + f" [{card}]", flush=True)
 
     lap("6g")
     # Phase 6g: the stream types only the host walkers read, on the card.
@@ -2388,6 +2449,48 @@ def run(card: str) -> dict:
     us_c_c = alone((cb_plane.contiguous(),),
                    (torch.empty_like(cb_plane, dtype=torch.int32),),
                    lambda x, o: fused._launch_dct(x, qt_c_flat, o), bytes_c)
+    # The library call that competes with kernel B: dequant + IDCT + 128 on
+    # the plane's (N, 64) f32 raster blocks as ONE cuBLAS addmm against
+    # diag(q) @ kron(D, D) (a block's row-major samples; the plane layout
+    # would be one permute more), timed as the kernels are. Kernel C has no
+    # such call: its true division and round half away are further calls, so
+    # only the scaled DCT, (x - 128) @ kron(D, D)^T diag(1/q), is timed, and
+    # labelled as such.
+    mcu_conv._require_full_f32()
+    kron = np.kron(dct.dct_basis().astype(np.float64),
+                   dct.dct_basis().astype(np.float64))
+
+    def library_us(blocks, weight, bias, nbytes):
+        return alone((blocks,), (torch.empty_like(blocks),),
+                     lambda x, o: torch.addmm(bias, x, weight, out=o), nbytes)
+
+    def as_blocks(plane):
+        return tile.blockify(plane).reshape(-1, 64).to(torch.float32)
+
+    lib_b, lib_c = {}, {}
+    for name, (coeffs, qt), x in (("Y", planes[0], pallas_planes[0]),
+                                  ("chroma", planes[1], pallas_planes[1])):
+        q = qt.cpu().numpy().astype(np.float64).reshape(64)
+        w_b = torch.as_tensor(q[:, None] * kron, dtype=torch.float32,
+                              device=dev)
+        bias_b = torch.full((64,), 128.0, device=dev)
+        blocks = as_blocks(coeffs).contiguous()
+        got = torch.addmm(bias_b, blocks, w_b)
+        err = float((got.reshape(blocks.shape[0], 8, 8) - tile.blockify(
+            fused.fused_dequant_idct(coeffs, qt)).reshape(-1, 8, 8)
+        ).abs().max())
+        nbytes = plane_bytes(*coeffs.shape)
+        lib_b[name] = (library_us(blocks, w_b, bias_b, nbytes), err,
+                       2 * blocks.shape[0] * 64 * 64)
+        qc = (quant.luma_table(QUALITY) if name == "Y"
+              else quant.chroma_table(QUALITY)).astype(np.float64).reshape(64)
+        w_c = torch.as_tensor(kron.T / qc[None, :], dtype=torch.float32,
+                              device=dev)
+        bias_c = torch.as_tensor(-128.0 * kron.sum(axis=1) / qc,
+                                 dtype=torch.float32, device=dev)
+        xb = as_blocks(x).contiguous()
+        lib_c[name] = library_us(xb, w_c, bias_c, plane_bytes(*x.shape))
+        del blocks, xb, got
     # Kernels D and E and program F alone. The tables (1 MB) stay where they
     # are, as in a decode; everything else rotates.
     nblk_h = d4k[1].shape[0]
@@ -2445,6 +2548,15 @@ def run(card: str) -> dict:
               f"bound {bound_us(nbytes):.2f} us, share "
               f"{bound_us(nbytes) / us:.3f} ({nbytes / us / 1e3:.0f} GB/s) "
               f"[{card}]", flush=True)
+    for name, (us, err, flops) in lib_b.items():
+        print(f"phase 8: library call for kernel B, torch.addmm on the {name} "
+              f"plane's {flops // (2 * 64 * 64)} f32 blocks: kernel-only "
+              f"{us:.2f} us ({flops} FLOP, {flops / us / 1e6:.1f} TFLOP/s), "
+              f"max |diff| from kernel B {err:.3g}; kernel B "
+              f"{us_b if name == 'Y' else us_b_c:.2f} us [{card}]", flush=True)
+    print(f"phase 8: kernel C's scaled DCT alone (no rounding), torch.addmm: "
+          f"Y {lib_c['Y']:.2f} us, chroma {lib_c['chroma']:.2f} us; kernel C "
+          f"{us_c:.2f} / {us_c_c:.2f} us [{card}]", flush=True)
     for label, ms in (
         (f"encode 4K q{QUALITY} {SUBSAMPLING} end to end", ms_enc),
         (f"decode 4K q{QUALITY} {SUBSAMPLING} end to end", ms_dec),
@@ -2550,15 +2662,15 @@ def run(card: str) -> dict:
               f"{plain:.4f} ms; median of {RUNS} [{card}]", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, us, nbytes,
-              launches_per, **more):
+              launches_per, library_ms=None, **more):
         """One kernel of the JSON line. Every kernel here is bound by the
-        bytes it moves; none has a single PyTorch call that computes the
-        same function, so library_ms is null."""
+        bytes it moves. library_ms: the one PyTorch call that computes the
+        same function, timed as the kernel is; only kernel B has one."""
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_us(nbytes) / 1e3, "bound_by": "bytes",
-                "library_ms": None, "kernel_us": us, "bytes": nbytes,
+                "library_ms": library_ms, "kernel_us": us, "bytes": nbytes,
                 "bound_us": bound_us(nbytes),
                 "bound_share": bound_us(nbytes) / us,
                 "launches_per": dict(zip(
@@ -2570,6 +2682,7 @@ def run(card: str) -> dict:
         "decode_batched_fused_k4", "decode_batched_pipelined_k4",
         "encode_stream_per_image", "decode_stream_per_image",
         "indexed_decode", "device_decode", "device_decode_restarts",
+        "use_pallas_false_decode",
         "encode_batch_mesh_host_pack", "encode_batch_mesh",
         "decode_batch_mesh_auto", "decode_batch_mesh_sparse",
         "encode_mosaic_stream", *rank_path_names)
@@ -2588,11 +2701,21 @@ def run(card: str) -> dict:
         entry("idct8", "jpeg_tpu_torch/csrc/idct8.cu",
               "jpeg_tpu/ops/fused.py:69", main_launches[1], err_b, ms_b,
               ms_b_plain,
-              us_b, bytes_y, per[1], kernel_us_chroma=us_b_c,
+              us_b, bytes_y, per[1], library_ms=lib_b["Y"][0] / 1e3,
+              library_call="torch.addmm(128, blocks, diag(q) @ kron(D, D))",
+              library_ms_chroma=lib_b["chroma"][0] / 1e3,
+              library_max_abs_diff=max(v[1] for v in lib_b.values()),
+              kernel_us_chroma=us_b_c,
               bytes_chroma=bytes_c, bound_us_chroma=bound_us(bytes_c)),
         entry("dct8", "jpeg_tpu_torch/csrc/dct8.cu",
               "jpeg_tpu/ops/fused.py:45", launches_c, err_c, ms_c, ms_c_plain,
-              us_c, bytes_y, per[2], kernel_us_chroma=us_c_c,
+              us_c, bytes_y, per[2],
+              library_ms_dct_only=lib_c["Y"] / 1e3,
+              library_ms_dct_only_chroma=lib_c["chroma"] / 1e3,
+              library_call_dct_only="torch.addmm(-128 kron(D, D) 1 / q, "
+                                    "blocks, kron(D, D)^T diag(1 / q)), no "
+                                    "rounding",
+              kernel_us_chroma=us_c_c,
               bytes_chroma=bytes_c, bound_us_chroma=bound_us(bytes_c)),
         entry("ac_indexed", "jpeg_tpu_torch/csrc/ac_indexed.cu",
               "jpeg_tpu/entropy/decode_device.py:179", main_launches[3],

@@ -83,6 +83,13 @@ def _load():
         return _lib
 
 
+def available() -> bool:
+    """True once the runtime is built and loaded. A runtime that cannot be
+    built raises here, as at every other first use: it is never reported as
+    merely unavailable."""
+    return _load() is not None
+
+
 def _code_arrays(huff: dict, is_ac: int):
     """Stack (2, 256) code/length arrays for table ids 0/1 of one class."""
     code = np.zeros((2, 256), dtype=np.uint32)

@@ -18,8 +18,10 @@ non-interleaved multi-scan, any Huffman table ids: everything
 jpeg_tpu.decode takes, and decode_batched for K homogeneous baseline
 streams.
 
-Full-size planes (k = 8) always run kernel B on a CUDA device and its plain
-twin on the CPU; there is no use_pallas switch.
+Full-size planes (k = 8) run kernel B on a CUDA device and its plain twin
+on the CPU by default (use_pallas=True). use_pallas=False takes jpeg_tpu's
+default formulation instead: one (64, 64) matmul on a card, the separable
+block IDCT on the CPU, no kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from jpeg_tpu_torch.ops import (
 ENTROPY_BACKENDS = ("auto", "native", "numpy", "device", "indexed", "sparse")
 
 
-def _reconstruct_plane(zz, qtab, blocks_shape, k: int = 8):
+def _reconstruct_plane(zz, qtab, blocks_shape, k: int = 8,
+                       use_pallas: bool = True):
     """(N, 64) zig-zag quantized blocks in plane raster order ->
     (H*k/8, W*k/8) float plane of integer samples in [0, 255]. k < 8 runs
     the DCT-domain scaled IDCT (libjpeg "draft"/jidctred semantics,
@@ -48,12 +51,26 @@ def _reconstruct_plane(zz, qtab, blocks_shape, k: int = 8):
     its lowest k x k frequencies, as two full-f32 contractions (no kernel:
     the reference runs it as an einsum outside Pallas too).
 
+    k = 8: use_pallas runs dequant + IDCT + 128 as kernel B
+    (fused.fused_dequant_idct). Otherwise jpeg_tpu's default formulation,
+    branch for branch (jpeg_tpu/models/decoder.py, _reconstruct_plane): on
+    a card de-zigzag + dequantize + IDCT as ONE (64, 64) matmul, the table
+    permuted to zig-zag order scaling the coefficients first
+    (dct.idct_zigzag_blocks), then the blocks back into the plane; on the
+    CPU the separable block IDCT of the dequantized raster blocks.
+
     The samples are rounded and range-limited *before* any upsampling or
     colour math, matching libjpeg's post-IDCT range_limit: clamping order is
     observable through the triangular chroma upsample at extreme
     quantization. Integer samples also make every later f32 op exact enough
     that the host finish (finish_ycbcr) reproduces the device's bytes."""
     hb, wb = blocks_shape
+    if k == 8 and not use_pallas and zz.device.type != "cpu":
+        qz = torch.as_tensor(qtab, dtype=torch.float32, device=zz.device)
+        qz = zigzag.to_zigzag(qz.reshape(8, 8))
+        flat = dct.idct_zigzag_blocks(zz.reshape(-1, 64).to(torch.float32) * qz)
+        plane = tile.plane_from_scan_blocks(flat, hb, wb) + 128.0
+        return torch.clamp(torch.round(plane), 0.0, 255.0)
     blocks = zigzag.from_zigzag(zz.reshape(hb, wb, 64))
     if k != 8:
         if zz.device.type == "cuda":
@@ -71,25 +88,30 @@ def _reconstruct_plane(zz, qtab, blocks_shape, k: int = 8):
             t = torch.einsum("yu,abuv->abyv", b, coeff)
             small = torch.einsum("abyv,xv->abyx", t, b)
             plane = small.permute(0, 2, 1, 3).reshape(hb * k, wb * k) + 128.0
-    else:
+    elif use_pallas:
         plane = fused.fused_dequant_idct(tile.unblockify(blocks), qtab)
+    else:
+        coeff = quant.dequantize(blocks, qtab)
+        plane = tile.unblockify(dct.idct_blocks(coeff)) + 128.0
     return torch.clamp(torch.round(plane), 0.0, 255.0)
 
 
-def _reconstruct_batch(zz, qtab, blocks_shape, k: int, n_img: int):
+def _reconstruct_batch(zz, qtab, blocks_shape, k: int, n_img: int,
+                       use_pallas: bool = True):
     """_reconstruct_plane for n_img images of one geometry whose raster
     blocks follow one another in `zz`: (n_img, H*k/8, W*k/8) planes. Blocks
     are independent, so at full size the images stacked along their rows
-    are one plane to kernel B: one launch for the batch. The scaled IDCT
-    (k < 8) runs image by image, because its two contractions go to cuBLAS,
-    which may sum in another order on another shape, and the batch must
-    give decode()'s pixels exactly."""
+    are one plane to kernel B: one launch for the batch. The matmul forms
+    (k < 8, or use_pallas=False) run image by image, because their
+    contractions go to cuBLAS, which may sum in another order on another
+    shape, and the batch must give decode()'s pixels exactly."""
     hb, wb = blocks_shape
-    if k == 8:
+    if k == 8 and use_pallas:
         plane = _reconstruct_plane(zz, qtab, (n_img * hb, wb), k)
     else:
-        plane = torch.cat([_reconstruct_plane(z, qtab, blocks_shape, k)
-                           for z in zz.chunk(n_img)])
+        plane = torch.cat([
+            _reconstruct_plane(z, qtab, blocks_shape, k, use_pallas)
+            for z in zz.chunk(n_img)])
     return plane.reshape(n_img, hb * k, wb * k)
 
 
@@ -103,10 +125,12 @@ def _upsample(plane, factor, fan: bool):
     return up(plane, fv, fh)
 
 
-def _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k: int = 8):
+def _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k: int = 8,
+                      use_pallas: bool = True):
     """Per-component reconstructed planes, each upsampled to the
     max-sampled grid."""
-    return [_upsample(_reconstruct_plane(zz, q, shape, k), factor, fan)
+    return [_upsample(_reconstruct_plane(zz, q, shape, k, use_pallas), factor,
+                      fan)
             for zz, q, shape, factor, fan
             in zip(zzs, qtabs, shapes, factors, fancy)]
 
@@ -116,13 +140,13 @@ def _rgb_from_planes(planes, is_rgb: bool):
     RGB. is_rgb: components are stored as R/G/B, so the YCbCr matrix is
     skipped."""
     ycc = torch.stack(planes, dim=-1)
-    rgb = ycc if is_rgb else color.ycbcr_to_rgb(ycc)
+    rgb = ycc if is_rgb else color.ycbcr_to_rgb(ycc, clip=False)
     return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
 
 
 def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
                   fancy=(True, True, True), is_rgb: bool = False, k: int = 8,
-                  n_img: int | None = None):
+                  n_img: int | None = None, use_pallas: bool = True):
     """shapes: per-component block grids (hb, wb); factors: per-component
     (fh, fv) upsampling ratios to the max-sampled grid. fancy: per-component
     triangular-vs-replication choice (upsample_choices). n_img: the blocks
@@ -131,17 +155,19 @@ def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
     only, so the pixels are those of n_img separate calls)."""
     zzs, qtabs = (y_zz, cb_zz, cr_zz), (qy, qcb, qcr)
     if n_img is None:
-        planes = _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k)
+        planes = _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k,
+                                   use_pallas)
     else:
         planes = [
-            _upsample(_reconstruct_batch(zz, q, shape, k, n_img), factor, fan)
+            _upsample(_reconstruct_batch(zz, q, shape, k, n_img, use_pallas),
+                      factor, fan)
             for zz, q, shape, factor, fan
             in zip(zzs, qtabs, shapes, factors, fancy)]
     return _rgb_from_planes(planes, is_rgb)
 
 
-def _finish_gray(zz, qy, shape, k: int = 8):
-    return _reconstruct_plane(zz, qy, shape, k).to(torch.uint8)
+def _finish_gray(zz, qy, shape, k: int = 8, use_pallas: bool = True):
+    return _reconstruct_plane(zz, qy, shape, k, use_pallas).to(torch.uint8)
 
 
 class YCbCrPlanes(typing.NamedTuple):
@@ -162,13 +188,13 @@ class YCbCrPlanes(typing.NamedTuple):
 
 
 def _finish_planes(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, k: int = 8,
-                   flat: bool = False):
+                   flat: bool = False, use_pallas: bool = True):
     """Device half of the ycbcr output: per-component integer sample planes
     (the exact values _finish_color would feed its upsample/colour tail),
     as uint8. flat=True returns ONE concatenated 1-D buffer instead of a
     tuple: the to-host case fetches it in a single copy."""
     planes = tuple(
-        _reconstruct_plane(zz, q, shape, k).to(torch.uint8)
+        _reconstruct_plane(zz, q, shape, k, use_pallas).to(torch.uint8)
         for zz, q, shape in zip(
             (y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes)
     )
@@ -280,7 +306,7 @@ def finish_ycbcr(p: YCbCrPlanes, threads: int | None = None) -> np.ndarray:
 
 
 def _finish_cmyk(zzs, qtabs, shapes, factors, fancy, ycck: bool,
-                 invert: bool):
+                 invert: bool, use_pallas: bool = True):
     """Four-component (Adobe CMYK / YCCK) finish.
 
     ycck: components 1-3 are YCbCr-coded (APP14 transform=2): run the
@@ -288,7 +314,8 @@ def _finish_cmyk(zzs, qtabs, shapes, factors, fancy, ycck: bool,
     jdcolor.c ycck_cmyk_convert). invert: an Adobe APP14 marker is present,
     so match PIL's convention of returning the complement of the stored
     samples (JpegImagePlugin rawmode "CMYK;I")."""
-    planes = _upsampled_planes(zzs, qtabs, shapes, factors, fancy)
+    planes = _upsampled_planes(zzs, qtabs, shapes, factors, fancy,
+                               use_pallas=use_pallas)
     if ycck:
         rgb = color.ycbcr_to_rgb(torch.stack(planes[:3], dim=-1), clip=True)
         stored = torch.stack(
@@ -555,7 +582,8 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
 def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
            max_pixels: int | None = 2_000_000_000,
            scale_denom: int = 1, output: str = "rgb",
-           device_output: bool = False, entropy: str = "auto"):
+           device_output: bool = False, entropy: str = "auto",
+           use_pallas: bool = True):
     """Decode JPEG bytes to (H, W, 3) RGB, (H, W) gray, or, for Adobe
     4-component CMYK/YCCK streams, (H, W, 4) CMYK uint8 samples, running
     everything after the entropy decode on `device` ("cuda" by default;
@@ -589,7 +617,15 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
     segment or from bit 0 without markers, and kernel D decodes; any table
     ids). All give the same coefficients.
     Progressive streams have host walkers only: "numpy" and "native" select
-    one, every other name takes the best."""
+    one, every other name takes the best.
+    use_pallas: how a full-size plane (scale_denom 1) is dequantized and
+    inverse transformed. True (the default here; jpeg_tpu's default is
+    False): kernel B on a card, its plain twin on the CPU. False: jpeg_tpu's
+    default formulation, one (64, 64) matmul per plane on a card and the
+    separable block IDCT on the CPU, with no kernel. Their samples after
+    the IDCT agree to +-1 where an f32 sum lands on a .5 boundary; the
+    colour map can widen that to 3 in an RGB pixel (1.772 per chroma
+    level). The scaled decode ignores the switch."""
     if entropy not in ENTROPY_BACKENDS:
         raise ValueError(f"unknown entropy backend {entropy!r}")
     if output not in ("rgb", "ycbcr"):
@@ -626,7 +662,7 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         mcu_cols = layout.ceil_div(info.width, 8)
         zz = _device_blocks(info, mcu_rows, mcu_cols, entropy, device)[0]
         return deliver(_finish_gray(zz, qtab(comps[0]), (mcu_rows, mcu_cols),
-                                    k))
+                                    k, use_pallas))
 
     if len(comps) not in (3, 4):
         raise jfif.JpegFormatError(f"unsupported component count {len(comps)}")
@@ -673,15 +709,15 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         # Adobe APP14 marker is present: PIL rawmode "CMYK;I").
         return deliver(_finish_cmyk(
             zz, qtabs, shapes, factors, fancy, info.adobe_transform == 2,
-            info.adobe_transform is not None))
+            info.adobe_transform is not None, use_pallas))
     if output == "ycbcr":
         flat = not device_output  # one copy to the host
-        planes = _finish_planes(*zz, *qtabs, shapes, k, flat)
+        planes = _finish_planes(*zz, *qtabs, shapes, k, flat, use_pallas)
         if flat:
             planes = _split_flat_planes(planes.cpu().numpy(), shapes, k)
         return YCbCrPlanes(tuple(planes), hlim, wlim, factors, fancy)
     return deliver(_finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb,
-                                 k))
+                                 k, use_pallas=use_pallas))
 
 
 BATCH_MODES = ("auto", "pipelined", "fused")

@@ -1,5 +1,5 @@
 """Packer constants, Huffman LUT marshalling and the host finalize of
-device-packed word segments."""
+device-packed word segments (native, and finalize_segment in NumPy)."""
 
 from __future__ import annotations
 
@@ -29,6 +29,20 @@ def luts_from_tables(huff: dict):
             dc_code[tid] = t.code.astype(np.uint32)
             dc_len[tid] = t.size.astype(np.int32)
     return dc_code, dc_len, ac_code, ac_len
+
+
+def finalize_segment(words: np.ndarray, total_bits: int) -> np.ndarray:
+    """Host side, in NumPy: one segment's big-endian words -> its scan bytes:
+    trim to whole bytes, 1-pad the final byte, 0xFF-stuff."""
+    from jpeg_tpu_torch.entropy import encode_np
+
+    total_bytes = (int(total_bits) + 7) // 8
+    raw = np.ascontiguousarray(words[: (total_bytes + 3) // 4]).astype(">u4")
+    out = raw.view(np.uint8)[:total_bytes].copy()
+    rem = int(total_bits) & 7
+    if rem:
+        out[-1] |= (1 << (8 - rem)) - 1
+    return encode_np._stuff_bytes(out)
 
 
 def finalize_stream(words: np.ndarray, totals, rst_base: int = 0) -> bytes:

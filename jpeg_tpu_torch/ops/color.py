@@ -71,10 +71,10 @@ def rgb_to_ycbcr_planes(rgb: torch.Tensor):
     return y, cb, cr
 
 
-def ycbcr_to_rgb(ycc: torch.Tensor, clip: bool = False) -> torch.Tensor:
-    """(..., 3) YCbCr in [0,255] -> (..., 3) float32 RGB, unclipped unless
-    `clip` (the RGB decode rounds and clips itself; YCCK clips here, before
-    the complement).
+def ycbcr_to_rgb(ycc: torch.Tensor, clip: bool = True) -> torch.Tensor:
+    """(..., 3) YCbCr in [0,255] -> (..., 3) float32 RGB, clipped to
+    [0, 255] unless `clip` is False (the RGB decode passes False: it rounds
+    and clips itself; YCCK clips here, before the complement).
 
     Each output channel is one explicit f32 multiply-add chain over
     (y, cb - 128, cr - 128) in the order of its YCBCR_TO_RGB row, so the

@@ -1,4 +1,4 @@
-"""DC DPCM as a shifted subtract with restart-interval resets."""
+"""DC DPCM as a shifted subtract with restart-interval resets, and its\ninverse, a cumulative sum per restart segment."""
 
 from __future__ import annotations
 
@@ -18,3 +18,16 @@ def dpcm(dc: torch.Tensor, restart_interval: int = 0) -> torch.Tensor:
         prev = torch.where(idx % restart_interval == 0,
                            torch.zeros_like(prev), prev)
     return dc - prev
+
+
+def undpcm(diffs: torch.Tensor, restart_interval: int = 0) -> torch.Tensor:
+    """Inverse of dpcm: (N,) DPCM differences -> (N,) DC values, a
+    cumulative sum that starts again at every restart-segment start (the
+    decoder's predictor reset). Keeps the input's dtype."""
+    if not restart_interval:
+        return torch.cumsum(diffs, 0, dtype=diffs.dtype)
+    n = diffs.shape[0]
+    r = int(restart_interval)
+    pad = (-n) % r
+    seg = torch.cat([diffs, diffs.new_zeros(pad)]).reshape(-1, r)
+    return torch.cumsum(seg, 1, dtype=diffs.dtype).reshape(-1)[:n]

@@ -22,13 +22,11 @@ coefficient; at small shapes cuBLAS sums the twin in another order and a few
 from __future__ import annotations
 
 import ctypes
-import functools
 import threading
 
 import torch
 
-from jpeg_tpu_torch.ops import _cuda, mcu_conv, quant
-from jpeg_tpu_torch.ops.dct import dct_basis
+from jpeg_tpu_torch.ops import _cuda, dct, mcu_conv, quant
 
 # Kernel B launches since the last reset (plus one per launch, nowhere else).
 LAUNCHES = 0
@@ -36,12 +34,6 @@ LAUNCHES = 0
 DCT_LAUNCHES = 0
 # Worker threads launch too (parallel/pipeline), so the increments hold a lock.
 _COUNT_LOCK = threading.Lock()
-
-
-@functools.cache
-def _basis(device: torch.device) -> torch.Tensor:
-    """dct_basis() as a (64,) f32 tensor, uploaded once per device."""
-    return _cuda.settled(torch.as_tensor(dct_basis(), device=device).reshape(64))
 
 
 def _check_plane(plane: torch.Tensor) -> None:
@@ -67,7 +59,7 @@ def fused_dct_quantize_reference(plane: torch.Tensor, qtable) -> torch.Tensor:
     if plane.device.type == "cuda":
         mcu_conv._require_full_f32()  # the einsums below must not run in TF32
     h, w = plane.shape
-    d = _basis(plane.device).reshape(8, 8)
+    d = dct._on_device("basis", plane.device)
     x = (plane.to(torch.float32) - 128.0).reshape(h // 8, 8, w // 8, 8)
     t = torch.einsum("uy,aybx->aubx", d, x)
     coef = torch.einsum("aubx,vx->aubv", t, d).reshape(h, w)
@@ -130,7 +122,7 @@ def fused_dequant_idct_reference(coeffs: torch.Tensor, qtable) -> torch.Tensor:
     _check_plane(coeffs)
     h, w = coeffs.shape
     dev = coeffs.device
-    d = torch.as_tensor(dct_basis(), device=dev)
+    d = torch.as_tensor(dct.dct_basis(), device=dev)
     q = torch.as_tensor(qtable, dtype=torch.float32, device=dev).reshape(8, 8)
     c = coeffs.to(torch.float32).reshape(h // 8, 8, w // 8, 8) * q[None, :, None, :]
     t = torch.einsum("uy,aubv->aybv", d, c)

@@ -69,6 +69,15 @@ def _mcu_kernel_f64(mode: Subsampling) -> tuple[np.ndarray, np.ndarray]:
     return kern, bias
 
 
+@functools.cache
+def mcu_kernel(mode: Subsampling) -> tuple[np.ndarray, np.ndarray]:
+    """f32 rounding of _mcu_kernel_f64: (kernel (mcu_h, mcu_w, 3,
+    (hv+2)*64), bias ((hv+2)*64,)), jpeg_tpu's float conv kernel. The
+    port's transform runs the integer twin (mcu_kernel_int)."""
+    kern, bias = _mcu_kernel_f64(mode)
+    return kern.astype(np.float32), bias.astype(np.float32)
+
+
 # Fixed-point scale of the integer transform kernel: at 2^15 the composed
 # kernel's rounding perturbs a coefficient by well under 0.15 before
 # quantization, and the result is exact integer arithmetic.
@@ -105,6 +114,12 @@ def mcu_kernel_int(mode: Subsampling):
     bias_int = np.rint(bias64 * (1 << _INT_SCALE_BITS)).astype(np.int32)
     k_hilo = np.concatenate([k_hi, k_lo], axis=-1).astype(np.float32)
     return k_hilo, bias_int
+
+
+def zigzag_qdiv(qy, qc, hv: int) -> np.ndarray:
+    """((hv+2)*64,) f32 per-channel quantization divisors (zig-zag order,
+    luma channels first) from the (8, 8) raster tables."""
+    return zigzag_qdiv_int(qy, qc, hv).astype(np.float32)
 
 
 def zigzag_qdiv_int(qy, qc, hv: int) -> np.ndarray:
@@ -178,6 +193,19 @@ def _mcu_transform_int(rgb: torch.Tensor, qy, qc, mode: Subsampling):
     q0 = (2 * torch.abs(acc) + d) // (2 * d)
     q = torch.where(acc < 0, -q0, q0)
     return q.reshape(-1, hv + 2, 64)
+
+
+def mcu_transform(rgb: torch.Tensor, qy, qc, mode: Subsampling):
+    """uint8 (H, W, 3) tensor, MCU-aligned, + (8, 8) raster quant tables ->
+    (n_mcu, hv+2, 64) int32 quantized zig-zag blocks, MCU-interleaved in
+    scan order (DC not yet DPCM'd), on rgb's device.
+
+    The exact integer transform (_mcu_transform_int) on every device, the
+    CPU included. So on the CPU this equals jpeg_tpu's accelerator form,
+    jpeg_tpu.ops.mcu_conv._mcu_transform_int, and not
+    jpeg_tpu.ops.mcu_conv.mcu_transform on a JAX CPU, which routes to a
+    staged float form that is 1 off at .5 boundaries."""
+    return _mcu_transform_int(rgb, qy, qc, mode)
 
 
 @functools.cache

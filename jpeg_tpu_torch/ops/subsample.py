@@ -43,6 +43,18 @@ def _triangle_axis(plane: torch.Tensor, axis: int) -> torch.Tensor:
     return out.movedim(0, axis)
 
 
+def upsample_plane(plane: torch.Tensor, mode: Subsampling) -> torch.Tensor:
+    """Nearest-neighbor chroma upsample back to luma resolution."""
+    return upsample_factors(plane, mode.v_factor, mode.h_factor)
+
+
+def fancy_upsample_plane(plane: torch.Tensor,
+                         mode: Subsampling) -> torch.Tensor:
+    """Triangular-filter chroma upsample (libjpeg's "fancy" h2v1/h2v2) back
+    to luma resolution, as f32."""
+    return fancy_upsample_factors(plane, mode.v_factor, mode.h_factor)
+
+
 def upsample_factors(plane: torch.Tensor, fv: int, fh: int) -> torch.Tensor:
     """Nearest-neighbor upsample of a (..., H, W) plane (or stack of planes)
     by integer factors."""

@@ -43,6 +43,28 @@ def blockify(plane: torch.Tensor) -> torch.Tensor:
     return plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
 
 
+def blocks_scan_order(plane: torch.Tensor, v: int = 1,
+                      h: int = 1) -> torch.Tensor:
+    """(H, W) plane -> (H*W/64, 64) row-major flattened 8x8 blocks in MCU
+    scan order, as ONE permute (no gather): blocks are grouped v x h per
+    MCU and emitted MCU-raster-major, v-by-h raster within each MCU (spec
+    A.2.3). v = h = 1 gives plain raster block order."""
+    hh, ww = plane.shape
+    hb, wb = hh // 8, ww // 8
+    if hh % 8 or ww % 8 or hb % v or wb % h:
+        raise ValueError(f"plane {(hh, ww)} does not tile into {v}x{h} MCUs")
+    x = plane.reshape(hb // v, v, 8, wb // h, h, 8)
+    return x.permute(0, 3, 1, 4, 2, 5).reshape(hb * wb, 64)
+
+
+def plane_from_scan_blocks(flat: torch.Tensor, hb: int, wb: int,
+                           v: int = 1, h: int = 1) -> torch.Tensor:
+    """Inverse of blocks_scan_order: (hb*wb, 64) scan-order flattened blocks
+    -> (hb*8, wb*8) plane."""
+    x = flat.reshape(hb // v, wb // h, v, h, 8, 8)
+    return x.permute(0, 2, 4, 1, 3, 5).reshape(hb * 8, wb * 8)
+
+
 def unblockify(blocks: torch.Tensor) -> torch.Tensor:
     """(Hb, Wb, 8, 8) -> (Hb*8, Wb*8)."""
     hb, wb = blocks.shape[0], blocks.shape[1]

@@ -417,7 +417,7 @@ def main() -> int:
     from jpeg_tpu_torch.entropy import huffman
     from jpeg_tpu_torch.models import encoder
     from jpeg_tpu_torch.ops import (
-        _cuda, bitpack, entropy_decode, fused, pack, quant, tile, zigzag)
+        _cuda, bitpack, dct, entropy_decode, fused, pack, quant, tile, zigzag)
 
     # Kernel D's inputs are built as the card tests build them.
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
@@ -468,7 +468,7 @@ def main() -> int:
     }
     y_px, cb_px, _ = encoder._pallas_planes(dimg, mode)
     pixel_planes = {"Y": (y_px.contiguous(), qy), "Cb": (cb_px.contiguous(), qc)}
-    basis = fused._basis(dev)
+    basis = dct._on_device("basis", dev).reshape(64)
 
     # Contenders: name -> function(inputs, outputs) that enqueues one launch.
     a_launchers, b_launchers, c_launchers = {}, {}, {}
