@@ -8,7 +8,7 @@ Usage, from the repository root, on a machine with a CUDA device:
 Phases, each reported on its own line:
   1. require a CUDA device (exit 2 without one, or without the package);
   2. print the card's name and power limit (nvidia-smi);
-  3. build the five CUDA kernel sources from csrc/ with nvcc for sm_90a (one
+  3. build the six CUDA kernel sources from csrc/ with nvcc for sm_90a (one
      nvcc each, all started together) and the native entropy runtime, and print
      the build seconds and ptxas resource use;
   4. kernel A (packer level 1) against its plain twin on the card: random
@@ -36,11 +36,23 @@ Phases, each reported on its own line:
      cumulated DCs equal native.index_scan's and E's rows
      native.decode_scan's, each with its resolve rounds (SYNC_PASSES) and
      its time alone, and decode(entropy="device") equals "sparse" exactly;
+     5d: the decode finish's kernels against their plain twins, 0 apart:
+     kernel B2 (zig-zag blocks in, uint8 samples out; also equal to kernel
+     B rounded and clamped) on the decoder's blocks of the 4K 4:2:0, 4:4:4,
+     4:2:2 and gray streams, 1001x777 4:2:0 and 4:4:4 (a crop) and the K = 4
+     stack decode_batched makes; kernel H (upsample, colour, round, clip,
+     crop) on the colour ones, on the scale_denom 2/4/8 samples, and on
+     every ratio pair in {1, 2, 3, 4}^2 on small planes (fancy and not,
+     YCbCr and RGB, 1 and 3 images); each of those decodes (decode_batched
+     for the stack) equal, byte for byte, to the old route composed from
+     the decoder's blocks and the twins on the card; the 4K finish counted
+     by torch.profiler: at most 6 kernel launches (B2 x3, H);
   6. the main path: a 3840x2160 q75 4:2:0 encode and decode through
      jpeg_tpu_torch.encode/decode on the card, with every launch counter
      reset first (encode: kernel A once; decode: program F (five launches)
      and kernel D once each, since entropy="auto" is the "device" backend on
-     a card, and kernel B three times); the bytes must equal the port's CPU encode, the pixels the
+     a card, kernel B2 three times and kernel H once, kernel B never); the
+     bytes must equal the port's CPU encode, the pixels the
      port's CPU decode to +-1 in <= 0.5% of samples;
      6b: the same image through encode(use_pallas=True) (kernel C, host
      pack), counted: kernel C 3 launches, kernel A none; coefficients within
@@ -52,8 +64,9 @@ Phases, each reported on its own line:
      6e: the image's Y plane as a gray image: card bytes equal CPU bytes,
      the card decode within +-1 of the CPU decode in <= 0.5% of samples;
      6f: the decode options on the 4K colour and gray streams, counted:
-     entropy="sparse" and "native" (kernel B 3 launches each, 1 for gray,
-     kernels A and C none, all three counts read after every decode here),
+     entropy="sparse" and "native" (kernel B2 3 launches each and H 1; gray
+     B2 1 and H none; kernels A, B and C none; all counts read after every
+     decode here),
      pixels exactly equal; the payload's bytes beside the dense grids';
      scale_denom 2, 4, 8 against the CPU decode; output="ycbcr" +
      finish_ycbcr == decode() exactly; device_output a tensor on cuda:0
@@ -65,8 +78,9 @@ Phases, each reported on its own line:
      scan with one flipped byte through "sparse", "indexed" and "device":
      all raise ScanDecodeError or all give the same pixels; the colour and
      gray streams with use_pallas=False (jpeg_tpu's default formulation:
-     one (64, 64) matmul per plane): kernel B never launched (3 and 1 times
-     by the default decode), the samples after the IDCT (gray pixels,
+     one (64, 64) matmul per plane): kernel B2 never launched (3 and 1 times
+     by the default decode; H still once for colour), the samples after the
+     IDCT (gray pixels,
      colour output="ycbcr" planes) within +-1 in <= 0.5% of the default
      decode's, the colour pixels within 3 (a chroma level moves R or B by up
      to 1.772) in <= 0.5%, the two forms timed in turns (medians of 7);
@@ -80,8 +94,9 @@ Phases, each reported on its own line:
      device_pack=False; kernel A against its plain twin on the blocks those
      two device-packed batches give it (1,555,200 for K = 8);
      6i: decode_batched, K = 4 of those streams: "fused", "pipelined" and
-     "auto" each equal the stacked per-image decode() exactly, kernel B 3
-     launches fused and 12 pipelined; scale_denom=2; device_output a tensor
+     "auto" each equal the stacked per-image decode() exactly, kernel B2 3
+     launches and H 1 fused, 12 and 4 pipelined; scale_denom=2; device_output
+     a tensor
      on cuda:0; a stream of another size raises ValueError; kernel B
      against its plain twin on the batch's stacked planes (8640x3840 and
      4320x1920);
@@ -89,8 +104,9 @@ Phases, each reported on its own line:
      every stream equals encode() of its image (by hash), kernel A 64
      launches; then 4 images of mixed sizes with optimize_tables;
      6k: decode_stream, 16 of those streams at depth 2 and 4: pixels equal
-     per-image decode() exactly and in order, kernel B 48 launches counted
-     under the workers' threads; a stream of another geometry in the middle;
+     per-image decode() exactly and in order, kernel B2 48 launches and H 16
+     counted under the workers' threads; a stream of another geometry in
+     the middle;
      once at depth 4 with entropy="indexed" (kernel D 16 launches);
      6l: encode_noninterleaved at 4K and encode_progressive at 1024x768
      4:2:0 and 640x480 gray: card bytes equal CPU bytes, the card decode
@@ -133,7 +149,11 @@ Phases, each reported on its own line:
      call and its plain twin on the card (CUDA events around one call); and
      each kernel alone (kernel_only_us: events around a graph of 20 launches
      on prepared buffers, L2 cold) beside the bytes it must move and the
-     time the card's memory needs for them; kernel B's library call, one
+     time the card's memory needs for them (B2 on the Y and a chroma plane's
+     blocks, H on the 4K image); the 4K finish in turns three ways (kernel B
+     + torch ops as before B2 and H, the twins on the card, B2 + H) and the
+     4K decode end to end in turns with the finish before B2 and H and with
+     B2 + H, also by stage; kernel B's library call, one
      torch.addmm of the Y and a chroma plane's f32 blocks against
      diag(q) @ kron(D, D), timed the same way, and for kernel C the addmm
      of its scaled DCT alone (the rounding is further calls);
@@ -174,7 +194,8 @@ HEIGHT, WIDTH = 2160, 3840  # bench.py's 4K image
 QUALITY, SUBSAMPLING = 75, "420"
 WARM, RUNS = 2, 7
 DIFF_SHARE = 0.005  # decoded samples allowed to differ by 1 from the CPU path
-KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "prefix_index")
+KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "prefix_index",
+           "finish_color")
 KERNEL_LAUNCHES = 20  # launches per timed replay of kernel_only_us
 COLD_BYTES = 200_000_000  # moved between two uses of a buffer; the L2 holds 50 MB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -189,6 +210,11 @@ RANK_POSITIONS = 6  # phase 6p: positions of each mesh, spread over the ranks
 RANK_TIMEOUT_S = 180  # phase 6p: a rank's collectives, its init included
 RANK_WAIT_S = 360  # phase 6p: one process group's ranks, start to exit
 RANK_RUNS = 3  # phase 6p: timed runs of each path after its counted run
+# Launches (A, B, C, B2, H) of one call of a path.
+NONE_N = (0, 0, 0, 0, 0)
+ENCODE_N = (1, 0, 0, 0, 0)  # an encode: kernel A once
+COLOUR_N = (0, 0, 0, 3, 1)  # a colour decode: B2 per component, then H
+GRAY_N = (0, 0, 0, 1, 0)  # a gray decode: B2 once
 
 
 class PhaseError(Exception):
@@ -198,6 +224,10 @@ class PhaseError(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def times(n: int, counts: tuple) -> tuple:
+    return tuple(n * c for c in counts)
 
 
 def make_image(h, w, seed=0):
@@ -441,12 +471,14 @@ def reset_counts():
     """Every kernel's launch count to 0, once the card is idle."""
     import torch
 
-    from jpeg_tpu_torch.ops import entropy_decode, fused, pack
+    from jpeg_tpu_torch.ops import entropy_decode, finish, fused, pack
 
     torch.cuda.synchronize()
     pack.LAUNCHES = 0
     fused.LAUNCHES = 0
     fused.DCT_LAUNCHES = 0
+    fused.ZZ_LAUNCHES = 0
+    finish.LAUNCHES = 0
     entropy_decode.AC_LAUNCHES = 0
     entropy_decode.SEGMENT_LAUNCHES = 0
     entropy_decode.PREFIX_LAUNCHES = 0
@@ -454,13 +486,15 @@ def reset_counts():
 
 
 def read_counts():
-    """((A, B, C), (D, E, F, F's separate launches)) since the reset."""
+    """((A, B, C, B2, H), (D, E, F, F's separate launches)) since the
+    reset."""
     import torch
 
-    from jpeg_tpu_torch.ops import entropy_decode, fused, pack
+    from jpeg_tpu_torch.ops import entropy_decode, finish, fused, pack
 
     torch.cuda.synchronize()
-    return ((pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES),
+    return ((pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES,
+             fused.ZZ_LAUNCHES, finish.LAUNCHES),
             (entropy_decode.AC_LAUNCHES, entropy_decode.SEGMENT_LAUNCHES,
              entropy_decode.PREFIX_LAUNCHES,
              entropy_decode.PREFIX_STAGE_LAUNCHES))
@@ -653,8 +687,8 @@ def run(card: str) -> dict:
     from jpeg_tpu_torch.parallel import pipeline
     from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
     from jpeg_tpu_torch.ops import (
-        bitpack, dct, entropy_decode, fused, mcu_conv, pack, quant, symbols,
-        tile, zigzag)
+        bitpack, dct, entropy_decode, finish, fused, mcu_conv, pack, quant,
+        symbols, tile, zigzag)
 
     # The adversarial inputs are shared with the CPU and card tests.
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
@@ -769,7 +803,8 @@ def run(card: str) -> dict:
     def coefficient_planes(parsed):
         """A 4K stream's dense scans from the native walk, and per component
         the (coefficient plane on the card, quantization table) pair that
-        decode() hands to kernel B."""
+        kernel B takes (the chain before kernel B2, still the mesh layer's
+        and the 4-component finish's)."""
         dense = native.decode_scan(
             parsed.scan_data, mcu_rows * mcu_cols,
             [(i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)],
@@ -1012,13 +1047,167 @@ def run(card: str) -> dict:
           f"a device Huffman decoder disagrees with its plain twin "
           f"(D {err_d}, E {err_e}, F {err_f})")
 
+    lap("5d")
+    # Phase 5d: kernels B2 (zig-zag blocks in, uint8 samples out) and H (the
+    # finish after the samples) against their plain twins on the card, 0
+    # apart, at the shapes the decoder gives them; B2 also against kernel B
+    # rounded and clamped (the same FMA chains). Then the decodes against
+    # the old route composed from the decoder's blocks and the twins, byte
+    # for byte, and the finish's kernels counted by the profiler.
+    def finish_inputs(streams):
+        """The decoder's finish inputs for one stream, or for several of one
+        geometry stacked as decode_batched stacks them: (blocks per
+        component, tables, block grids of one image, ratios, upsample
+        choices, rows, columns, images)."""
+        info = jfif.parse_jpeg(streams[0])
+        cs_ = info.components
+        hm, vm = max(c.h for c in cs_), max(c.v for c in cs_)
+        mr = layout.ceil_div(info.height, 8 * vm)
+        mc = layout.ceil_div(info.width, 8 * hm)
+        per = [decoder._device_blocks(jfif.parse_jpeg(j), mr, mc, "auto", dev)
+               for j in streams]
+        zz = [torch.cat(z) if len(z) > 1 else z[0] for z in zip(*per)]
+        qt = [torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
+                              device=dev) for c in cs_]
+        shapes_ = [(mr * c.v, mc * c.h) for c in cs_]
+        factors_ = tuple((hm // c.h, vm // c.v) for c in cs_)
+        fancy_ = decoder.upsample_choices(info.width, cs_, hm, True)
+        return (zz, qt, shapes_, factors_, fancy_, info.height, info.width,
+                len(streams))
+
+    def old_route(zz, qt, shapes_, factors_, fancy_, h, w, n):
+        """The finish before kernels B2 and H, from the twins on the card:
+        de-zigzag, unblockify, kernel B's twin, round, clamp; then the torch
+        upsample, colour map, round, clip and crop."""
+        samples = [fused.dequant_idct_samples_reference(z, q, (n * hb, wb))
+                   for z, q, (hb, wb) in zip(zz, qt, shapes_)]
+        if len(samples) == 1:
+            return samples[0][:h, :w]
+        planes_ = [p.reshape(n, hb * 8, wb * 8) if n > 1 else p
+                   for p, (hb, wb) in zip(samples, shapes_)]
+        return finish.finish_color_reference(planes_, factors_, fancy_, False,
+                                             h, w)
+
+    err_b2, err_h, b2_cases, h_cases = 0, 0, 0, 0
+    gray_5d = jpeg_tpu_torch.encode(np.ascontiguousarray(img[..., 1]),
+                                    QUALITY, device=dev)
+    decodes_5d = {
+        f"4K {SUBSAMPLING}": [jpg_cpu],
+        "4K 444": [jpeg_tpu_torch.encode(img, QUALITY, "444", device=dev)],
+        "4K 422": [jpeg_tpu_torch.encode(img, QUALITY, "422", device=dev)],
+        "1001x777 420": [jpeg_tpu_torch.encode(
+            np.ascontiguousarray(img[:777, :1001]), QUALITY, "420",
+            device=dev)],
+        "1001x777 444": [jpeg_tpu_torch.encode(
+            np.ascontiguousarray(img[:777, :1001]), QUALITY, "444",
+            device=dev)],
+        "4K gray": [gray_5d],
+        f"K={BATCH_DECODE} 4K stacked as decode_batched stacks them": [
+            jpeg_tpu_torch.encode(np.roll(img, i * ROLL, axis=1), QUALITY,
+                                  SUBSAMPLING, device=dev)
+            for i in range(BATCH_DECODE)],
+    }
+    for label, streams in decodes_5d.items():
+        zz, qt, shapes_, factors_, fancy_, h, w, n = finish_inputs(streams)
+        samples = []
+        for z, q, (hb, wb) in zip(zz, qt, shapes_):
+            got = fused.dequant_idct_samples(z, q, (n * hb, wb))
+            twin = fused.dequant_idct_samples_reference(z, q, (n * hb, wb))
+            plane = tile.unblockify(zigzag.from_zigzag(z.reshape(
+                n * hb, wb, 64)))
+            by_b = torch.clamp(torch.round(fused.fused_dequant_idct(
+                plane, q)), 0, 255).to(torch.uint8)
+            e, e_b = int_err(got, twin), int_err(got, by_b)
+            print(f"phase 5d: kernel B2 vs plain, {label}, "
+                  f"{tuple(got.shape)} samples: max |err| {e}; vs kernel B "
+                  f"rounded: {e_b}", flush=True)
+            check(e_b == 0, f"kernel B2 differs from kernel B rounded ({e_b})")
+            err_b2, b2_cases = max(err_b2, e), b2_cases + 1
+            samples.append(got if n == 1 else got.reshape(n, hb * 8, wb * 8))
+        if len(samples) == 3:
+            got = finish.finish_color(samples, factors_, fancy_, False, h, w)
+            e = int_err(got, finish.finish_color_reference(
+                samples, factors_, fancy_, False, h, w))
+            print(f"phase 5d: kernel H vs plain, {label}, ratios {factors_}, "
+                  f"{tuple(got.shape)}: max |err| {e}", flush=True)
+            err_h, h_cases = max(err_h, e), h_cases + 1
+        if n == 1:
+            px_5d = jpeg_tpu_torch.decode(streams[0], device=dev,
+                                          device_output=True)
+        else:
+            px_5d = jpeg_tpu_torch.decode_batched(streams, device=dev,
+                                                  device_output=True)
+        same = torch.equal(px_5d, old_route(zz, qt, shapes_, factors_, fancy_,
+                                            h, w, n))
+        print(f"phase 5d: {label}: {'decode_batched' if n > 1 else 'decode'}"
+              f" == the old route (twins on the card): {same}", flush=True)
+        check(same, f"{label}: the decode differs from the old route")
+    # The scaled decodes' samples (two einsums, no B2) through H.
+    zz, qt, shapes_, factors_, fancy_, h, w, n = finish_inputs([jpg_cpu])
+    for d in (2, 4, 8):
+        k = 8 // d
+        samples = [decoder._samples(z, q, s, k) for z, q, s in
+                   zip(zz, qt, shapes_)]
+        hl, wl = layout.ceil_div(h, d), layout.ceil_div(w, d)
+        got = finish.finish_color(samples, factors_, fancy_, False, hl, wl)
+        e = int_err(got, finish.finish_color_reference(
+            samples, factors_, fancy_, False, hl, wl))
+        print(f"phase 5d: kernel H vs plain, scale_denom {d} planes "
+              f"{[tuple(p.shape) for p in samples]}: max |err| {e}",
+              flush=True)
+        err_h, h_cases = max(err_h, e), h_cases + 1
+    # Every ratio pair in {1, 2, 3, 4}^2 on small planes, both upsample
+    # choices, YCbCr and RGB, one image and a batch of three, with a crop.
+    rng_5d = np.random.default_rng(5)
+    e_pairs = 0
+    for fh, fv in ((a, b) for a in range(1, 5) for b in range(1, 5)):
+        for fan in (True, False):
+            for is_rgb in (False, True):
+                for nimg in (None, 3):
+                    fac = ((1, 1), (fh, fv), (fh, fv))
+                    pl = [torch.as_tensor(rng_5d.integers(0, 256, size=(
+                        (nimg,) if nimg else ()) + (96 // f[1], 120 // f[0])
+                    ).astype(np.uint8), device=dev) for f in fac]
+                    for crop in ((91, 113), (91, 116)):
+                        got = finish.finish_color(pl, fac, (fan,) * 3, is_rgb,
+                                                  *crop)
+                        e_pairs = max(e_pairs, int_err(
+                            got, finish.finish_color_reference(
+                                pl, fac, (fan,) * 3, is_rgb, *crop)))
+                        h_cases += 1
+    print(f"phase 5d: kernel H vs plain, every ratio pair on 96x120 planes "
+          f"(crops 91x113 and 91x116: byte and word stores), fancy and not, "
+          f"YCbCr and RGB, 1 and 3 images: max |err| {e_pairs}", flush=True)
+    err_h = max(err_h, e_pairs)
+    check(err_b2 == 0 and err_h == 0,
+          f"kernels B2 / H disagree with their twins ({err_b2} / {err_h})")
+    # The finish after the entropy decode, kernels counted by the profiler.
+    zz, qt, shapes_, factors_, fancy_, h, w, n = finish_inputs([jpg_cpu])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        decoder._finish_color(*zz, *qt, shapes_, factors_, fancy_, hlim=h,
+                              wlim=w)
+        torch.cuda.synchronize()
+    finish_kernels = [ev.name for ev in prof.events()
+                      if ev.device_type.name == "CUDA"
+                      and not ev.name.startswith(("Memcpy", "Memset"))]
+    print(f"phase 5d: the 4K finish after the entropy decode, by the "
+          f"profiler: {len(finish_kernels)} kernel launches: "
+          + "; ".join(name[:60] for name in finish_kernels), flush=True)
+    check(0 < len(finish_kernels) <= 6,
+          f"the finish is {len(finish_kernels)} kernel launches")
+    print(f"phase 5d: kernels B2 and H vs plain: {b2_cases} / {h_cases} "
+          f"cases, max |err| {err_b2} / {err_h}", flush=True)
+
     # Every path of the JSON line's "launches_per": its counts as they were
-    # read just after it ran, ((A, B, C), (D, E, F, F's separate launches)).
+    # read just after it ran, ((A, B, C, B2, H), (D, E, F, F's separate
+    # launches)).
     path_counts = {}
 
     def counted_all(fn, path=None, images=1):
         """fn() with every kernel's count set to 0 just before and read just
-        after: (result, (A, B, C) launches, (D, E, F, F's separate
+        after: (result, (A, B, C, B2, H) launches, (D, E, F, F's separate
         launches)). `path` keeps the counts read under that name, divided
         by the `images` the call took."""
         reset_counts()
@@ -1033,7 +1222,7 @@ def run(card: str) -> dict:
 
     def counted(fn, huffman=(0, 0, 0), **keep):
         """counted_all for a path whose (D, E, F) launches are known
-        beforehand: (result, (A, B, C) launches). The default is a path
+        beforehand: (result, (A, B, C, B2, H) launches). The default is a path
         that runs no device Huffman decoder."""
         out, abc, huffman_n = counted_all(fn, **keep)
         check(huffman_n[:3] == huffman,
@@ -1052,10 +1241,11 @@ def run(card: str) -> dict:
         per_encode + huffman_encode, per_decode + huffman_main))
     spills = encoder.HOST_PACK_SPILLS
     print(f"phase 6: 4K q{QUALITY} {SUBSAMPLING}: {len(jpg)} bytes; launches "
-          f"(A, B, C): encode {per_encode}, decode {per_decode}; host-pack "
-          f"spills {spills}", flush=True)
-    check(per_encode == (1, 0, 0), "a default encode is one launch of kernel A")
-    check(per_decode == (0, 3, 0), "a colour decode is three launches of kernel B")
+          f"(A, B, C, B2, H): encode {per_encode}, decode {per_decode}; "
+          f"host-pack spills {spills}", flush=True)
+    check(per_encode == ENCODE_N, "a default encode is one launch of kernel A")
+    check(per_decode == COLOUR_N,
+          "a colour decode is three launches of kernel B2 and one of H")
     f_launches = len(entropy_decode._SYNC_STEPS)
     check(huffman_encode == (0, 0, 0, 0),
           f"an encode launched a Huffman decoder: {huffman_encode}")
@@ -1090,7 +1280,7 @@ def run(card: str) -> dict:
     jpg_pallas, per_pallas = counted(lambda: jpeg_tpu_torch.encode(
         img, QUALITY, SUBSAMPLING, device=dev, use_pallas=True),
         path="use_pallas_encode")
-    launches_a_pallas, _, launches_c = per_pallas
+    launches_a_pallas, _, launches_c, _, _ = per_pallas
     print(f"phase 6b: use_pallas 4K q{QUALITY} {SUBSAMPLING}: "
           f"{len(jpg_pallas)} bytes; launches: kernel C {launches_c}, "
           f"kernel A {launches_a_pallas}", flush=True)
@@ -1193,24 +1383,24 @@ def run(card: str) -> dict:
     secs = time.perf_counter() - t0
     torch.cuda.synchronize()
     pack.LAUNCHES = 0
-    fused.LAUNCHES = 0
+    fused.ZZ_LAUNCHES = 0
     encoder.HOST_PACK_SPILLS = 0
     jpg_g = jpeg_tpu_torch.encode(gray, QUALITY, device=dev)
     px_g = jpeg_tpu_torch.decode(jpg_g, device=dev)
     torch.cuda.synchronize()
-    launches_a_g, launches_b_g = pack.LAUNCHES, fused.LAUNCHES
+    launches_a_g, launches_b_g = pack.LAUNCHES, fused.ZZ_LAUNCHES
     spills = encoder.HOST_PACK_SPILLS
     diff = np.abs(px_g.astype(np.int32) - px_g_cpu.astype(np.int32))
     ndiff = int((diff != 0).sum())
     print(f"phase 6e: gray 4K q{QUALITY}: {len(jpg_g)} bytes, equal to CPU: "
-          f"{jpg_g == jpg_g_cpu}; launches: kernel A {launches_a_g}, kernel B "
-          f"{launches_b_g}; {spills} spills; decode vs CPU: max |diff| "
+          f"{jpg_g == jpg_g_cpu}; launches: kernel A {launches_a_g}, kernel "
+          f"B2 {launches_b_g}; {spills} spills; decode vs CPU: max |diff| "
           f"{int(diff.max())}, {ndiff} of {diff.size} differ; PSNR vs source "
           f"{psnr(px_g, gray):.2f} dB (CPU reference {secs:.2f} s)",
           flush=True)
     check(jpg_g == jpg_g_cpu, "gray bytes differ from the CPU's")
     check(launches_a_g >= 1 and launches_b_g >= 1,
-          "gray encode/decode did not launch kernels A and B")
+          "gray encode/decode did not launch kernels A and B2")
     check(spills == 0, "gray encode spilled to the host packer")
     check(px_g.shape == gray.shape and px_g.dtype == np.uint8,
           f"gray decoded {px_g.shape} {px_g.dtype}")
@@ -1224,7 +1414,8 @@ def run(card: str) -> dict:
     auto_n = (1, 0, 1)
 
     for label, stream, px_card, px_ref, nb in (
-            ("colour", jpg, px, px_cpu, 3), ("gray", jpg_g, px_g, px_g_cpu, 1)):
+            ("colour", jpg, px, px_cpu, COLOUR_N),
+            ("gray", jpg_g, px_g, px_g_cpu, GRAY_N)):
         keep = label == "colour"
         px_sparse, n_sparse = counted(lambda: jpeg_tpu_torch.decode(
             stream, device=dev, entropy="sparse"),
@@ -1235,15 +1426,14 @@ def run(card: str) -> dict:
         args = port_util.scan_args(stream)
         payload = decode_device.sparse_payload(*args)[0]
         dense_bytes = args[1] * sum(bpm for _, bpm, _, _ in args[2]) * 64 * 4
-        print(f"phase 6f: {label} 4K decode: launches (A, B, C) sparse "
+        print(f"phase 6f: {label} 4K decode: launches (A, B, C, B2, H) sparse "
               f"{n_sparse}, native {n_native}; sparse == native: "
               f"{np.array_equal(px_sparse, px_native)}; == the default "
               f"decode: {np.array_equal(px_sparse, px_card)}; payload "
               f"{payload.nbytes} bytes, dense coefficient grids "
               f"{dense_bytes} bytes", flush=True)
-        check(n_sparse == (0, nb, 0) and n_native == (0, nb, 0),
-              f"{label} decode: launches {n_sparse} / {n_native}, not "
-              f"{(0, nb, 0)}")
+        check(n_sparse == nb and n_native == nb,
+              f"{label} decode: launches {n_sparse} / {n_native}, not {nb}")
         check(np.array_equal(px_sparse, px_native),
               f"{label}: sparse and native decodes differ")
         check(np.array_equal(px_sparse, px_card),
@@ -1261,10 +1451,12 @@ def run(card: str) -> dict:
             check(got_d.shape[:2] == (layout.ceil_div(HEIGHT, d),
                                       layout.ceil_div(WIDTH, d)),
                   f"scale_denom {d} gave {got_d.shape}")
-            check(n_b == (0, 0, 0), f"a scaled decode launched {n_b}")
+            # The scaled IDCT is two einsums; a colour image still takes H.
+            check(n_b == (0, 0, 0, 0, nb[4]),
+                  f"a scaled decode launched {n_b}")
         out_dev, n_b = counted(lambda: jpeg_tpu_torch.decode(
             stream, device=dev, device_output=True), auto_n)
-        check(n_b == (0, nb, 0), f"{label} device_output: launches {n_b}")
+        check(n_b == nb, f"{label} device_output: launches {n_b}")
         check(isinstance(out_dev, torch.Tensor)
               and str(out_dev.device) == "cuda:0",
               f"{label}: device_output is not a tensor on cuda:0")
@@ -1286,7 +1478,7 @@ def run(card: str) -> dict:
               f"{rgb_d.nbytes}); launches {n_b}; finish_ycbcr == "
               f"decode(): {np.array_equal(fin, rgb_d)} (1 thread: "
               f"{np.array_equal(fin1, rgb_d)})", flush=True)
-        check(n_b == (0, 3 if d == 1 else 0, 0),
+        check(n_b == ((0, 0, 0, 3, 0) if d == 1 else NONE_N),
               f"ycbcr output at scale_denom {d}: launches {n_b}")
         check(np.array_equal(fin, rgb_d) and np.array_equal(fin1, rgb_d),
               f"finish_ycbcr differs from decode() at scale_denom {d}")
@@ -1304,8 +1496,8 @@ def run(card: str) -> dict:
         ("colour", "device"): "device_decode",
         (f"colour restart {ROW_RESTART}", "device"): "device_decode_restarts"}
     for label, stream, nb, restarts in (
-            ("colour", jpg, 3, False), ("gray", jpg_g, 1, False),
-            (f"colour restart {ROW_RESTART}", jpg_rst, 3, True)):
+            ("colour", jpg, COLOUR_N, False), ("gray", jpg_g, GRAY_N, False),
+            (f"colour restart {ROW_RESTART}", jpg_rst, COLOUR_N, True)):
         px_sparse = jpeg_tpu_torch.decode(stream, device=dev,
                                           entropy="sparse")
         for backend, want in (
@@ -1316,10 +1508,10 @@ def run(card: str) -> dict:
                 path=huffman_path.get((label, backend)))
             same = np.array_equal(got, px_sparse)
             print(f"phase 6f: {label} 4K decode, entropy {backend!r}: "
-                  f"launches (A, B, C) {abc}, (D, E, F, F's separate "
+                  f"launches (A, B, C, B2, H) {abc}, (D, E, F, F's separate "
                   f"launches) {huffman_n}; == sparse: {same}", flush=True)
             check(same, f"{label}: {backend!r} pixels differ from sparse")
-            check(abc == (0, nb, 0), f"{label} {backend!r}: launches {abc}")
+            check(abc == nb, f"{label} {backend!r}: launches {abc}")
             if want is None:  # no markers: program F once, then kernel D
                 check(huffman_n == (1, 0, 1, f_launches),
                       f"{label} 'device': launches {huffman_n}")
@@ -1358,23 +1550,25 @@ def run(card: str) -> dict:
     del verdicts
 
     # decode(use_pallas=False), jpeg_tpu's default formulation: one (64, 64)
-    # matmul per plane on the card and no launch of kernel B; the default
-    # decode (kernel B) in turns with it. The matmul sums each sample in
-    # another order than kernel B, so a sample on a .5 boundary may round the
+    # matmul per plane on the card and no launch of kernel B2; the default
+    # decode (kernel B2) in turns with it. The matmul sums each sample in
+    # another order than kernel B2, so a sample on a .5 boundary may round the
     # other way: the samples after the IDCT (the gray pixels, the colour
     # stream's output="ycbcr" planes) are held to the decode contract, +-1 in
     # <= DIFF_SHARE; after the colour map a chroma sample 1 apart moves R or
     # B by up to 1.772, so the colour pixels may differ by up to 3.
     ms_no_pallas = {}
-    for label, stream, px_card, nb in (("colour", jpg, px, 3),
-                                       ("gray", jpg_g, px_g, 1)):
+    for label, stream, px_card, nb in (("colour", jpg, px, COLOUR_N),
+                                       ("gray", jpg_g, px_g, GRAY_N)):
         got, n_b = counted(lambda: jpeg_tpu_torch.decode(
             stream, device=dev, use_pallas=False), auto_n,
             path="use_pallas_false_decode" if label == "colour" else None)
-        check(n_b == (0, 0, 0), f"{label} use_pallas=False: launches {n_b}")
+        # The (64, 64) matmul instead of B2; a colour image still takes H.
+        check(n_b == (0, 0, 0, 0, nb[4]),
+              f"{label} use_pallas=False: launches {n_b}")
         _, n_default = counted(lambda: jpeg_tpu_torch.decode(
             stream, device=dev), auto_n)
-        check(n_default == (0, nb, 0),
+        check(n_default == nb,
               f"{label} default decode: launches {n_default}")
         pairs = [(got, px_card)]
         if label == "colour":
@@ -1395,13 +1589,14 @@ def run(card: str) -> dict:
               and ndiff <= DIFF_SHARE * diff.size,
               f"{label} use_pallas=False: pixels {worst} apart in {ndiff}")
         ms_no_pallas[label] = medians_in_turns({
-            "default (kernel B)": lambda: jpeg_tpu_torch.decode(
+            "default (kernel B2)": lambda: jpeg_tpu_torch.decode(
                 stream, device=dev),
             "use_pallas=False": lambda: jpeg_tpu_torch.decode(
                 stream, device=dev, use_pallas=False),
         }, torch, runs=RUNS)
         print(f"phase 6f: {label} 4K decode use_pallas=False: launches "
-              f"(A, B, C) {n_b}, default {n_default}; pixels vs the default "
+              f"(A, B, C, B2, H) {n_b}, default {n_default}; pixels vs the "
+              f"default "
               f"decode: max |diff| {worst}, {ndiff} of {diff.size} differ "
               f"(by 1: {int((diff == 1).sum())}); in turns, medians of "
               f"{RUNS}: " + "; ".join(f"{k} {v:.3f} ms"
@@ -1424,8 +1619,10 @@ def run(card: str) -> dict:
               f"CPU decode: max |diff| {worst}, {ndiff} of {n} differ",
               flush=True)
         check(got.shape == shape, f"{name} decoded to {got.shape}")
-        check(n_b == (0, shape[2] if len(shape) == 3 else 1, 0),
-              f"{name}: launches {n_b}")
+        # CMYK and YCCK keep kernel B (four components, the f32 finish).
+        want_n = {1: GRAY_N, 3: COLOUR_N, 4: (0, 4, 0, 0, 0)}[
+            shape[2] if len(shape) == 3 else 1]
+        check(n_b == want_n, f"{name}: launches {n_b}, not {want_n}")
         if name.startswith("noninterleaved"):
             # Three scans: each takes kernel D once with "indexed"; with
             # "device" kernel D and the block-start program once each, as
@@ -1470,19 +1667,19 @@ def run(card: str) -> dict:
     spills = encoder.HOST_PACK_SPILLS
     print(f"phase 6h: encode_batched K={BATCH_ENCODE} 4K q{QUALITY} "
           f"{SUBSAMPLING}: {[len(j) for j in got8]} bytes; equal to "
-          f"encode() per image: {got8 == jpgs8}; launches (A, B, C) "
+          f"encode() per image: {got8 == jpgs8}; launches (A, B, C, B2, H) "
           f"{per_batch_enc}; host-pack spills {spills}", flush=True)
     check(got8 == jpgs8, "encode_batched bytes differ from encode()'s")
-    check(per_batch_enc == (1, 0, 0),
+    check(per_batch_enc == ENCODE_N,
           f"encode_batched launched {per_batch_enc}, not one kernel A")
     check(spills == 0, f"{spills} host-pack spills in encode_batched")
     small = np.stack([make_image(777, 1001, seed=s) for s in range(3)])
     row_mcus = layout.ceil_div(1001, 8)
     for label, kw, want in (
             (f"K=3 1001x777 444 restart {row_mcus}",
-             dict(subsampling="444", restart_interval=row_mcus), (1, 0, 0)),
+             dict(subsampling="444", restart_interval=row_mcus), ENCODE_N),
             ("K=2 1001x777 420 device_pack=False",
-             dict(subsampling="420", device_pack=False), (0, 0, 0))):
+             dict(subsampling="420", device_pack=False), NONE_N)):
         imgs = small[:2] if "device_pack" in kw else small
         got, n_b = counted(lambda: jpeg_tpu_torch.encode_batched(
             imgs, QUALITY, device=dev, **kw))
@@ -1531,9 +1728,9 @@ def run(card: str) -> dict:
               and np.array_equal(got, px4),
               f"decode_batched {bm!r} differs from decode() per image")
     auto_mode = decoder.AUTO_BATCH_MODE
-    check(per_batch_dec["fused"] == (0, 3, 0),
+    check(per_batch_dec["fused"] == COLOUR_N,
           f"fused decode_batched launched {per_batch_dec['fused']}")
-    check(per_batch_dec["pipelined"] == (0, 3 * BATCH_DECODE, 0),
+    check(per_batch_dec["pipelined"] == times(BATCH_DECODE, COLOUR_N),
           f"pipelined decode_batched launched {per_batch_dec['pipelined']}")
     check(per_batch_dec["auto"] == per_batch_dec[auto_mode],
           f"'auto' launched {per_batch_dec['auto']}, not {auto_mode!r}'s")
@@ -1547,7 +1744,8 @@ def run(card: str) -> dict:
               f"{np.array_equal(got, px4_half)}; launches {n_b}", flush=True)
         check(np.array_equal(got, px4_half),
               f"decode_batched {bm!r} scale_denom 2 differs from decode()")
-        check(n_b == (0, 0, 0), f"a scaled batch launched {n_b}")
+        check(n_b == (0, 0, 0, 0, 1 if bm == "fused" else BATCH_DECODE),
+              f"a scaled batch launched {n_b}")
     out_dev = jpeg_tpu_torch.decode_batched(jpgs4, device_output=True,
                                             device=dev)
     check(isinstance(out_dev, torch.Tensor) and str(out_dev.device) == "cuda:0"
@@ -1595,7 +1793,8 @@ def run(card: str) -> dict:
           f"{encoder.HOST_PACK_SPILLS}", flush=True)
     check(len(streamed) == STREAM_ENCODE and same,
           "encode_stream bytes differ from encode()'s")
-    check(n_b == (STREAM_ENCODE, 0, 0), f"encode_stream launched {n_b}")
+    check(n_b == times(STREAM_ENCODE, ENCODE_N),
+          f"encode_stream launched {n_b}")
     check(encoder.HOST_PACK_SPILLS == 0, "host-pack spill in encode_stream")
     mixed = [img, small[0], make_image(480, 640, seed=480),
              make_image(768, 1024, seed=768)]
@@ -1610,7 +1809,7 @@ def run(card: str) -> dict:
           f"{got[0] == jpg_opt}); launches {n_b}", flush=True)
     check(got == ref and got[0] == jpg_opt,
           "encode_stream optimize_tables bytes differ from encode()'s")
-    check(n_b == (len(mixed), 0, 0),
+    check(n_b == times(len(mixed), ENCODE_N),
           f"encode_stream optimize_tables launched {n_b}")
 
     lap("6k")
@@ -1632,7 +1831,7 @@ def run(card: str) -> dict:
               f"launches {n_b}", flush=True)
         check(got == want_px, f"decode_stream depth {depth} differs from "
               "decode() per stream")
-        check(n_b == (0, 3 * STREAM_DECODE, 0),
+        check(n_b == times(STREAM_DECODE, COLOUR_N),
               f"decode_stream depth {depth} launched {n_b}")
     got, abc, huffman_n = counted_all(lambda: [
         digest(out) for out in jpeg_tpu_torch.decode_stream(
@@ -1641,7 +1840,7 @@ def run(card: str) -> dict:
           f"'indexed': equal to decode() per stream, in order: "
           f"{got == want_px}; launches {abc}, {huffman_n}", flush=True)
     check(got == want_px, "decode_stream with 'indexed' differs from decode()")
-    check(abc == (0, 3 * STREAM_DECODE, 0)
+    check(abc == times(STREAM_DECODE, COLOUR_N)
           and huffman_n == (STREAM_DECODE, 0, 0, 0),
           f"decode_stream with 'indexed' launched {abc}, {huffman_n}")
     odd = jpgs16[:2] + [small_jpg, jpg_g] + jpgs16[2:4]
@@ -1657,7 +1856,8 @@ def run(card: str) -> dict:
           f"middle, device_output: {[tuple(o.shape) for o in got]}; equal "
           f"to decode() per stream: {ok}; launches {n_b}", flush=True)
     check(ok, "decode_stream of mixed geometries differs from decode()")
-    check(n_b == (0, 3 * 5 + 1, 0), f"mixed decode_stream launched {n_b}")
+    check(n_b == (0, 0, 0, 3 * 5 + 1, 5),
+          f"mixed decode_stream launched {n_b}")
     del got
 
     lap("6l")
@@ -1682,7 +1882,7 @@ def run(card: str) -> dict:
     check(len(info_ni.scans) == 3, "encode_noninterleaved is not three scans")
     check(np.array_equal(px_ni, jpeg_tpu_torch.decode(jpg444, device=dev)),
           "the multi-scan stream decodes to other pixels than the baseline")
-    check(n_b == (0, 0, 0), f"encode_noninterleaved launched {n_b}")
+    check(n_b == NONE_N, f"encode_noninterleaved launched {n_b}")
     del px_ni
     for label, im, kw in (
             ("1024x768 4:2:0", make_image(768, 1024, seed=768),
@@ -1730,7 +1930,7 @@ def run(card: str) -> dict:
           f"per image: {got == jpgs8}; launches {n_b}", flush=True)
     check(got == jpgs8, "encode_batch(stripe_restart=False) differs from "
           "encode()")
-    check(n_b == (0, 0, 0), f"the host-packed encode_batch launched {n_b}")
+    check(n_b == NONE_N, f"the host-packed encode_batch launched {n_b}")
     want_r = [jpeg_tpu_torch.encode(im, QUALITY, SUBSAMPLING,
                                     restart_interval=stripe_mcus, device=dev)
               for im in batch8]
@@ -1746,7 +1946,8 @@ def run(card: str) -> dict:
           f"launches {n_b}; device-pack fallbacks {fallbacks}", flush=True)
     check(got_dp == got_hp == want_r, "encode_batch with stripe restarts "
           "differs from encode() or between its packs")
-    check(n_b == (6, 0, 0), f"encode_batch(device_pack) launched {n_b}, not "
+    check(n_b == times(6, ENCODE_N),
+          f"encode_batch(device_pack) launched {n_b}, not "
           "kernel A once per position")
     check(fallbacks == 0, f"{fallbacks} device-pack fallbacks at q{QUALITY}")
     opt_dp, n_b = counted(lambda: pbatch.encode_batch(
@@ -1767,12 +1968,12 @@ def run(card: str) -> dict:
             path=f"decode_batch_mesh_{entropy}")
         print(f"phase 6m: decode_batch K={BATCH_ENCODE} on {mesh6.shape}, "
               f"entropy {entropy!r}: equal to decode() per image: "
-              f"{np.array_equal(got, px8)}; launches (A, B, C) {abc}, "
+              f"{np.array_equal(got, px8)}; launches (A, B, C, B2, H) {abc}, "
               f"(D, E, F) {huffman_n[:3]}", flush=True)
         check(got.shape == px8.shape and np.array_equal(got, px8),
               f"decode_batch {entropy!r} differs from decode()")
-        check(abc == (0, 18, 0), f"decode_batch launched {abc}: kernel B is "
-              "3 launches per position")
+        check(abc == (0, 18, 0, 0, 0), f"decode_batch launched {abc}: kernel "
+              "B is 3 launches per position (the stripes keep the f32 finish)")
         check(huffman_n[:3] == want, f"decode_batch {entropy!r}: (D, E, F) "
               f"{huffman_n[:3]}, expected {want}")
     # Kernels A and B against their twins on position (0, 0)'s stripe: the
@@ -1817,7 +2018,7 @@ def run(card: str) -> dict:
               f"{len(got)} bytes, equal to encode(restart_interval="
               f"{mosaic_r}): {got == want_big4}; launches {n_b}", flush=True)
         check(got == want_big4, "encode_mosaic differs from encode()")
-        check(n_b == ((6, 0, 0) if dp_flag else (0, 0, 0)),
+        check(n_b == (times(6, ENCODE_N) if dp_flag else NONE_N),
               f"encode_mosaic launched {n_b}")
     check(pbatch.DEVICE_PACK_FALLBACKS == 0, "device-pack fallback in 6m")
     print(f"phase 6m: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1845,17 +2046,19 @@ def run(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for backend, world in (("gloo", 2), ("nccl", 1)):
             n = RANK_POSITIONS // world
-            # Per rank (A, B, C, D, E, F): kernel A once per position, B
-            # three times; D and F once per image of the rank's batch rows
-            # (4 of a (2, 3) row), D and E's route once for the mosaic's
-            # stream with restarts (its one row is every rank's).
+            # Per rank (A, B, C, B2, H, D, E, F): kernel A once per
+            # position, B three times (the stripes' f32 finish); D and F
+            # once per image of the rank's batch rows (4 of a (2, 3) row),
+            # D and E's route once for the mosaic's stream with restarts
+            # (its one row is every rank's).
             want_n = {
-                "encode_batch": (n, 0, 0, 0, 0, 0),
-                "encode_batch_no_restart": (0,) * 6,
-                "encode_batch_optimize": (n, 0, 0, 0, 0, 0),
-                "decode_batch": (0, 3 * n, 0, 8 // world, 0, 8 // world),
-                "encode_mosaic": (n, 0, 0, 0, 0, 0),
-                "decode_mosaic": (0, 3 * n, 0, 1, 1, 0),
+                "encode_batch": (n, 0, 0, 0, 0, 0, 0, 0),
+                "encode_batch_no_restart": (0,) * 8,
+                "encode_batch_optimize": (n, 0, 0, 0, 0, 0, 0, 0),
+                "decode_batch": (0, 3 * n, 0, 0, 0, 8 // world, 0,
+                                 8 // world),
+                "encode_mosaic": (n, 0, 0, 0, 0, 0, 0, 0),
+                "decode_mosaic": (0, 3 * n, 0, 0, 0, 1, 1, 0),
             }
             t0 = time.perf_counter()
             reports = run_ranks(backend, world, tmp)
@@ -1871,12 +2074,12 @@ def run(card: str) -> dict:
                           for k, v in rep["decode_stages"].items())
                       + f" [{card}]", flush=True)
                 for name, got in rep["paths"].items():
-                    abc, huffman_n = got["launches"][:3], got["launches"][3:]
+                    abc, huffman_n = got["launches"][:5], got["launches"][5:]
                     path = f"{name}_{backend}{world}_rank{r}"
                     path_counts[path] = (tuple(abc), tuple(huffman_n))
                     rank_path_names.append(path)
                     same = got["hash"] == want_6p[name]
-                    a, b, _, d, _, f = got["launches"][:6]
+                    a, b, d, f = (got["launches"][i] for i in (0, 1, 5, 7))
                     print(f"phase 6p: {backend} rank {r} of {world}, {name}: "
                           f"hash equal to 6m's: {same}; launches (A, B, D, F) "
                           f"{(a, b, d, f)}; first call {got['first_ms']:.3f} "
@@ -1885,9 +2088,9 @@ def run(card: str) -> dict:
                           f"[{card}]", flush=True)
                     check(same, f"{backend} rank {r}: {name} differs from "
                           "the single-process result")
-                    check(tuple(got["launches"][:6]) == want_n[name],
+                    check(tuple(got["launches"][:8]) == want_n[name],
                           f"{backend} rank {r}: {name} launched "
-                          f"{got['launches'][:6]}, expected {want_n[name]}")
+                          f"{got['launches'][:8]}, expected {want_n[name]}")
                     check((got["xrank_bytes"] > 0) == (world > 1),
                           f"{backend} rank {r}: {name} took "
                           f"{got['xrank_bytes']} bytes from other ranks")
@@ -1925,7 +2128,7 @@ def run(card: str) -> dict:
           f"peak device memory: stream {peak_stream16} bytes, whole-image "
           f"encode {peak_full16} bytes [{card}]", flush=True)
     check(same16, "encode_mosaic_stream differs from encode() of the image")
-    check(n_b == (len(pulls), 0, 0),
+    check(n_b == times(len(pulls), ENCODE_N),
           f"encode_mosaic_stream launched {n_b} over {len(pulls)} stripes")
     check(peak_stream16 < peak_full16 / 4, "the stream's device memory is "
           "not bounded by a stripe")
@@ -2266,12 +2469,42 @@ def run(card: str) -> dict:
         return list(torch.split(
             decode_device.densify_body(words, nb, sp, ep, edp), sizes_4k))
 
+    fancy_4k = (True, True, True)
+
+    def torch_finish(y_zz, cb_zz, cr_zz, qy_, qcb, qcr, shapes_, factors_,
+                     fancy_=fancy_4k, is_rgb=False, k=8, n_img=None,
+                     use_pallas=True, hlim=None, wlim=None):
+        """decoder._finish_color as it ran before kernels B2 and H: per
+        component from_zigzag, unblockify, kernel B, round, clamp; then the
+        torch upsample, colour map, round and clip; the crop (a full-size
+        single image only)."""
+        check(k == 8 and n_img is None and use_pallas,
+              "the torch finish is timed on full-size single images")
+        planes_ = []
+        for z, q, (hb, wb), f, fan in zip((y_zz, cb_zz, cr_zz),
+                                          (qy_, qcb, qcr), shapes_, factors_,
+                                          fancy_):
+            plane = fused.fused_dequant_idct(tile.unblockify(
+                zigzag.from_zigzag(z.reshape(hb, wb, 64))), q)
+            planes_.append(finish.upsample(
+                torch.clamp(torch.round(plane), 0.0, 255.0), f, fan))
+        return finish.rgb_from_planes(planes_, is_rgb)[:hlim, :wlim]
+
     tail = [
         ("scan -> raster on the card", reorder),
-        ("finish (kernel B x3, upsample, colour)",
-         lambda zz: decoder._finish_color(*zz, *qtabs_4k, shapes_4k,
-                                          factors_4k)),
-        ("download", lambda out: out[:HEIGHT, :WIDTH].cpu().numpy()),
+        ("finish: kernel B2 x3", lambda zz: [
+            decoder._samples(z, q, s) for z, q, s in
+            zip(zz, qtabs_4k, shapes_4k)]),
+        ("finish: kernel H", lambda sm: finish.finish_color(
+            sm, factors_4k, fancy_4k, False, HEIGHT, WIDTH)),
+        ("download", lambda out: out.cpu().numpy()),
+    ]
+    tail_torch = [
+        ("scan -> raster on the card", reorder),
+        ("finish: kernel B x3 + torch ops (before B2 and H)",
+         lambda zz: torch_finish(*zz, *qtabs_4k, shapes_4k, factors_4k,
+                                 hlim=HEIGHT, wlim=WIDTH)),
+        ("download", lambda out: out.cpu().numpy()),
     ]
     stage_ms = {
         "sparse": stage_medians([
@@ -2352,6 +2585,20 @@ def run(card: str) -> dict:
         return np.concatenate([words, seg_off]), len(words)
 
     payload_bytes = index_payload(None)[0].nbytes
+    device_stages = [
+        ("host unstuff + words", unstuff_words),
+        (f"upload ({f4k[0].numel() * 4} B)",
+         lambda w: torch.from_numpy(w).to(dev)),
+        ("program F", lambda w: (w, entropy_decode.prefix_index(
+            w, *f4k[1:]))),
+        ("regroup + cumsum", lambda p: (
+            p[0], port_util.regroup_prefix(p[1][0], p[1][1], lay_4k),
+            p[1][2])),
+        ("kernel D", lambda p: (entropy_decode.decode_ac_indexed(
+            p[0], *p[1], d4k[3], d4k[4]), p[2])),
+        ("flags to the host", lambda p: (
+            split_rows(p[0]), p[1].cpu().tolist())[0]),
+    ]
     stage_ms_huffman = {
         "indexed": stage_medians([
             ("host index pass + payload", index_payload),
@@ -2359,20 +2606,9 @@ def run(card: str) -> dict:
                 torch.from_numpy(p[0]).to(dev), *p[1:])),
             ("kernel D", run_d),
         ] + tail, torch),
-        "device (no markers)": stage_medians([
-            ("host unstuff + words", unstuff_words),
-            (f"upload ({f4k[0].numel() * 4} B)",
-             lambda w: torch.from_numpy(w).to(dev)),
-            ("program F", lambda w: (w, entropy_decode.prefix_index(
-                w, *f4k[1:]))),
-            ("regroup + cumsum", lambda p: (
-                p[0], port_util.regroup_prefix(p[1][0], p[1][1], lay_4k),
-                p[1][2])),
-            ("kernel D", lambda p: (entropy_decode.decode_ac_indexed(
-                p[0], *p[1], d4k[3], d4k[4]), p[2])),
-            ("flags to the host", lambda p: (
-                split_rows(p[0]), p[1].cpu().tolist())[0]),
-        ] + tail, torch),
+        "device (no markers)": stage_medians(device_stages + tail, torch),
+        "device (no markers), the finish before B2 and H": stage_medians(
+            device_stages + tail_torch, torch),
         f"device (restart {ROW_RESTART})": stage_medians([
             ("host split + unstuff + words", split_unstuff_words),
             (f"upload ({(e4k[0].numel() + e4k[1].numel()) * 4} B)",
@@ -2491,6 +2727,71 @@ def run(card: str) -> dict:
         xb = as_blocks(x).contiguous()
         lib_c[name] = library_us(xb, w_c, bias_c, plane_bytes(*x.shape))
         del blocks, xb, got
+    # Kernels B2 and H on the 4K stream's blocks: the wrapper calls and the
+    # twins on the card, each kernel alone beside its bound, and the finish
+    # in turns with the one before them (kernel B + torch ops) and with the
+    # twins; then the decode end to end with each finish, in turns.
+    zz_4k, qt_4k, sh_4k, fac_4k, fan_4k, _, _, _ = finish_inputs([jpg])
+    samples_4k = [fused.dequant_idct_samples(z, q, s)
+                  for z, q, s in zip(zz_4k, qt_4k, sh_4k)]
+    (hb_y, wb_y), (hb_c, wb_c) = sh_4k[0], sh_4k[1]
+    ms_b2 = median_ms_device(lambda: fused.dequant_idct_samples(
+        zz_4k[0], qt_4k[0], sh_4k[0]), torch)
+    ms_b2_plain = median_ms_device(
+        lambda: fused.dequant_idct_samples_reference(
+            zz_4k[0], qt_4k[0], sh_4k[0]), torch)
+    ms_h = median_ms_device(lambda: finish.finish_color(
+        samples_4k, fac_4k, fan_4k, False, HEIGHT, WIDTH), torch)
+    ms_h_plain = median_ms_device(lambda: finish.finish_color_reference(
+        samples_4k, fac_4k, fan_4k, False, HEIGHT, WIDTH), torch)
+    # B2 reads 64 int32 per block and writes 64 uint8; H reads the three
+    # sample planes and writes the RGB image.
+    bytes_b2 = hb_y * wb_y * 64 * 5
+    bytes_b2_c = hb_c * wb_c * 64 * 5
+    bytes_h = sum(p.numel() for p in samples_4k) + HEIGHT * WIDTH * 3
+    q_flat = [q.reshape(64).contiguous() for q in qt_4k]
+    us_b2 = alone((zz_4k[0].contiguous(),), (samples_4k[0],),
+                  lambda z, o: fused._launch_idct_samples(
+                      z, q_flat[0], o, hb_y, wb_y), bytes_b2)
+    us_b2_c = alone((zz_4k[1].contiguous(),), (samples_4k[1],),
+                    lambda z, o: fused._launch_idct_samples(
+                        z, q_flat[1], o, hb_c, wb_c), bytes_b2_c)
+    _, geo_h = finish._geometry(samples_4k, fac_4k, fan_4k, HEIGHT, WIDTH)
+    us_h = alone(tuple(samples_4k),
+                 (torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8,
+                              device=dev),),
+                 lambda y, cb, cr, o: finish._launch_finish(
+                     [y, cb, cr], geo_h, o, 1, HEIGHT, WIDTH, False), bytes_h)
+    finish_args = (*zz_4k, *qt_4k, sh_4k, fac_4k, fan_4k)
+    check(torch.equal(torch_finish(*finish_args, hlim=HEIGHT, wlim=WIDTH),
+                      decoder._finish_color(*finish_args, hlim=HEIGHT,
+                                            wlim=WIDTH)),
+          "the torch finish and kernels B2 + H give different pixels")
+    ms_finish_turns = medians_in_turns({
+        "kernel B x3 + torch ops (before B2 and H)": lambda: torch_finish(
+            *finish_args, hlim=HEIGHT, wlim=WIDTH),
+        "the twins on the card": lambda: old_route(
+            zz_4k, qt_4k, sh_4k, fac_4k, fan_4k, HEIGHT, WIDTH, 1),
+        "kernel B2 x3 + kernel H": lambda: decoder._finish_color(
+            *finish_args, hlim=HEIGHT, wlim=WIDTH),
+    }, torch, runs=RUNS)
+    b2_h_finish = decoder._finish_color
+
+    def decode_with(finish_fn):
+        def go():
+            decoder._finish_color = finish_fn
+            try:
+                return jpeg_tpu_torch.decode(jpg, device=dev)
+            finally:
+                decoder._finish_color = b2_h_finish
+        return go
+
+    ms_decode_turns = medians_in_turns({
+        "finish by kernel B + torch ops": decode_with(torch_finish),
+        "finish by kernels B2 + H": decode_with(b2_h_finish),
+    }, torch, runs=RUNS)
+    check(decoder._finish_color is b2_h_finish, "the finish was not restored")
+
     # Kernels D and E and program F alone. The tables (1 MB) stay where they
     # are, as in a decode; everything else rotates.
     nblk_h = d4k[1].shape[0]
@@ -2543,6 +2844,11 @@ def run(card: str) -> dict:
         (f"kernel B idct8, {tuple(chroma.shape)} plane", us_b_c, bytes_c),
         (f"kernel C dct8, {tuple(y_plane.shape)} plane", us_c, bytes_y),
         (f"kernel C dct8, {tuple(cb_plane.shape)} plane", us_c_c, bytes_c),
+        (f"kernel B2 idct8_zz_u8, {hb_y * wb_y} Y blocks", us_b2, bytes_b2),
+        (f"kernel B2 idct8_zz_u8, {hb_c * wb_c} chroma blocks", us_b2_c,
+         bytes_b2_c),
+        (f"kernel H finish_color, 4K {SUBSAMPLING} samples to "
+         f"{HEIGHT}x{WIDTH} RGB", us_h, bytes_h),
     ):
         print(f"phase 8: {label}: kernel-only {us:.2f} us, {nbytes} bytes, "
               f"bound {bound_us(nbytes):.2f} us, share "
@@ -2642,6 +2948,12 @@ def run(card: str) -> dict:
           + "; ".join(f"{k!r} {v / STREAM_DECODE:.3f}"
                       for k, v in ms_stream_turns.items())
           + f"; medians of {TURN_RUNS} [{card}]", flush=True)
+    print("phase 8: the 4K finish after the entropy decode, in turns: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in ms_finish_turns.items())
+          + f"; medians of {RUNS} [{card}]", flush=True)
+    print("phase 8: decode 4K end to end, in turns: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in ms_decode_turns.items())
+          + f"; medians of {RUNS} [{card}]", flush=True)
     stage_ms.update(stage_ms_huffman)
     for path, stages in stage_ms.items():
         print(f"phase 8: decode 4K stages, {path} (sum "
@@ -2652,6 +2964,9 @@ def run(card: str) -> dict:
         (f"kernel A pack_level1, {blocks4k.shape[0]} blocks", ms_a, ms_a_plain),
         (f"kernel B idct8, {tuple(luma.shape)} plane", ms_b, ms_b_plain),
         (f"kernel C dct8, {tuple(y_plane.shape)} plane", ms_c, ms_c_plain),
+        (f"kernel B2 idct8_zz_u8, {hb_y * wb_y} Y blocks", ms_b2,
+         ms_b2_plain),
+        (f"kernel H finish_color, {HEIGHT}x{WIDTH}", ms_h, ms_h_plain),
         (f"kernel D ac_indexed, {nblk_h} blocks", ms_d, ms_d_plain),
         (f"E route decode_segments, {nseg_e} segments (twin: one Python "
          f"walk on the host)", ms_e, secs_e_plain * 1e3),
@@ -2691,8 +3006,9 @@ def run(card: str) -> dict:
     # ran (path_counts); decode_batched's "auto" mode is one of the other two.
     check(set(path_counts) - {"decode_batched_auto_k4"} == set(launch_paths),
           f"paths counted: {sorted(path_counts)}")
+    # (A, B, C, B2, H, D, E, F) = per[0..7].
     per = [[(path_counts[p][0] + path_counts[p][1])[k] for p in launch_paths]
-           for k in range(6)]
+           for k in range(8)]
     lap("end")
     return {"kernels": [
         entry("pack_level1", "jpeg_tpu_torch/csrc/pack_level1.cu",
@@ -2718,24 +3034,41 @@ def run(card: str) -> dict:
               kernel_us_chroma=us_c_c,
               bytes_chroma=bytes_c, bound_us_chroma=bound_us(bytes_c)),
         entry("ac_indexed", "jpeg_tpu_torch/csrc/ac_indexed.cu",
-              "jpeg_tpu/entropy/decode_device.py:179", main_launches[3],
-              err_d, ms_d, ms_d_plain, us_d, bytes_d, per[3]),
+              "jpeg_tpu/entropy/decode_device.py:179", main_launches[5],
+              err_d, ms_d, ms_d_plain, us_d, bytes_d, per[5]),
         entry("prefix_index_anchored", "jpeg_tpu_torch/csrc/prefix_index.cu",
               "jpeg_tpu/entropy/decode_device.py:71",
               per_huffman[f"colour restart {ROW_RESTART}", "device"][1],
-              err_e, ms_e, secs_e_plain * 1e3, us_e, bytes_e, per[4],
+              err_e, ms_e, secs_e_plain * 1e3, us_e, bytes_e, per[6],
               kernel_us_covers="the anchored program, the DC sums, kernel D",
               by_frame={k: {"segments": v[1], "blocks": v[2],
                             "sync_passes": v[3], "kernel_us": v[4]}
                         for k, v in sync_runs.items() if v[0] == "E"}),
         entry("prefix_index", "jpeg_tpu_torch/csrc/prefix_index.cu",
-              "jpeg_tpu/entropy/decode_device.py:866", main_launches[5],
-              err_f, ms_f, ms_f_plain, us_f, bytes_f, per[5],
+              "jpeg_tpu/entropy/decode_device.py:866", main_launches[7],
+              err_f, ms_f, ms_f_plain, us_f, bytes_f, per[7],
               separate_launches=per_huffman["colour", "device"][3],
               kernel_us_by_launch=us_f_stages,
               by_frame={k: {"blocks": v[2], "sync_passes": v[3],
                             "kernel_us": v[4]}
                         for k, v in sync_runs.items() if v[0] == "F"}),
+        entry("idct8_zz_u8", "jpeg_tpu_torch/csrc/idct8.cu",
+              "jpeg_tpu/ops/fused.py:69", main_launches[3], err_b2, ms_b2,
+              ms_b2_plain, us_b2, bytes_b2, per[3],
+              replaces_in="jpeg_tpu/models/decoder.py:34 _reconstruct_plane, "
+                          "inside :349 _jit_finish_color",
+              library_none="no one call: the de-zigzag gather and the "
+                           "rounding to uint8 are further calls",
+              kernel_us_chroma=us_b2_c, bytes_chroma=bytes_b2_c,
+              bound_us_chroma=bound_us(bytes_b2_c)),
+        entry("finish_color", "jpeg_tpu_torch/csrc/finish_color.cu",
+              "jpeg_tpu/models/decoder.py:349", main_launches[4], err_h, ms_h,
+              ms_h_plain, us_h, bytes_h, per[4],
+              library_none="no one call: the upsample, the colour map and "
+                           "the rounding are further calls",
+              finish_ms_in_turns=ms_finish_turns,
+              decode_ms_in_turns=ms_decode_turns,
+              finish_kernels_by_profiler=len(finish_kernels)),
     ]}
 
 

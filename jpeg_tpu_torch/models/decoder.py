@@ -7,9 +7,11 @@
   index pass; entropy="device": the chunked block-start program, anchored at
   every restart segment or program F without markers, + kernel D;
   ops/entropy_decode), then
-  scan -> raster block order, de-zigzag, dequant + IDCT + unshift (kernel B,
-  ops/fused; the DCT-domain scaled IDCT for scale_denom 2/4/8), round and
-  clip, chroma upsample, YCbCr -> RGB, round and clip to uint8 -> crop.
+  scan -> raster block order, then the finish: de-zigzag, dequant + IDCT +
+  unshift, round and clip to uint8 samples (kernel B2, ops/fused; the
+  DCT-domain scaled IDCT for scale_denom 2/4/8), then chroma upsample,
+  YCbCr -> RGB, round and clip to uint8 and the crop (kernel H,
+  ops/finish).
 
 Sequential (SOF0/SOF1) and progressive (SOF2) Huffman modes, 8-bit, 1, 3 or
 4 components (gray / YCbCr / RGB / Adobe CMYK+YCCK), arbitrary per-component
@@ -18,10 +20,13 @@ non-interleaved multi-scan, any Huffman table ids: everything
 jpeg_tpu.decode takes, and decode_batched for K homogeneous baseline
 streams.
 
-Full-size planes (k = 8) run kernel B on a CUDA device and its plain twin
+Full-size planes (k = 8) run kernel B2 on a CUDA device and its plain twin
 on the CPU by default (use_pallas=True). use_pallas=False takes jpeg_tpu's
 default formulation instead: one (64, 64) matmul on a card, the separable
-block IDCT on the CPU, no kernel.
+block IDCT on the CPU, no kernel. Either way a colour image's samples go
+through kernel H on a card (its twin on the CPU); 4-component streams and
+the mesh layer's stripes (parallel/shard) keep the f32 planes of
+_reconstruct_plane and the torch upsample and colour map.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from jpeg_tpu_torch.entropy import (
 from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import layout
 from jpeg_tpu_torch.ops import (
-    color, dct, fused, mcu_conv, quant, subsample, tile, zigzag)
+    color, dct, finish, fused, mcu_conv, quant, tile, zigzag)
 
 ENTROPY_BACKENDS = ("auto", "native", "numpy", "device", "indexed", "sparse")
 
@@ -115,59 +120,66 @@ def _reconstruct_batch(zz, qtab, blocks_shape, k: int, n_img: int,
     return plane.reshape(n_img, hb * k, wb * k)
 
 
-def _upsample(plane, factor, fan: bool):
-    """A reconstructed (..., H, W) plane upsampled by its (fh, fv) ratios to
-    the max-sampled grid (triangular or replication per `fan`)."""
-    fh, fv = factor
-    if fh == 1 and fv == 1:
-        return plane
-    up = subsample.fancy_upsample_factors if fan else subsample.upsample_factors
-    return up(plane, fv, fh)
-
-
 def _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k: int = 8,
                       use_pallas: bool = True):
-    """Per-component reconstructed planes, each upsampled to the
-    max-sampled grid."""
-    return [_upsample(_reconstruct_plane(zz, q, shape, k, use_pallas), factor,
-                      fan)
+    """Per-component reconstructed f32 planes, each upsampled to the
+    max-sampled grid (the 4-component finish)."""
+    return [finish.upsample(_reconstruct_plane(zz, q, shape, k, use_pallas),
+                            factor, fan)
             for zz, q, shape, factor, fan
             in zip(zzs, qtabs, shapes, factors, fancy)]
 
 
-def _rgb_from_planes(planes, is_rgb: bool):
-    """Three upsampled (..., H, W) sample planes -> (..., H, W, 3) uint8
-    RGB. is_rgb: components are stored as R/G/B, so the YCbCr matrix is
-    skipped."""
-    ycc = torch.stack(planes, dim=-1)
-    rgb = ycc if is_rgb else color.ycbcr_to_rgb(ycc, clip=False)
-    return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
+def _samples(zz, qtab, blocks_shape, k: int = 8, use_pallas: bool = True,
+             n_img: int = 1, out=None):
+    """_reconstruct_batch's samples as uint8: (n_img * H*k/8, W*k/8) for
+    n_img images whose raster blocks follow one another in `zz`. At full
+    size with use_pallas, kernel B2 (fused.dequant_idct_samples) on the
+    images stacked along their rows, one launch; otherwise the f32 integer
+    samples of the matmul forms, converted exactly. `out` (a contiguous
+    uint8 tensor of that shape) receives them."""
+    hb, wb = blocks_shape
+    if k == 8 and use_pallas:
+        return fused.dequant_idct_samples(zz, qtab, (n_img * hb, wb), out=out)
+    if n_img == 1:
+        plane = _reconstruct_plane(zz, qtab, blocks_shape, k, use_pallas)
+    else:
+        plane = _reconstruct_batch(zz, qtab, blocks_shape, k, n_img,
+                                   use_pallas)
+    samples = plane.reshape(n_img * hb * k, wb * k).to(torch.uint8)
+    return samples if out is None else out.copy_(samples)
 
 
 def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
                   fancy=(True, True, True), is_rgb: bool = False, k: int = 8,
-                  n_img: int | None = None, use_pallas: bool = True):
+                  n_img: int | None = None, use_pallas: bool = True,
+                  hlim: int | None = None, wlim: int | None = None):
     """shapes: per-component block grids (hb, wb); factors: per-component
     (fh, fv) upsampling ratios to the max-sampled grid. fancy: per-component
     triangular-vs-replication choice (upsample_choices). n_img: the blocks
     hold that many images, one after another, and the result gains a leading
     image axis (every step after the IDCT works on each sample's own image
-    only, so the pixels are those of n_img separate calls)."""
-    zzs, qtabs = (y_zz, cb_zz, cr_zz), (qy, qcb, qcr)
-    if n_img is None:
-        planes = _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k,
-                                   use_pallas)
-    else:
-        planes = [
-            _upsample(_reconstruct_batch(zz, q, shape, k, n_img, use_pallas),
-                      factor, fan)
-            for zz, q, shape, factor, fan
-            in zip(zzs, qtabs, shapes, factors, fancy)]
-    return _rgb_from_planes(planes, is_rgb)
+    only, so the pixels are those of n_img separate calls). hlim, wlim: the
+    crop (None: the whole padded grid).
+
+    Per component the uint8 samples (_samples: kernel B2 on a card), then
+    the upsample, colour map and crop in one call (finish.finish_color:
+    kernel H on a card); on the CPU both run their plain twins."""
+    n = 1 if n_img is None else n_img
+    planes = []
+    for zz, q, (hb, wb) in zip((y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes):
+        s = _samples(zz, q, (hb, wb), k, use_pallas, n)
+        planes.append(s if n_img is None else s.reshape(n, hb * k, wb * k))
+    fh, fv = factors[0]
+    hlim = shapes[0][0] * k * fv if hlim is None else hlim
+    wlim = shapes[0][1] * k * fh if wlim is None else wlim
+    return finish.finish_color(planes, factors, fancy, is_rgb, hlim, wlim)
 
 
-def _finish_gray(zz, qy, shape, k: int = 8, use_pallas: bool = True):
-    return _reconstruct_plane(zz, qy, shape, k, use_pallas).to(torch.uint8)
+def _finish_gray(zz, qy, shape, k: int = 8, use_pallas: bool = True,
+                 hlim: int | None = None, wlim: int | None = None):
+    """One component's uint8 samples (kernel B2 on a card), cropped."""
+    return _samples(zz, qy, shape, k, use_pallas)[:hlim, :wlim]
 
 
 class YCbCrPlanes(typing.NamedTuple):
@@ -192,15 +204,18 @@ def _finish_planes(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, k: int = 8,
     """Device half of the ycbcr output: per-component integer sample planes
     (the exact values _finish_color would feed its upsample/colour tail),
     as uint8. flat=True returns ONE concatenated 1-D buffer instead of a
-    tuple: the to-host case fetches it in a single copy."""
-    planes = tuple(
-        _reconstruct_plane(zz, q, shape, k, use_pallas).to(torch.uint8)
-        for zz, q, shape in zip(
-            (y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes)
-    )
-    if flat:
-        return torch.cat([p.reshape(-1) for p in planes])
-    return planes
+    tuple, each plane written into its slice: the to-host case fetches it in
+    a single copy."""
+    zzs, qtabs = (y_zz, cb_zz, cr_zz), (qy, qcb, qcr)
+    if not flat:
+        return tuple(_samples(zz, q, shape, k, use_pallas)
+                     for zz, q, shape in zip(zzs, qtabs, shapes))
+    sizes = [hb * k * wb * k for hb, wb in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=y_zz.device)
+    for zz, q, (hb, wb), piece in zip(zzs, qtabs, shapes, buf.split(sizes)):
+        _samples(zz, q, (hb, wb), k, use_pallas,
+                 out=piece.view(hb * k, wb * k))
+    return buf
 
 
 def _split_flat_planes(buf: np.ndarray, shapes, k: int):
@@ -620,9 +635,10 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
     one, every other name takes the best.
     use_pallas: how a full-size plane (scale_denom 1) is dequantized and
     inverse transformed. True (the default here; jpeg_tpu's default is
-    False): kernel B on a card, its plain twin on the CPU. False: jpeg_tpu's
-    default formulation, one (64, 64) matmul per plane on a card and the
-    separable block IDCT on the CPU, with no kernel. Their samples after
+    False): kernel B2 on a card (kernel B for 4-component streams), its
+    plain twin on the CPU. False: jpeg_tpu's default formulation, one
+    (64, 64) matmul per plane on a card and the separable block IDCT on the
+    CPU, with no IDCT kernel. Their samples after
     the IDCT agree to +-1 where an f32 sum lands on a .5 boundary; the
     colour map can widen that to 3 in an RGB pixel (1.772 per chroma
     level). The scaled decode ignores the switch."""
@@ -648,7 +664,6 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
     wlim = layout.ceil_div(info.width, scale_denom)
 
     def deliver(out: torch.Tensor):
-        out = out[:hlim, :wlim]
         return out if device_output else out.cpu().numpy()
 
     def qtab(c):
@@ -662,7 +677,7 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         mcu_cols = layout.ceil_div(info.width, 8)
         zz = _device_blocks(info, mcu_rows, mcu_cols, entropy, device)[0]
         return deliver(_finish_gray(zz, qtab(comps[0]), (mcu_rows, mcu_cols),
-                                    k, use_pallas))
+                                    k, use_pallas, hlim, wlim))
 
     if len(comps) not in (3, 4):
         raise jfif.JpegFormatError(f"unsupported component count {len(comps)}")
@@ -709,7 +724,7 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         # Adobe APP14 marker is present: PIL rawmode "CMYK;I").
         return deliver(_finish_cmyk(
             zz, qtabs, shapes, factors, fancy, info.adobe_transform == 2,
-            info.adobe_transform is not None, use_pallas))
+            info.adobe_transform is not None, use_pallas)[:hlim, :wlim])
     if output == "ycbcr":
         flat = not device_output  # one copy to the host
         planes = _finish_planes(*zz, *qtabs, shapes, k, flat, use_pallas)
@@ -717,7 +732,8 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
             planes = _split_flat_planes(planes.cpu().numpy(), shapes, k)
         return YCbCrPlanes(tuple(planes), hlim, wlim, factors, fancy)
     return deliver(_finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb,
-                                 k, use_pallas=use_pallas))
+                                 k, use_pallas=use_pallas, hlim=hlim,
+                                 wlim=wlim))
 
 
 BATCH_MODES = ("auto", "pipelined", "fused")
@@ -746,8 +762,8 @@ def decode_batched(datas, fancy_upsample: bool = True,
     batch_mode selects how the device work is composed (identical pixels
     either way):
       "fused": all K payloads go up as one tensor, then one densify, and one
-        launch of kernel B per component on the K planes stacked along
-        their rows, one upsample and one colour map for the batch.
+        launch of kernel B2 per component on the K planes stacked along
+        their rows, and one of kernel H for the batch.
       "pipelined": image by image. Payload i+1 is packed on the host and
         uploaded from a pinned buffer on a side stream while image i
         densifies and finishes.
@@ -882,9 +898,8 @@ def decode_batched(datas, fancy_upsample: bool = True,
                 # rows of one tall image.
                 z = layout.scan_to_raster(z, n * mcu_rows, mcu_cols, c.v, c.h)
             zz.append(z)
-        out = _finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb, k,
-                            n_img=n)
-        return out[:, :hlim, :wlim]
+        return _finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb, k,
+                             n_img=n, hlim=hlim, wlim=wlim)
 
     if batch_mode == "fused":
         out = finish(decode_device.densify_body(

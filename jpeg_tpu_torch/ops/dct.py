@@ -5,7 +5,7 @@ of the scaled decode.
 
 The products are plain full-f32 torch matmuls, as jpeg_tpu computes them
 outside any Pallas kernel. The (64, 64) form is decode(use_pallas=False)'s
-IDCT on a card; the full-size default decode runs kernel B (ops/fused)."""
+IDCT on a card; the full-size default decode runs kernel B2 (ops/fused)."""
 
 from __future__ import annotations
 

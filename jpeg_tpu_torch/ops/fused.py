@@ -7,9 +7,12 @@ that does the whole 2-D transform in one pass:
   - kernel C, csrc/dct8.cu, replaces the Pallas kernel fused._dct8_kernel
     (pallas_call at fused.py:101);
   - kernel B, csrc/idct8.cu, replaces fused._idct8_kernel (pallas_call at
-    fused.py:121).
+    fused.py:121);
+  - kernel B2, the second entry of csrc/idct8.cu, does B's work for the
+    decoder's finish on the entropy decoder's zig-zag blocks and writes
+    rounded uint8 samples (dequant_idct_samples).
 On a CPU tensor each runs its plain twin (fused_dct_quantize_reference,
-fused_dequant_idct_reference). The kernels' source notes say what bounds
+fused_dequant_idct_reference, dequant_idct_samples_reference). The kernels' source notes say what bounds
 them on the card. A kernel and its twin sum in f32 and are held to the bounds
 of tests/test_fused.py: quantized coefficients within 1 in at most
 max(8, 5e-4 n) places; IDCT samples to |diff| <= 1e-2. Kernel C's FMA chains
@@ -26,12 +29,14 @@ import threading
 
 import torch
 
-from jpeg_tpu_torch.ops import _cuda, dct, mcu_conv, quant
+from jpeg_tpu_torch.ops import _cuda, dct, mcu_conv, quant, tile, zigzag
 
 # Kernel B launches since the last reset (plus one per launch, nowhere else).
 LAUNCHES = 0
 # Kernel C launches since the last reset (plus one per launch, nowhere else).
 DCT_LAUNCHES = 0
+# Kernel B2 launches since the last reset (plus one per launch, nowhere else).
+ZZ_LAUNCHES = 0
 # Worker threads launch too (parallel/pipeline), so the increments hold a lock.
 _COUNT_LOCK = threading.Lock()
 
@@ -177,3 +182,98 @@ def fused_dequant_idct(coeffs: torch.Tensor, qtable) -> torch.Tensor:
     if kind == "cuda":
         return _fused_dequant_idct_cuda(coeffs, qtable)
     raise ValueError(f"fused_dequant_idct: unsupported device {coeffs.device}")
+
+
+def _check_blocks(zz: torch.Tensor, blocks_shape) -> tuple:
+    hb, wb = (int(n) for n in blocks_shape)
+    if zz.ndim != 2 or zz.shape[1] != 64 or zz.shape[0] != hb * wb:
+        raise ValueError(
+            f"zz must be ({hb} * {wb}, 64) zig-zag blocks, got "
+            f"{tuple(zz.shape)}")
+    return hb, wb
+
+
+def _check_out(out, shape, device) -> None:
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != torch.uint8
+                            or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous {shape} uint8 tensor on {device}, got "
+            f"{tuple(out.shape)} {out.dtype} on {out.device}")
+
+
+def dequant_idct_samples_reference(zz: torch.Tensor, qtable, blocks_shape,
+                                   out=None) -> torch.Tensor:
+    """Plain twin of dequant_idct_samples (any device): the chain it
+    replaces, from_zigzag -> unblockify -> fused_dequant_idct_reference ->
+    round (half to even) -> clamp to [0, 255] -> uint8."""
+    hb, wb = _check_blocks(zz, blocks_shape)
+    _check_out(out, (hb * 8, wb * 8), zz.device)
+    plane = fused_dequant_idct_reference(
+        tile.unblockify(zigzag.from_zigzag(zz.reshape(hb, wb, 64))), qtable)
+    samples = torch.clamp(torch.round(plane), 0.0, 255.0).to(torch.uint8)
+    if out is None:
+        return samples
+    return out.copy_(samples)
+
+
+def _launch_idct_samples(zz, q, out, hb: int, wb: int, lib=None) -> None:
+    """Enqueue kernel B2 on PyTorch's current stream: prepared contiguous
+    tensors ((hb wb, 64) int32 zig-zag blocks, 16-byte aligned; (8 hb, 8 wb)
+    uint8 out, 8-byte aligned; (64,) f32 raster table), no checks and no
+    allocation. Counts the launch. A CPU device takes the host build of the
+    kernel's block body that the tests pass as `lib`."""
+    global ZZ_LAUNCHES
+    dev = zz.device
+    lib = lib or _cuda.load("idct8")
+    args = (ctypes.c_void_p(zz.data_ptr()), ctypes.c_void_p(q.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_int(hb), ctypes.c_int(wb))
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            err = lib.jt_idct8_zz_u8(*args, _cuda.stream_handle(dev))
+    else:
+        err = lib.jt_idct8_zz_u8(*args, None)
+    _cuda.check("idct8_zz_u8", err)
+    with _COUNT_LOCK:
+        ZZ_LAUNCHES += 1
+
+
+def _dequant_idct_samples_cuda(zz: torch.Tensor, qtable, blocks_shape,
+                               out=None) -> torch.Tensor:
+    hb, wb = _check_blocks(zz, blocks_shape)
+    dev = zz.device
+    _check_out(out, (hb * 8, wb * 8), dev)
+    z = zz.to(torch.int32).contiguous()
+    q = torch.as_tensor(qtable, dtype=torch.float32, device=dev).reshape(
+        64).contiguous()
+    if out is None:
+        out = torch.empty((hb * 8, wb * 8), dtype=torch.uint8, device=dev)
+    if hb == 0 or wb == 0:
+        return out
+    _require_aligned("dequant_idct_samples", zz=z)
+    if out.data_ptr() % 8:
+        raise ValueError("dequant_idct_samples: out is not 8-byte aligned")
+    _launch_idct_samples(z, q, out, hb, wb)
+    return out
+
+
+def dequant_idct_samples(zz: torch.Tensor, qtable, blocks_shape,
+                         out=None) -> torch.Tensor:
+    """(hb wb, 64) int32 zig-zag quantized blocks in plane raster block
+    order + (8, 8) table (array, or a tensor on zz's device) + the block grid
+    (hb, wb) -> (8 hb, 8 wb) uint8 samples, clip(round(IDCT(deq) + 128), 0,
+    255): what fused_dequant_idct, round and clamp give on
+    unblockify(from_zigzag(zz)). `out`, a contiguous (8 hb, 8 wb) uint8
+    tensor on zz's device, receives the samples (a slice of a larger buffer
+    saves a copy); it is returned.
+
+    CUDA tensors launch kernel B2 (csrc/idct8.cu, jt_idct8_zz_u8), whose
+    samples equal kernel B's rounded and clamped bit for bit; CPU tensors run
+    the plain twin. Any other device raises."""
+    kind = zz.device.type
+    if kind == "cpu":
+        return dequant_idct_samples_reference(zz, qtable, blocks_shape, out)
+    if kind == "cuda":
+        return _dequant_idct_samples_cuda(zz, qtable, blocks_shape, out)
+    raise ValueError(f"dequant_idct_samples: unsupported device {zz.device}")

@@ -2,7 +2,7 @@
 jpeg_tpu_torch.tables), and the float quantizer and dequantizer in block
 and image layout. The default encode quantizes in exact integer arithmetic
 inside ops/mcu_conv; the full-size default decode dequantizes inside
-ops/fused (kernel B), the scaled decode and decode(use_pallas=False) on the
+ops/fused (kernel B2), the scaled decode and decode(use_pallas=False) on the
 CPU with dequantize below."""
 
 from __future__ import annotations

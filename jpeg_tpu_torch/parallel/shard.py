@@ -15,9 +15,11 @@ With stripe_restart each stripe is one restart segment (DRI/RSTn), so
 stripes are independent and the DC exchange is skipped. The packed form
 entropy-codes every stripe on its own position: kernel A (ops/pack) and
 level 2, one segment per image stripe. The decode finish runs the port's
-own decoder sequence per stripe (kernel B through
-models/decoder._reconstruct_plane, round and clip, the upsample, the colour
-map), so its pixels equal decode()'s bit for bit.
+decoder's f32 sequence per stripe (kernel B through
+models/decoder._reconstruct_plane, round and clip, the torch upsample and
+colour map of ops/finish's plain twin; the vertical doubling takes halo rows
+from the next stripes), so its pixels equal decode()'s, which runs kernels
+B2 and H, bit for bit.
 
 Values cross positions as grids of per-position tensors (mesh.is_grid);
 on a mesh over several ranks a grid holds None at the other ranks'
@@ -31,7 +33,7 @@ import torch
 
 from jpeg_tpu_torch.config import Subsampling
 from jpeg_tpu_torch.models import decoder, encoder
-from jpeg_tpu_torch.ops import mcu_conv, subsample, symbols
+from jpeg_tpu_torch.ops import finish, mcu_conv, subsample, symbols
 from jpeg_tpu_torch.parallel import mesh as mesh_mod
 from jpeg_tpu_torch.parallel.mesh import Mesh, grid_map, ppermute, psum
 
@@ -239,7 +241,7 @@ def _stripe_decode(y, cb, cr, qy, qc, *, mode: Subsampling, mcu_cols: int,
             return decoder._reconstruct_batch(zz.reshape(-1, 64), q,
                                               (hb, wb), 8, b)
 
-        chroma = [decoder._upsample(plane(z, qc, mcu_cols), (hf, 1), True)
+        chroma = [finish.upsample(plane(z, qc, mcu_cols), (hf, 1), True)
                   for z in (zcb, zcr)]
         return plane(zy, qy, mcu_cols * hf), chroma[0], chroma[1]
 
@@ -248,7 +250,7 @@ def _stripe_decode(y, cb, cr, qy, qc, *, mode: Subsampling, mcu_cols: int,
     if vf == 2:
         cbp = _halo_triangle_vertical(cbp, mesh)
         crp = _halo_triangle_vertical(crp, mesh)
-    return grid_map(lambda a, b, c: decoder._rgb_from_planes([a, b, c], False),
+    return grid_map(lambda a, b, c: finish.rgb_from_planes([a, b, c], False),
                     yp, cbp, crp)
 
 

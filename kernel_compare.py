@@ -10,6 +10,8 @@ Usage, from the repository root, on a machine with a CUDA device and nvcc:
                               [--candidate-c FILE.cu]... [--flags-c "..."]...
                               [--candidate-d FILE.cu]... [--flags-d "..."]...
                               [--previous-ef DIR] [--flags-f "..."]...
+                              [--previous-finish DIR] [--flags-b2 "..."]...
+                              [--flags-h "..."]... [--finish-only]
                               [--previous-only] [--ef-only] [--json FILE]
     python3 kernel_compare.py --progressive-4k
 
@@ -37,6 +39,18 @@ c3598a5 or older), timed in turns with it on the same inputs; --flags-f
 builds the package's program once more with extra nvcc flags (e.g.
 "-DJT_CHUNK_BITS=1024", "-DJT_LANES=1") as a further contender. --ef-only
 runs this comparison and nothing else.
+
+The decode finish (kernels B2 and H, csrc/idct8.cu's jt_idct8_zz_u8 and
+csrc/finish_color.cu) is timed on the 4K stream's blocks as the decoder
+gives them: B2 on the Y and a chroma plane and H alone, kernel only, in
+turns with their --flags-b2 / --flags-h builds (e.g. "-DJT_GROUP=4",
+"-DJT_THREADS=256"); and the whole finish, wall time, in turns with the one
+before them, kernel B + torch ops (from_zigzag, unblockify, kernel B,
+round, clamp, the torch upsample and colour map), whose kernel B is built
+from --previous-finish DIR (a directory that holds an idct8.cu with the
+jt_idct8 entry, e.g. an older tree's csrc) or else from the package. Every
+contender's samples or pixels are held to the package's first, 0 apart.
+--finish-only runs this comparison and nothing else.
 
 Inputs are those of chip_smoke.py's main path: the 3840x2160 4:2:0 image's
 194,400 level-1 blocks at q75 and at q95 (dense), its Y and Cb coefficient
@@ -319,9 +333,143 @@ def compare_ef(args, torch, card, dev, img, build, results):
         by_launch("E", case, launch_sets)
 
 
+def compare_finish(args, torch, card, dev, img, build, results):
+    """Kernels B2 and H against their --flags-b2 / --flags-h builds, kernel
+    only, and the finish against the one before them (kernel B + torch
+    ops), wall time; all in turns."""
+    import jpeg_tpu_torch
+    from jpeg_tpu_torch.io import jfif
+    from jpeg_tpu_torch.models import decoder, layout
+    from jpeg_tpu_torch.ops import _cuda, finish as fin, fused, tile, zigzag
+
+    jpg = jpeg_tpu_torch.encode(img, cs.QUALITY, cs.SUBSAMPLING, device=dev)
+    info = jfif.parse_jpeg(jpg)
+    comps = info.components
+    hm, vm = max(c.h for c in comps), max(c.v for c in comps)
+    mr = layout.ceil_div(info.height, 8 * vm)
+    mc = layout.ceil_div(info.width, 8 * hm)
+    zz = decoder._device_blocks(info, mr, mc, "auto", dev)
+    qt = [torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
+                          device=dev) for c in comps]
+    shapes = [(mr * c.v, mc * c.h) for c in comps]
+    factors = tuple((hm // c.h, vm // c.v) for c in comps)
+    fancy = decoder.upsample_choices(info.width, comps, hm, True)
+    h, w = info.height, info.width
+    samples = [fused.dequant_idct_samples(z, q, s)
+               for z, q, s in zip(zz, qt, shapes)]
+    rgb = fin.finish_color(samples, factors, fancy, False, h, w)
+    stream = lambda: _cuda.stream_handle(dev)  # noqa: E731
+
+    def in_turns(kernel, case, contenders, nbytes):
+        """contenders: name -> (launch(i), buffer sets)."""
+        times = {name: [] for name in contenders}
+        order = list(contenders) + list(contenders)[::-1]
+        for _ in range(ROUNDS):
+            for name in order:
+                launch, nbuf = contenders[name]
+                times[name].append(cs.kernel_only_us(launch, nbuf, torch))
+        bound = cs.bound_us(nbytes)
+        for name, ts in times.items():
+            med = statistics.median(ts)
+            print(f"{kernel} {case} [{name}]: kernel-only {med:.2f} us (each: "
+                  f"{', '.join(f'{t:.2f}' for t in ts)}); {nbytes} bytes, "
+                  f"bound {bound:.2f} us, share {bound / med:.3f} [{card}]",
+                  flush=True)
+            results.append({"kernel": kernel, "case": case, "version": name,
+                            "kernel_us": med, "each_us": ts, "bytes": nbytes,
+                            "bound_us": bound, "bound_share": bound / med})
+
+    def note(kernel, case, name, agrees):
+        print(f"{kernel} {case} [{name}]: vs the package's: "
+              f"{'ok (0 apart)' if agrees else 'DISAGREES'}", flush=True)
+        results.append({"kernel": kernel, "case": case, "version": name,
+                        "agrees": bool(agrees)})
+
+    b2_libs = {"package": _cuda.load("idct8")}
+    for i, flags in enumerate(args.flags_b2):
+        b2_libs[f"flags {flags}"] = build(f"idct8_b2_flags{i}",
+                                          _cuda._CSRC / "idct8.cu",
+                                          shlex.split(flags))
+    for label, k in (("Y", 0), ("Cb", 1)):
+        hb, wb = shapes[k]
+        q = qt[k].reshape(64).contiguous()
+        nbytes = hb * wb * 64 * 5
+        nbuf = cs.rotation(nbytes)
+        ins = [zz[k].clone() for _ in range(nbuf)]
+        outs = [torch.empty_like(samples[k]) for _ in range(nbuf)]
+        contenders = {}
+        for name, lib in b2_libs.items():
+            fused._launch_idct_samples(ins[0], q, outs[0], hb, wb, lib=lib)
+            torch.cuda.synchronize()
+            note("B2", label, name, torch.equal(outs[0], samples[k]))
+            contenders[name] = (lambda i, lib=lib: fused._launch_idct_samples(
+                ins[i], q, outs[i], hb, wb, lib=lib), nbuf)
+        in_turns("B2", f"{label} {hb * wb} blocks", contenders, nbytes)
+
+    h_libs = {"package": _cuda.load("finish_color")}
+    for i, flags in enumerate(args.flags_h):
+        h_libs[f"flags {flags}"] = build(f"finish_color_flags{i}",
+                                         _cuda._CSRC / "finish_color.cu",
+                                         shlex.split(flags))
+    _, geo = fin._geometry(samples, factors, fancy, h, w)
+    nbytes = sum(p.numel() for p in samples) + rgb.numel()
+    nbuf = cs.rotation(nbytes)
+    ins = [[p.clone() for p in samples] for _ in range(nbuf)]
+    outs = [torch.empty_like(rgb) for _ in range(nbuf)]
+    contenders = {}
+    for name, lib in h_libs.items():
+        fin._launch_finish(ins[0], geo, outs[0], 1, h, w, False, lib=lib)
+        torch.cuda.synchronize()
+        note("H", "4K", name, torch.equal(outs[0], rgb))
+        contenders[name] = (lambda i, lib=lib: fin._launch_finish(
+            ins[i], geo, outs[i], 1, h, w, False, lib=lib), nbuf)
+    in_turns("H", f"4K {cs.SUBSAMPLING} {h}x{w}", contenders, nbytes)
+
+    if args.previous_finish:
+        lib_b = build("idct8_previous_finish",
+                      pathlib.Path(args.previous_finish) / "idct8.cu")
+        label_b = f"kernel B from {args.previous_finish} + torch ops"
+    else:
+        lib_b = _cuda.load("idct8")
+        label_b = "kernel B + torch ops"
+
+    def torch_finish():
+        planes = []
+        for z, q, (hb, wb), f, fan in zip(zz, qt, shapes, factors, fancy):
+            coeffs = tile.unblockify(zigzag.from_zigzag(
+                z.reshape(hb, wb, 64))).contiguous()
+            plane = torch.empty(coeffs.shape, dtype=torch.float32, device=dev)
+            _cuda.check("previous B", lib_b.jt_idct8(
+                *_ptrs(coeffs, q.reshape(64).contiguous(), plane),
+                ctypes.c_int(hb * 8), ctypes.c_int(wb * 8), stream()))
+            planes.append(fin.upsample(
+                torch.clamp(torch.round(plane), 0.0, 255.0), f, fan))
+        return fin.rgb_from_planes(planes, False)[:h, :w]
+
+    def b2_h():
+        return decoder._finish_color(*zz, *qt, shapes, factors, fancy,
+                                     hlim=h, wlim=w)
+
+    note("finish", "4K", label_b, torch.equal(torch_finish(), rgb))
+    note("finish", "4K", "kernels B2 + H", torch.equal(b2_h(), rgb))
+    times = {label_b: [], "kernels B2 + H": []}
+    for _ in range(ROUNDS):
+        ms = cs.medians_in_turns({label_b: torch_finish,
+                                  "kernels B2 + H": b2_h}, torch, cs.RUNS)
+        for name, v in ms.items():
+            times[name].append(v)
+    for name, ts in times.items():
+        med = statistics.median(ts)
+        print(f"finish 4K [{name}]: {med:.3f} ms wall (each: "
+              f"{', '.join(f'{t:.3f}' for t in ts)}) [{card}]", flush=True)
+        results.append({"kernel": "finish", "case": "4K", "version": name,
+                        "wall_ms": med, "each_ms": ts})
+
+
 def trace_decode(torch, img, card):
-    """Profile one warm 4K colour decode and report where kernel B's three
-    launches lie on the device's timeline: each launch's duration, and for
+    """Profile one warm 4K colour decode and report where kernel B2's three
+    launches (idct8_kernel) lie on the device's timeline: each launch's
+    duration, and for
     each gap between two of them its length, the other kernels that ran in
     it and the time the device was idle in it."""
     from torch.autograd import DeviceType
@@ -360,7 +508,7 @@ def trace_decode(torch, img, card):
         reverse=True)[:6]
     print(f"decode trace: longest on the device, by name: "
           f"{report['longest_us']}", flush=True)
-    print(f"decode trace: kernel B launches "
+    print(f"decode trace: kernel B2 launches "
           f"{[round(t, 1) for t in report['idct8_us']]} us; gaps between "
           f"them {report['gaps']}; device span {report['device_span_us']:.0f} "
           f"us, busy {report['device_busy_us']:.0f} us over {len(kernels)} "
@@ -401,6 +549,10 @@ def main() -> int:
     ap.add_argument("--flags-f", action="append", default=[])
     ap.add_argument("--previous-ef")
     ap.add_argument("--ef-only", action="store_true")
+    ap.add_argument("--previous-finish")
+    ap.add_argument("--flags-b2", action="append", default=[])
+    ap.add_argument("--flags-h", action="append", default=[])
+    ap.add_argument("--finish-only", action="store_true")
     ap.add_argument("--previous-only", action="store_true")
     ap.add_argument("--json")
     ap.add_argument("--progressive-4k", action="store_true")
@@ -437,6 +589,11 @@ def main() -> int:
         return lib
 
     img = cs.make_image(cs.HEIGHT, cs.WIDTH)
+    if args.finish_only:
+        results = []
+        compare_finish(args, torch, card, dev, img, build, results)
+        return finish(args, {"card": card, "results": results,
+                             "decode_trace": None})
     if args.ef_only:
         results = []
         compare_ef(args, torch, card, dev, img, build, results)
@@ -673,6 +830,7 @@ def main() -> int:
              d_in[0].numel() * 4 + 3 * nblk * 4 + nblk * 256, check_d)
 
     compare_ef(args, torch, card, dev, img, build, results)
+    compare_finish(args, torch, card, dev, img, build, results)
 
     trace = None
     if not args.previous_only:

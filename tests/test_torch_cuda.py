@@ -27,7 +27,11 @@ against the host result; encode_batched and encode_stream against encode()
 on the card and on the CPU (bytes), decode_batched and decode_stream against
 decode() on the card (pixels), encode_noninterleaved and encode_progressive
 against their CPU bytes; kernels A and B past 2^31 bytes of input against
-their twins on slices (blocks are independent). The device Huffman
+their twins on slices (blocks are independent). Kernels B2 (zig-zag blocks
+in, uint8 samples out) and H (upsample, colour map, round, clip, crop) equal
+their twins with 0 apart, past 2^31 bytes of input too (on slices: blocks
+and images are independent); a colour decode launches B2 three times and H
+once, kernel B never. The device Huffman
 decoders are integers throughout: kernels D and E and program F equal their
 twins run on the same tensors, native.decode_scan and native.index_scan, with
 0 apart, and entropy="indexed" / "device" give the pixels of "sparse"."""
@@ -42,7 +46,8 @@ import jpeg_tpu_torch
 from jpeg_tpu_torch.entropy import decode_device, huffman, native
 from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
 from jpeg_tpu_torch.models import encoder
-from jpeg_tpu_torch.ops import bitpack, entropy_decode, fused, pack, quant
+from jpeg_tpu_torch.ops import (
+    bitpack, entropy_decode, finish, fused, pack, quant, tile, zigzag)
 
 import torch_port_fixtures as fixtures
 
@@ -122,6 +127,66 @@ def test_kernel_b_matches_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (17, 126), (135, 240),
+                                   (270, 480)])
+def test_kernel_b2_matches_plain(shape):
+    """Kernel B2 against its twin and against kernel B rounded and clamped,
+    0 apart; also written into a slice of a larger buffer (out=)."""
+    dev = require_cuda()
+    rng = np.random.default_rng(shape[0] + shape[1])
+    hb, wb = shape
+    zz = torch.as_tensor(random_blocks(rng, hb * wb, 0.2), device=dev)
+    qt = quant.luma_table(60)
+    before = fused.ZZ_LAUNCHES
+    got = fused.dequant_idct_samples(zz, qt, shape)
+    torch.cuda.synchronize()
+    assert fused.ZZ_LAUNCHES == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (hb * 8, wb * 8)
+    assert torch.equal(got, fused.dequant_idct_samples_reference(
+        zz, qt, shape))
+    plane = fused.fused_dequant_idct(tile.unblockify(zigzag.from_zigzag(
+        zz.reshape(hb, wb, 64))).contiguous(), qt)
+    assert torch.equal(got, torch.clamp(torch.round(plane), 0, 255).to(
+        torch.uint8))
+    buf = torch.zeros(got.numel() + 64, dtype=torch.uint8, device=dev)
+    fused.dequant_idct_samples(zz, qt, shape,
+                               out=buf[64:].view(hb * 8, wb * 8))
+    assert torch.equal(buf[64:].view(hb * 8, wb * 8), got)
+    assert int(buf[:64].max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [None, 3])
+def test_kernel_h_matches_plain(n):
+    """Kernel H against its twin, 0 apart: every ratio pair in
+    {1, 2, 3, 4}^2, fancy and not, YCbCr and RGB, crops to a width that is
+    a multiple of 4 (word stores through shared memory) and to one that is
+    not (byte stores), and the padded grid of a 1001x777 4:2:0 frame."""
+    dev = require_cuda()
+    rng = np.random.default_rng(7 if n is None else n)
+    lead = () if n is None else (n,)
+    cases = [(((1, 1), (fh, fv), (fh, fv)), (96, 120), crop)
+             for fh in range(1, 5) for fv in range(1, 5)
+             for crop in ((91, 113), (91, 116))]
+    cases.append((((1, 1), (2, 2), (2, 2)), (784, 1008), (777, 1001)))
+    cases.append((((2, 1), (1, 2), (1, 1)), (784, 1008), (777, 1001)))
+    for factors, full, crop in cases:
+        planes = [torch.as_tensor(rng.integers(
+            0, 256, size=lead + (full[0] // fv, full[1] // fh)).astype(
+                np.uint8), device=dev) for fh, fv in factors]
+        for fan in (True, False):
+            for is_rgb in (False, True):
+                before = finish.LAUNCHES
+                got = finish.finish_color(planes, factors, (fan,) * 3,
+                                          is_rgb, *crop)
+                torch.cuda.synchronize()
+                assert finish.LAUNCHES == before + 1
+                assert got.is_contiguous() and got.shape == lead + (*crop, 3)
+                assert torch.equal(got, finish.finish_color_reference(
+                    planes, factors, (fan,) * 3, is_rgb, *crop))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_unaligned_tensors():
     """Kernels A, B and C move 16 bytes per load and store: a base pointer
     off a 16-byte boundary raises instead of launching."""
@@ -146,15 +211,15 @@ def test_wrappers_refuse_unaligned_tensors():
 def test_encode_decode_on_card_match_cpu(mode, shape, restart):
     require_cuda()
     img = make_image(*shape, seed=shape[0])
-    spills, launches_a, launches_b = (encoder.HOST_PACK_SPILLS, pack.LAUNCHES,
-                                      fused.LAUNCHES)
+    spills, launches_a = encoder.HOST_PACK_SPILLS, pack.LAUNCHES
     a = jpeg_tpu_torch.encode(img, 75, mode, restart, device="cuda")
     b = jpeg_tpu_torch.encode(img, 75, mode, restart, device="cpu")
     assert a == b
     assert encoder.HOST_PACK_SPILLS == spills
     assert pack.LAUNCHES == launches_a + 1
+    before = _counts()
     got = jpeg_tpu_torch.decode(a, device="cuda")
-    assert fused.LAUNCHES == launches_b + 3
+    assert _since(before) == (0, 0, 0, 3, 1)
     ref = jpeg_tpu_torch.decode(a, device="cpu")
     diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
     assert diff.max() <= 1
@@ -217,12 +282,13 @@ def test_gray_on_card_matches_cpu(shape, restart, optimize):
     require_cuda()
     img = make_image(*shape, seed=shape[0])[..., 0]
     kw = dict(quality=75, restart_interval=restart, optimize_tables=optimize)
-    spills, launches_b = encoder.HOST_PACK_SPILLS, fused.LAUNCHES
+    spills = encoder.HOST_PACK_SPILLS
     a = jpeg_tpu_torch.encode(img, device="cuda", **kw)
     assert a == jpeg_tpu_torch.encode(img, device="cpu", **kw)
     assert encoder.HOST_PACK_SPILLS == spills
+    before = _counts()
     got = jpeg_tpu_torch.decode(a, device="cuda")
-    assert fused.LAUNCHES == launches_b + 1
+    assert _since(before) == (0, 0, 0, 1, 0)
     ref = jpeg_tpu_torch.decode(a, device="cpu")
     assert got.shape == shape and got.dtype == np.uint8
     diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
@@ -299,9 +365,10 @@ def test_scaled_decode_on_card_matches_cpu(mode, scale_denom):
     jpg = jpeg_tpu_torch.encode(
         img[..., 0] if mode == "gray" else img, quality=80, device="cpu",
         **({} if mode == "gray" else dict(subsampling=mode)))
-    launches = fused.LAUNCHES
+    before = _counts()
     got = jpeg_tpu_torch.decode(jpg, device="cuda", scale_denom=scale_denom)
-    assert fused.LAUNCHES == launches  # the scaled IDCT is not kernel B
+    # The scaled IDCT is no kernel; a colour image still takes kernel H.
+    assert _since(before) == (0, 0, 0, 0, 0 if mode == "gray" else 1)
     _assert_decode_close(got, jpeg_tpu_torch.decode(
         jpg, device="cpu", scale_denom=scale_denom))
 
@@ -326,9 +393,9 @@ def test_decode_without_pallas_on_card(stream):
             img[..., 0] if stream == "gray" else img, quality=80,
             device="cpu", **({} if stream == "gray" else dict(
                 subsampling=stream)))
-    launches = fused.LAUNCHES
+    launches = fused.LAUNCHES, fused.ZZ_LAUNCHES
     got = jpeg_tpu_torch.decode(jpg, device="cuda", use_pallas=False)
-    assert fused.LAUNCHES == launches
+    assert (fused.LAUNCHES, fused.ZZ_LAUNCHES) == launches
     mapped = stream not in ("gray", "cmyk.jpg")  # a colour map follows
     for ref in (jpeg_tpu_torch.decode(jpg, device="cpu", use_pallas=False),
                 jpeg_tpu_torch.decode(jpg, device="cuda")):
@@ -355,7 +422,9 @@ def test_fixture_streams_on_card_match_cpu(name):
 
 
 def _counts():
-    return pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES
+    """Launches of kernels (A, B, C, B2, H)."""
+    return (pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES,
+            fused.ZZ_LAUNCHES, finish.LAUNCHES)
 
 
 def _since(before):
@@ -378,7 +447,7 @@ def test_encode_batched_on_card(mode, shape, restart, k):
     torch.cuda.synchronize()
     # One launch of kernel A for the batch; restart 7 does not divide the
     # MCU count, so that batch is host-packed image by image.
-    assert _since(before) == ((0 if restart == 7 else 1), 0, 0)
+    assert _since(before) == ((0 if restart == 7 else 1), 0, 0, 0, 0)
     assert encoder.HOST_PACK_SPILLS == spills
     assert got == per_image
     assert got == jpeg_tpu_torch.encode_batched(imgs, device="cpu", **kw)
@@ -401,7 +470,8 @@ def test_decode_batched_on_card(batch_mode, scale_denom):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got, ref)
     if scale_denom == 1 and batch_mode != "auto":
-        assert _since(before) == (0, 3 if batch_mode == "fused" else 9, 0)
+        assert _since(before) == ((0, 0, 0, 3, 1) if batch_mode == "fused"
+                                  else (0, 0, 0, 9, 3))
     out = jpeg_tpu_torch.decode_batched(
         jpgs, scale_denom=scale_denom, batch_mode=batch_mode,
         device_output=True, device="cuda")
@@ -425,7 +495,7 @@ def test_encode_stream_on_card(optimize, depth, staging, monkeypatch):
     got = list(jpeg_tpu_torch.encode_stream(iter(imgs), depth=depth,
                                             device="cuda", **kw))
     torch.cuda.synchronize()
-    assert _since(before) == (len(imgs), 0, 0)
+    assert _since(before) == (len(imgs), 0, 0, 0, 0)
     assert got == [jpeg_tpu_torch.encode(im, device="cuda", **kw)
                    for im in imgs]
     assert got == [jpeg_tpu_torch.encode(im, device="cpu", **kw)
@@ -444,7 +514,7 @@ def test_decode_stream_on_card_counts_under_threads(depth):
     before = _counts()
     got = list(jpeg_tpu_torch.decode_stream(iter(jpgs), depth=depth,
                                             device="cuda"))
-    assert _since(before) == (0, 3 * len(jpgs), 0)
+    assert _since(before) == (0, 0, 0, 3 * len(jpgs), len(jpgs))
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
     dev = list(jpeg_tpu_torch.decode_stream(jpgs[:4], depth=depth,
@@ -483,7 +553,7 @@ def test_decode_from_four_threads_on_side_streams_counts_exactly():
         w.join(timeout=300)
         assert not w.is_alive()
     assert not bad
-    assert _since(before) == (0, 3 * rounds * threads, 0)
+    assert _since(before) == (0, 0, 0, 3 * rounds * threads, rounds * threads)
 
 
 @pytest.mark.cuda
@@ -548,6 +618,49 @@ def test_kernels_past_two_gib_of_input():
     for lo, hi in ((0, 64), (line - 64, line + 64), (h - 64, h)):
         ref = fused.fused_dequant_idct_reference(coeffs[lo:hi], qt)
         torch.testing.assert_close(out[lo:hi], ref, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_finish_kernels_past_two_gib_of_input():
+    """Kernel B2 on 87,383 x 96 zig-zag blocks (2,147,524,608 bytes) and
+    kernel H on 264 stacked 4:2:0 images of 2160x3840 (a 2,189,721,600-byte
+    Y plane; 6.6 GB of RGB out): offsets past 2^31 bytes in and out. Blocks
+    and images are independent, so slices are held to the twins, 0 apart:
+    the first, the last and those around the 2^31-byte lines. About 13 GB
+    of device memory."""
+    dev = require_cuda()
+    rng = np.random.default_rng(2)
+    wb = 96
+    n = ((1 << 31) // 256 // wb + 2) * wb
+    part = torch.as_tensor(random_blocks(rng, 1 << 16, 0.1), device=dev)
+    zz = part.repeat(n // part.shape[0] + 1, 1)[:n].contiguous()
+    assert zz.numel() * 4 > 1 << 31
+    qt = quant.luma_table(75)
+    out = fused.dequant_idct_samples(zz, qt, (n // wb, wb))
+    torch.cuda.synchronize()
+    line = (1 << 31) // 256 // wb * wb
+    for lo, hi in ((0, 4 * wb), (line - 2 * wb, line + 2 * wb),
+                   (n - 4 * wb, n)):
+        ref = fused.dequant_idct_samples_reference(
+            zz[lo:hi], qt, ((hi - lo) // wb, wb))
+        assert torch.equal(out[lo // wb * 8:hi // wb * 8], ref)
+    del zz, out, part
+
+    k, h, w = 264, 2160, 3840
+    base = [torch.as_tensor(rng.integers(0, 256, size=(8, rows, cols)).astype(
+        np.uint8), device=dev) for rows, cols in ((h, w), (h // 2, w // 2),
+                                                  (h // 2, w // 2))]
+    planes = [b.repeat(k // 8, 1, 1) for b in base]
+    assert planes[0].numel() > 1 << 31
+    factors = ((1, 1), (2, 2), (2, 2))
+    rgb = finish.finish_color(planes, factors, (True,) * 3, False, h - 3,
+                              w - 5)
+    torch.cuda.synchronize()
+    line_in, line_out = (1 << 31) // (h * w), (1 << 31) // (rgb[0].numel())
+    for i in (0, line_out, line_out + 1, line_in, line_in + 1, k - 1):
+        ref = finish.finish_color_reference([p[i] for p in planes], factors,
+                                            (True,) * 3, False, h - 3, w - 5)
+        assert torch.equal(rgb[i], ref)
 
 
 # ---------------------------------------------------------------------------
@@ -659,11 +772,11 @@ def test_device_entropy_on_fixtures_and_streams_on_card(entropy):
     jpgs = [_huffman_stream(*c) for c in HUFFMAN_CASES[:6]] * 3
     ref = [jpeg_tpu_torch.decode(j, device="cuda", entropy="sparse")
            for j in jpgs]
-    before = fused.LAUNCHES
+    before = fused.ZZ_LAUNCHES
     got = list(jpeg_tpu_torch.decode_stream(iter(jpgs), depth=4,
                                             entropy=entropy, device="cuda"))
-    assert fused.LAUNCHES - before == sum(1 if r.ndim == 2 else 3
-                                          for r in ref)
+    assert fused.ZZ_LAUNCHES - before == sum(1 if r.ndim == 2 else 3
+                                             for r in ref)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
 

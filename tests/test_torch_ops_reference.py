@@ -309,9 +309,9 @@ def test_decode_without_pallas_options(scale_denom):
 
 
 def test_use_pallas_selects_the_idct(monkeypatch):
-    """use_pallas=True (the default) goes through fused_dequant_idct (kernel
-    B, its twin on the CPU) once per plane; False never does, and takes the
-    separable block IDCT; the scaled decode takes neither."""
+    """use_pallas=True (the default) goes through dequant_idct_samples
+    (kernel B2, its twin on the CPU) once per plane; False never does, and
+    takes the separable block IDCT; the scaled decode takes neither."""
     calls = {"fused": 0, "blocks": 0}
 
     def count(name, fn):
@@ -320,8 +320,8 @@ def test_use_pallas_selects_the_idct(monkeypatch):
             return fn(*args, **kwargs)
         return wrapped
 
-    monkeypatch.setattr(PF, "fused_dequant_idct",
-                        count("fused", PF.fused_dequant_idct))
+    monkeypatch.setattr(PF, "dequant_idct_samples",
+                        count("fused", PF.dequant_idct_samples))
     monkeypatch.setattr(PD, "idct_blocks", count("blocks", PD.idct_blocks))
     jpg = _stream("420/0")
     want = {"fused": 3, "blocks": 0}
