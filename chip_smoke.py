@@ -40,19 +40,24 @@ Phases, each reported on its own line:
      kernel B2 (zig-zag blocks in, uint8 samples out; also equal to kernel
      B rounded and clamped) on the decoder's blocks of the 4K 4:2:0, 4:4:4,
      4:2:2 and gray streams, 1001x777 4:2:0 and 4:4:4 (a crop) and the K = 4
-     stack decode_batched makes; kernel H (upsample, colour, round, clip,
-     crop) on the colour ones, on the scale_denom 2/4/8 samples, and on
-     every ratio pair in {1, 2, 3, 4}^2 on small planes (fancy and not,
-     YCbCr and RGB, 1 and 3 images); each of those decodes (decode_batched
-     for the stack) equal, byte for byte, to the old route composed from
-     the decoder's blocks and the twins on the card; the 4K finish counted
-     by torch.profiler: at most 6 kernel launches (B2 x3, H);
+     stack decode_batched makes, one component at a time in raster order
+     and all components in one launch in the entropy decoder's scan order
+     (the K = 4 stack as decode_batched's (4, B, 64) rows, read at their
+     stride); kernel H (upsample, colour, round, clip, crop) on the colour
+     ones, on the scale_denom 2/4/8 samples, and on every ratio pair in
+     {1, 2, 3, 4}^2 on small planes (fancy and not, YCbCr and RGB, 1 and 3
+     images, crops for byte, word and 8-byte stores); each of those decodes
+     (decode_batched for the stack) equal, byte for byte, to the old route
+     composed from the decoder's blocks and the twins on the card; the 4K
+     finish on scan-order blocks counted by torch.profiler: 2 kernel
+     launches (B2, H);
   6. the main path: a 3840x2160 q75 4:2:0 encode and decode through
      jpeg_tpu_torch.encode/decode on the card, with every launch counter
      reset first (encode: kernel A once; decode: program F (five launches)
      and kernel D once each, since entropy="auto" is the "device" backend on
-     a card, kernel B2 three times and kernel H once, kernel B never); the
-     bytes must equal the port's CPU encode, the pixels the
+     a card, kernel B2 once and kernel H once, kernel B never, and no
+     scan -> raster copy); the bytes must equal the port's CPU encode, the
+     pixels the
      port's CPU decode to +-1 in <= 0.5% of samples;
      6b: the same image through encode(use_pallas=True) (kernel C, host
      pack), counted: kernel C 3 launches, kernel A none; coefficients within
@@ -64,7 +69,7 @@ Phases, each reported on its own line:
      6e: the image's Y plane as a gray image: card bytes equal CPU bytes,
      the card decode within +-1 of the CPU decode in <= 0.5% of samples;
      6f: the decode options on the 4K colour and gray streams, counted:
-     entropy="sparse" and "native" (kernel B2 3 launches each and H 1; gray
+     entropy="sparse" and "native" (kernel B2 1 launch each and H 1; gray
      B2 1 and H none; kernels A, B and C none; all counts read after every
      decode here),
      pixels exactly equal; the payload's bytes beside the dense grids';
@@ -78,8 +83,8 @@ Phases, each reported on its own line:
      scan with one flipped byte through "sparse", "indexed" and "device":
      all raise ScanDecodeError or all give the same pixels; the colour and
      gray streams with use_pallas=False (jpeg_tpu's default formulation:
-     one (64, 64) matmul per plane): kernel B2 never launched (3 and 1 times
-     by the default decode; H still once for colour), the samples after the
+     one (64, 64) matmul per plane): kernel B2 never launched (once by the
+     default decode; H still once for colour), the samples after the
      IDCT (gray pixels,
      colour output="ycbcr" planes) within +-1 in <= 0.5% of the default
      decode's, the colour pixels within 3 (a chroma level moves R or B by up
@@ -94,8 +99,8 @@ Phases, each reported on its own line:
      device_pack=False; kernel A against its plain twin on the blocks those
      two device-packed batches give it (1,555,200 for K = 8);
      6i: decode_batched, K = 4 of those streams: "fused", "pipelined" and
-     "auto" each equal the stacked per-image decode() exactly, kernel B2 3
-     launches and H 1 fused, 12 and 4 pipelined; scale_denom=2; device_output
+     "auto" each equal the stacked per-image decode() exactly, kernel B2 1
+     launch and H 1 fused, 4 and 4 pipelined; scale_denom=2; device_output
      a tensor
      on cuda:0; a stream of another size raises ValueError; kernel B
      against its plain twin on the batch's stacked planes (8640x3840 and
@@ -104,7 +109,7 @@ Phases, each reported on its own line:
      every stream equals encode() of its image (by hash), kernel A 64
      launches; then 4 images of mixed sizes with optimize_tables;
      6k: decode_stream, 16 of those streams at depth 2 and 4: pixels equal
-     per-image decode() exactly and in order, kernel B2 48 launches and H 16
+     per-image decode() exactly and in order, kernel B2 16 launches and H 16
      counted under the workers' threads; a stream of another geometry in
      the middle;
      once at depth 4 with entropy="indexed" (kernel D 16 launches);
@@ -149,11 +154,14 @@ Phases, each reported on its own line:
      call and its plain twin on the card (CUDA events around one call); and
      each kernel alone (kernel_only_us: events around a graph of 20 launches
      on prepared buffers, L2 cold) beside the bytes it must move and the
-     time the card's memory needs for them (B2 on the Y and a chroma plane's
-     blocks, H on the 4K image); the 4K finish in turns three ways (kernel B
-     + torch ops as before B2 and H, the twins on the card, B2 + H) and the
-     4K decode end to end in turns with the finish before B2 and H and with
-     B2 + H, also by stage; kernel B's library call, one
+     time the card's memory needs for them (B2 on the three components'
+     blocks in one launch, and on the Y and a chroma plane's alone; H on
+     the 4K image); the 4K finish in turns four ways (kernel B + torch ops
+     as before B2 and H, the twins on the card, the scan -> raster copy and
+     a B2 launch per component + H, B2 + H) and the 4K decode end to end in
+     turns with the finish before B2 and H and with B2 + H, also by stage
+     (with each of the three finishes); the scan -> raster reorders of every
+     counted path through B2 (0); kernel B's library call, one
      torch.addmm of the Y and a chroma plane's f32 blocks against
      diag(q) @ kron(D, D), timed the same way, and for kernel C the addmm
      of its scaled DCT alone (the rounding is further calls);
@@ -213,7 +221,7 @@ RANK_RUNS = 3  # phase 6p: timed runs of each path after its counted run
 # Launches (A, B, C, B2, H) of one call of a path.
 NONE_N = (0, 0, 0, 0, 0)
 ENCODE_N = (1, 0, 0, 0, 0)  # an encode: kernel A once
-COLOUR_N = (0, 0, 0, 3, 1)  # a colour decode: B2 per component, then H
+COLOUR_N = (0, 0, 0, 1, 1)  # a colour decode: B2 once for all, then H
 GRAY_N = (0, 0, 0, 1, 0)  # a gray decode: B2 once
 
 
@@ -468,12 +476,15 @@ def build_all():
 
 
 def reset_counts():
-    """Every kernel's launch count to 0, once the card is idle."""
+    """Every kernel's launch count, and the scan -> raster reorders, to 0,
+    once the card is idle."""
     import torch
 
+    from jpeg_tpu_torch.models import layout
     from jpeg_tpu_torch.ops import entropy_decode, finish, fused, pack
 
     torch.cuda.synchronize()
+    layout.SCAN_TO_RASTER_CALLS = 0
     pack.LAUNCHES = 0
     fused.LAUNCHES = 0
     fused.DCT_LAUNCHES = 0
@@ -1075,6 +1086,26 @@ def run(card: str) -> dict:
         return (zz, qt, shapes_, factors_, fancy_, info.height, info.width,
                 len(streams))
 
+    def scan_inputs(streams):
+        """The blocks as the decoder hands them to kernel B2: each
+        component's blocks in the entropy decoder's scan order, and its
+        scan geometry (None: raster order); several streams of one
+        geometry as decode_batched's (n, B, 64) rows, a (n, blocks, 64)
+        slice per component."""
+        info = jfif.parse_jpeg(streams[0])
+        cs_ = info.components
+        hm, vm = max(c.h for c in cs_), max(c.v for c in cs_)
+        mr = layout.ceil_div(info.height, 8 * vm)
+        mc = layout.ceil_div(info.width, 8 * hm)
+        per = [decoder._scan_blocks(jfif.parse_jpeg(j), mr, mc, "auto", dev)
+               for j in streams]
+        zz, geo = per[0]
+        if len(streams) > 1:
+            rows = torch.stack([torch.cat(z) for z, _ in per])
+            bounds = np.cumsum([0] + [z.shape[0] for z in zz])
+            zz = [rows[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+        return zz, geo
+
     def old_route(zz, qt, shapes_, factors_, fancy_, h, w, n):
         """The finish before kernels B2 and H, from the twins on the card:
         de-zigzag, unblockify, kernel B's twin, round, clamp; then the torch
@@ -1124,6 +1155,23 @@ def run(card: str) -> dict:
             check(e_b == 0, f"kernel B2 differs from kernel B rounded ({e_b})")
             err_b2, b2_cases = max(err_b2, e), b2_cases + 1
             samples.append(got if n == 1 else got.reshape(n, hb * 8, wb * 8))
+        # All components in one launch, in the entropy decoder's order.
+        zz_s, geo_s = scan_inputs(streams)
+        before_b2 = fused.ZZ_LAUNCHES
+        got_s = fused.dequant_idct_planes(zz_s, qt, shapes_, geo_s, n_img=n)
+        torch.cuda.synchronize()
+        one_launch = fused.ZZ_LAUNCHES == before_b2 + 1
+        twin_s = fused.dequant_idct_planes_reference(zz_s, qt, shapes_,
+                                                     geo_s, n_img=n)
+        e = max(int_err(g, t) for g, t in zip(got_s, twin_s))
+        e_r = max(int_err(g.reshape(s.shape), s)
+                  for g, s in zip(got_s, samples))
+        print(f"phase 5d: kernel B2 vs plain, {label}, every component in "
+              f"one launch ({one_launch}) in scan order {geo_s}: max |err| "
+              f"{e}; vs the raster-order launches: {e_r}", flush=True)
+        check(one_launch and e_r == 0,
+              f"{label}: one launch {one_launch}, {e_r} from raster order")
+        err_b2, b2_cases = max(err_b2, e), b2_cases + 1
         if len(samples) == 3:
             got = finish.finish_color(samples, factors_, fancy_, False, h, w)
             e = int_err(got, finish.finish_color_reference(
@@ -1168,7 +1216,7 @@ def run(card: str) -> dict:
                     pl = [torch.as_tensor(rng_5d.integers(0, 256, size=(
                         (nimg,) if nimg else ()) + (96 // f[1], 120 // f[0])
                     ).astype(np.uint8), device=dev) for f in fac]
-                    for crop in ((91, 113), (91, 116)):
+                    for crop in ((91, 113), (91, 116), (96, 120)):
                         got = finish.finish_color(pl, fac, (fan,) * 3, is_rgb,
                                                   *crop)
                         e_pairs = max(e_pairs, int_err(
@@ -1176,18 +1224,21 @@ def run(card: str) -> dict:
                                 pl, fac, (fan,) * 3, is_rgb, *crop)))
                         h_cases += 1
     print(f"phase 5d: kernel H vs plain, every ratio pair on 96x120 planes "
-          f"(crops 91x113 and 91x116: byte and word stores), fancy and not, "
+          f"(crops 91x113, 91x116 and 96x120: byte, word and 8-byte "
+          f"stores), fancy and not, "
           f"YCbCr and RGB, 1 and 3 images: max |err| {e_pairs}", flush=True)
     err_h = max(err_h, e_pairs)
     check(err_b2 == 0 and err_h == 0,
           f"kernels B2 / H disagree with their twins ({err_b2} / {err_h})")
-    # The finish after the entropy decode, kernels counted by the profiler.
+    # The finish after the entropy decode, on the blocks as the decoder
+    # hands them over, kernels counted by the profiler.
     zz, qt, shapes_, factors_, fancy_, h, w, n = finish_inputs([jpg_cpu])
+    zz_s, geo_s = scan_inputs([jpg_cpu])
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        decoder._finish_color(*zz, *qt, shapes_, factors_, fancy_, hlim=h,
-                              wlim=w)
+        decoder._finish_color(*zz_s, *qt, shapes_, factors_, fancy_, hlim=h,
+                              wlim=w, scan=geo_s)
         torch.cuda.synchronize()
     finish_kernels = [ev.name for ev in prof.events()
                       if ev.device_type.name == "CUDA"
@@ -1195,7 +1246,7 @@ def run(card: str) -> dict:
     print(f"phase 5d: the 4K finish after the entropy decode, by the "
           f"profiler: {len(finish_kernels)} kernel launches: "
           + "; ".join(name[:60] for name in finish_kernels), flush=True)
-    check(0 < len(finish_kernels) <= 6,
+    check(len(finish_kernels) == 2,
           f"the finish is {len(finish_kernels)} kernel launches")
     print(f"phase 5d: kernels B2 and H vs plain: {b2_cases} / {h_cases} "
           f"cases, max |err| {err_b2} / {err_h}", flush=True)
@@ -1204,6 +1255,9 @@ def run(card: str) -> dict:
     # read just after it ran, ((A, B, C, B2, H), (D, E, F, F's separate
     # launches)).
     path_counts = {}
+    # Per path, the scan -> raster reorders (layout.SCAN_TO_RASTER_CALLS)
+    # read just after it ran.
+    path_reorders = {}
 
     def counted_all(fn, path=None, images=1):
         """fn() with every kernel's count set to 0 just before and read just
@@ -1214,6 +1268,7 @@ def run(card: str) -> dict:
         out = fn()
         abc, huffman_n = read_counts()
         if path is not None:
+            path_reorders[path] = layout.SCAN_TO_RASTER_CALLS
             check(all(n % images == 0 for n in abc + huffman_n),
                   f"{path}: launches {abc}, {huffman_n} over {images} images")
             path_counts[path] = (tuple(n // images for n in abc),
@@ -1245,7 +1300,7 @@ def run(card: str) -> dict:
           f"host-pack spills {spills}", flush=True)
     check(per_encode == ENCODE_N, "a default encode is one launch of kernel A")
     check(per_decode == COLOUR_N,
-          "a colour decode is three launches of kernel B2 and one of H")
+          "a colour decode is one launch of kernel B2 and one of H")
     f_launches = len(entropy_decode._SYNC_STEPS)
     check(huffman_encode == (0, 0, 0, 0),
           f"an encode launched a Huffman decoder: {huffman_encode}")
@@ -1478,7 +1533,7 @@ def run(card: str) -> dict:
               f"{rgb_d.nbytes}); launches {n_b}; finish_ycbcr == "
               f"decode(): {np.array_equal(fin, rgb_d)} (1 thread: "
               f"{np.array_equal(fin1, rgb_d)})", flush=True)
-        check(n_b == ((0, 0, 0, 3, 0) if d == 1 else NONE_N),
+        check(n_b == ((0, 0, 0, 1, 0) if d == 1 else NONE_N),
               f"ycbcr output at scale_denom {d}: launches {n_b}")
         check(np.array_equal(fin, rgb_d) and np.array_equal(fin1, rgb_d),
               f"finish_ycbcr differs from decode() at scale_denom {d}")
@@ -1856,7 +1911,7 @@ def run(card: str) -> dict:
           f"middle, device_output: {[tuple(o.shape) for o in got]}; equal "
           f"to decode() per stream: {ok}; launches {n_b}", flush=True)
     check(ok, "decode_stream of mixed geometries differs from decode()")
-    check(n_b == (0, 0, 0, 3 * 5 + 1, 5),
+    check(n_b == (0, 0, 0, 5 + 1, 5),
           f"mixed decode_stream launched {n_b}")
     del got
 
@@ -2473,17 +2528,19 @@ def run(card: str) -> dict:
 
     def torch_finish(y_zz, cb_zz, cr_zz, qy_, qcb, qcr, shapes_, factors_,
                      fancy_=fancy_4k, is_rgb=False, k=8, n_img=None,
-                     use_pallas=True, hlim=None, wlim=None):
+                     use_pallas=True, hlim=None, wlim=None, scan=None):
         """decoder._finish_color as it ran before kernels B2 and H: per
-        component from_zigzag, unblockify, kernel B, round, clamp; then the
-        torch upsample, colour map, round and clip; the crop (a full-size
-        single image only)."""
+        component the scan -> raster reorder, from_zigzag, unblockify,
+        kernel B, round, clamp; then the torch upsample, colour map, round
+        and clip; the crop (a full-size single image only)."""
         check(k == 8 and n_img is None and use_pallas,
               "the torch finish is timed on full-size single images")
         planes_ = []
-        for z, q, (hb, wb), f, fan in zip((y_zz, cb_zz, cr_zz),
-                                          (qy_, qcb, qcr), shapes_, factors_,
-                                          fancy_):
+        for z, q, (hb, wb), f, fan, g in zip(
+                (y_zz, cb_zz, cr_zz), (qy_, qcb, qcr), shapes_, factors_,
+                fancy_, scan or (None,) * 3):
+            if g is not None:
+                z = layout.scan_to_raster(z, *g)
             plane = fused.fused_dequant_idct(tile.unblockify(
                 zigzag.from_zigzag(z.reshape(hb, wb, 64))), q)
             planes_.append(finish.upsample(
@@ -2491,14 +2548,19 @@ def run(card: str) -> dict:
         return finish.rgb_from_planes(planes_, is_rgb)[:hlim, :wlim]
 
     tail = [
-        ("scan -> raster on the card", reorder),
-        ("finish: kernel B2 x3", lambda zz: [
-            decoder._samples(z, q, s) for z, q, s in
-            zip(zz, qtabs_4k, shapes_4k)]),
+        ("finish: kernel B2, one launch on the scan order", lambda zz:
+            decoder._component_samples(zz, qtabs_4k, shapes_4k,
+                                       scan=geo_4k)),
         ("finish: kernel H", lambda sm: finish.finish_color(
             sm, factors_4k, fancy_4k, False, HEIGHT, WIDTH)),
         ("download", lambda out: out.cpu().numpy()),
     ]
+    tail_per_plane = [
+        ("scan -> raster on the card", reorder),
+        ("finish: kernel B2 x3, a launch per component", lambda zz: [
+            fused.dequant_idct_samples(z, q, s) for z, q, s in
+            zip(zz, qtabs_4k, shapes_4k)]),
+    ] + tail[1:]
     tail_torch = [
         ("scan -> raster on the card", reorder),
         ("finish: kernel B x3 + torch ops (before B2 and H)",
@@ -2609,6 +2671,9 @@ def run(card: str) -> dict:
         "device (no markers)": stage_medians(device_stages + tail, torch),
         "device (no markers), the finish before B2 and H": stage_medians(
             device_stages + tail_torch, torch),
+        "device (no markers), the reorder and a B2 launch per component "
+        "(the finish's form before B2 read the scan order)": stage_medians(
+            device_stages + tail_per_plane, torch),
         f"device (restart {ROW_RESTART})": stage_medians([
             ("host split + unstuff + words", split_unstuff_words),
             (f"upload ({(e4k[0].numel() + e4k[1].numel()) * 4} B)",
@@ -2727,53 +2792,70 @@ def run(card: str) -> dict:
         xb = as_blocks(x).contiguous()
         lib_c[name] = library_us(xb, w_c, bias_c, plane_bytes(*x.shape))
         del blocks, xb, got
-    # Kernels B2 and H on the 4K stream's blocks: the wrapper calls and the
-    # twins on the card, each kernel alone beside its bound, and the finish
-    # in turns with the one before them (kernel B + torch ops) and with the
-    # twins; then the decode end to end with each finish, in turns.
+    # Kernels B2 and H on the 4K stream's blocks as the decoder hands them
+    # over (scan order): the wrapper calls and the twins on the card, each
+    # kernel alone beside its bound (B2 also one component at a time, as
+    # before it took them all), and the finish in turns with the one before
+    # them (kernel B + torch ops); then the decode end to end with each
+    # finish, in turns.
     zz_4k, qt_4k, sh_4k, fac_4k, fan_4k, _, _, _ = finish_inputs([jpg])
-    samples_4k = [fused.dequant_idct_samples(z, q, s)
-                  for z, q, s in zip(zz_4k, qt_4k, sh_4k)]
+    zs_4k, geo_s4k = scan_inputs([jpg])
+    samples_4k = fused.dequant_idct_planes(zs_4k, qt_4k, sh_4k, geo_s4k)
     (hb_y, wb_y), (hb_c, wb_c) = sh_4k[0], sh_4k[1]
-    ms_b2 = median_ms_device(lambda: fused.dequant_idct_samples(
-        zz_4k[0], qt_4k[0], sh_4k[0]), torch)
+    ms_b2 = median_ms_device(lambda: fused.dequant_idct_planes(
+        zs_4k, qt_4k, sh_4k, geo_s4k), torch)
     ms_b2_plain = median_ms_device(
-        lambda: fused.dequant_idct_samples_reference(
-            zz_4k[0], qt_4k[0], sh_4k[0]), torch)
+        lambda: fused.dequant_idct_planes_reference(
+            zs_4k, qt_4k, sh_4k, geo_s4k), torch)
     ms_h = median_ms_device(lambda: finish.finish_color(
         samples_4k, fac_4k, fan_4k, False, HEIGHT, WIDTH), torch)
     ms_h_plain = median_ms_device(lambda: finish.finish_color_reference(
         samples_4k, fac_4k, fan_4k, False, HEIGHT, WIDTH), torch)
     # B2 reads 64 int32 per block and writes 64 uint8; H reads the three
     # sample planes and writes the RGB image.
-    bytes_b2 = hb_y * wb_y * 64 * 5
+    nblk_4k = sum(hb * wb for hb, wb in sh_4k)
+    bytes_b2 = nblk_4k * 64 * 5
+    bytes_b2_y = hb_y * wb_y * 64 * 5
     bytes_b2_c = hb_c * wb_c * 64 * 5
     bytes_h = sum(p.numel() for p in samples_4k) + HEIGHT * WIDTH * 3
-    q_flat = [q.reshape(64).contiguous() for q in qt_4k]
-    us_b2 = alone((zz_4k[0].contiguous(),), (samples_4k[0],),
-                  lambda z, o: fused._launch_idct_samples(
-                      z, q_flat[0], o, hb_y, wb_y), bytes_b2)
+    b2_args = fused._prepare_planes(fused._components(
+        zs_4k, qt_4k, sh_4k, geo_s4k, 1, samples_4k), 1, dev)
+    us_b2 = alone(tuple(b2_args[0]), tuple(samples_4k),
+                  lambda zy, zcb, zcr, oy, ocb, ocr: fused._launch_idct_samples(
+                      [zy, zcb, zcr], b2_args[1], [oy, ocb, ocr], b2_args[3]),
+                  bytes_b2)
+    q_flat = b2_args[1]
+    geo_r = [(1, hb, wb, hb * wb, wb, 1, 1) for hb, wb in sh_4k]
+    us_b2_y = alone((zz_4k[0].contiguous(),), (samples_4k[0],),
+                    lambda z, o: fused._launch_idct_samples(
+                        [z], q_flat[:1], [o], geo_r[:1]), bytes_b2_y)
     us_b2_c = alone((zz_4k[1].contiguous(),), (samples_4k[1],),
                     lambda z, o: fused._launch_idct_samples(
-                        z, q_flat[1], o, hb_c, wb_c), bytes_b2_c)
+                        [z], q_flat[1:2], [o], geo_r[1:2]), bytes_b2_c)
     _, geo_h = finish._geometry(samples_4k, fac_4k, fan_4k, HEIGHT, WIDTH)
     us_h = alone(tuple(samples_4k),
                  (torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8,
                               device=dev),),
                  lambda y, cb, cr, o: finish._launch_finish(
                      [y, cb, cr], geo_h, o, 1, HEIGHT, WIDTH, False), bytes_h)
-    finish_args = (*zz_4k, *qt_4k, sh_4k, fac_4k, fan_4k)
-    check(torch.equal(torch_finish(*finish_args, hlim=HEIGHT, wlim=WIDTH),
+    finish_args = (*zs_4k, *qt_4k, sh_4k, fac_4k, fan_4k)
+    check(torch.equal(torch_finish(*finish_args, hlim=HEIGHT, wlim=WIDTH,
+                                   scan=geo_s4k),
                       decoder._finish_color(*finish_args, hlim=HEIGHT,
-                                            wlim=WIDTH)),
+                                            wlim=WIDTH, scan=geo_s4k)),
           "the torch finish and kernels B2 + H give different pixels")
     ms_finish_turns = medians_in_turns({
         "kernel B x3 + torch ops (before B2 and H)": lambda: torch_finish(
-            *finish_args, hlim=HEIGHT, wlim=WIDTH),
+            *finish_args, hlim=HEIGHT, wlim=WIDTH, scan=geo_s4k),
         "the twins on the card": lambda: old_route(
             zz_4k, qt_4k, sh_4k, fac_4k, fan_4k, HEIGHT, WIDTH, 1),
-        "kernel B2 x3 + kernel H": lambda: decoder._finish_color(
-            *finish_args, hlim=HEIGHT, wlim=WIDTH),
+        "scan -> raster + kernel B2 per component + kernel H":
+            lambda: finish.finish_color(
+                [fused.dequant_idct_samples(z, q, s) for z, q, s in
+                 zip(reorder(zs_4k), qt_4k, sh_4k)],
+                fac_4k, fan_4k, False, HEIGHT, WIDTH),
+        "kernel B2 (one launch) + kernel H": lambda: decoder._finish_color(
+            *finish_args, hlim=HEIGHT, wlim=WIDTH, scan=geo_s4k),
     }, torch, runs=RUNS)
     b2_h_finish = decoder._finish_color
 
@@ -2844,8 +2926,11 @@ def run(card: str) -> dict:
         (f"kernel B idct8, {tuple(chroma.shape)} plane", us_b_c, bytes_c),
         (f"kernel C dct8, {tuple(y_plane.shape)} plane", us_c, bytes_y),
         (f"kernel C dct8, {tuple(cb_plane.shape)} plane", us_c_c, bytes_c),
-        (f"kernel B2 idct8_zz_u8, {hb_y * wb_y} Y blocks", us_b2, bytes_b2),
-        (f"kernel B2 idct8_zz_u8, {hb_c * wb_c} chroma blocks", us_b2_c,
+        (f"kernel B2 idct8_samples, the {nblk_4k} blocks of all three "
+         f"components in one launch, scan order", us_b2, bytes_b2),
+        (f"kernel B2 idct8_samples, {hb_y * wb_y} Y blocks alone", us_b2_y,
+         bytes_b2_y),
+        (f"kernel B2 idct8_samples, {hb_c * wb_c} chroma blocks alone", us_b2_c,
          bytes_b2_c),
         (f"kernel H finish_color, 4K {SUBSAMPLING} samples to "
          f"{HEIGHT}x{WIDTH} RGB", us_h, bytes_h),
@@ -2964,8 +3049,8 @@ def run(card: str) -> dict:
         (f"kernel A pack_level1, {blocks4k.shape[0]} blocks", ms_a, ms_a_plain),
         (f"kernel B idct8, {tuple(luma.shape)} plane", ms_b, ms_b_plain),
         (f"kernel C dct8, {tuple(y_plane.shape)} plane", ms_c, ms_c_plain),
-        (f"kernel B2 idct8_zz_u8, {hb_y * wb_y} Y blocks", ms_b2,
-         ms_b2_plain),
+        (f"kernel B2 idct8_samples, {nblk_4k} blocks of three components",
+         ms_b2, ms_b2_plain),
         (f"kernel H finish_color, {HEIGHT}x{WIDTH}", ms_h, ms_h_plain),
         (f"kernel D ac_indexed, {nblk_h} blocks", ms_d, ms_d_plain),
         (f"E route decode_segments, {nseg_e} segments (twin: one Python "
@@ -3009,6 +3094,18 @@ def run(card: str) -> dict:
     # (A, B, C, B2, H, D, E, F) = per[0..7].
     per = [[(path_counts[p][0] + path_counts[p][1])[k] for p in launch_paths]
            for k in range(8)]
+    # Every path of this process that went through kernel B2 read the scan
+    # order in place: no scan -> raster reorder.
+    b2_reorders = {p: path_reorders[p] for p in launch_paths
+                   if p in path_reorders and path_counts[p][0][3]}
+    print(f"phase 8: scan -> raster reorders on the paths through kernel "
+          f"B2: {b2_reorders}; with use_pallas=False: "
+          f"{path_reorders['use_pallas_false_decode']}", flush=True)
+    check({"default_decode", "decode_batched_fused_k4",
+           "decode_batched_pipelined_k4", "decode_stream_per_image"}
+          <= set(b2_reorders) and not any(b2_reorders.values())
+          and path_reorders["use_pallas_false_decode"] > 0,
+          f"scan -> raster reorders: {b2_reorders}")
     lap("end")
     return {"kernels": [
         entry("pack_level1", "jpeg_tpu_torch/csrc/pack_level1.cu",
@@ -3052,15 +3149,19 @@ def run(card: str) -> dict:
               by_frame={k: {"blocks": v[2], "sync_passes": v[3],
                             "kernel_us": v[4]}
                         for k, v in sync_runs.items() if v[0] == "F"}),
-        entry("idct8_zz_u8", "jpeg_tpu_torch/csrc/idct8.cu",
+        entry("idct8_samples", "jpeg_tpu_torch/csrc/idct8.cu",
               "jpeg_tpu/ops/fused.py:69", main_launches[3], err_b2, ms_b2,
               ms_b2_plain, us_b2, bytes_b2, per[3],
-              replaces_in="jpeg_tpu/models/decoder.py:34 _reconstruct_plane, "
-                          "inside :349 _jit_finish_color",
-              library_none="no one call: the de-zigzag gather and the "
-                           "rounding to uint8 are further calls",
-              kernel_us_chroma=us_b2_c, bytes_chroma=bytes_b2_c,
-              bound_us_chroma=bound_us(bytes_b2_c)),
+              replaces_in="jpeg_tpu/models/decoder.py:34 _reconstruct_plane "
+                          "and the reorder at :360, inside :349 "
+                          "_jit_finish_color",
+              library_none="no one call: the reorder, the de-zigzag gather "
+                           "and the rounding to uint8 are further calls",
+              covers="all three components of the 4K image, one launch, "
+                     "scan order",
+              kernel_us_y_alone=us_b2_y, bytes_y_alone=bytes_b2_y,
+              kernel_us_chroma_alone=us_b2_c, bytes_chroma_alone=bytes_b2_c,
+              scan_to_raster_calls=b2_reorders),
         entry("finish_color", "jpeg_tpu_torch/csrc/finish_color.cu",
               "jpeg_tpu/models/decoder.py:349", main_launches[4], err_h, ms_h,
               ms_h_plain, us_h, bytes_h, per[4],

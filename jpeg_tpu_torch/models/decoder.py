@@ -6,11 +6,12 @@
   or the Huffman decode itself (entropy="indexed": kernel D after a host
   index pass; entropy="device": the chunked block-start program, anchored at
   every restart segment or program F without markers, + kernel D;
-  ops/entropy_decode), then
-  scan -> raster block order, then the finish: de-zigzag, dequant + IDCT +
-  unshift, round and clip to uint8 samples (kernel B2, ops/fused; the
-  DCT-domain scaled IDCT for scale_denom 2/4/8), then chroma upsample,
-  YCbCr -> RGB, round and clip to uint8 and the crop (kernel H,
+  ops/entropy_decode), then the finish: de-zigzag, dequant + IDCT +
+  unshift, round and clip to uint8 samples (kernel B2, ops/fused, one
+  launch for every component, reading the blocks in their MCU scan order;
+  the other forms first reorder them to raster order: the DCT-domain scaled
+  IDCT for scale_denom 2/4/8, use_pallas=False, CMYK/YCCK), then chroma
+  upsample, YCbCr -> RGB, round and clip to uint8 and the crop (kernel H,
   ops/finish).
 
 Sequential (SOF0/SOF1) and progressive (SOF2) Huffman modes, 8-bit, 1, 3 or
@@ -133,14 +134,11 @@ def _upsampled_planes(zzs, qtabs, shapes, factors, fancy, k: int = 8,
 def _samples(zz, qtab, blocks_shape, k: int = 8, use_pallas: bool = True,
              n_img: int = 1, out=None):
     """_reconstruct_batch's samples as uint8: (n_img * H*k/8, W*k/8) for
-    n_img images whose raster blocks follow one another in `zz`. At full
-    size with use_pallas, kernel B2 (fused.dequant_idct_samples) on the
-    images stacked along their rows, one launch; otherwise the f32 integer
-    samples of the matmul forms, converted exactly. `out` (a contiguous
-    uint8 tensor of that shape) receives them."""
+    n_img images whose raster blocks follow one another in `zz`, from the
+    f32 integer samples of the forms other than kernel B2 (the scaled IDCT,
+    use_pallas=False), converted exactly. `out` (a contiguous uint8 tensor
+    of that shape) receives them."""
     hb, wb = blocks_shape
-    if k == 8 and use_pallas:
-        return fused.dequant_idct_samples(zz, qtab, (n_img * hb, wb), out=out)
     if n_img == 1:
         plane = _reconstruct_plane(zz, qtab, blocks_shape, k, use_pallas)
     else:
@@ -150,26 +148,58 @@ def _samples(zz, qtab, blocks_shape, k: int = 8, use_pallas: bool = True,
     return samples if out is None else out.copy_(samples)
 
 
+def _component_samples(zzs, qtabs, shapes, k: int = 8,
+                       use_pallas: bool = True, n_img: int = 1, scan=None,
+                       outs=None):
+    """Every component's uint8 samples, (n_img * H*k/8, W*k/8) each, from
+    its zig-zag blocks: (n_img * N, 64), or (n_img, N, 64) for a batch's
+    rows. scan: per component None (plane raster block order) or its MCU
+    geometry (mcu_rows, mcu_cols, v, h) of ONE image, the blocks then in
+    the entropy decoder's scan order. outs: a uint8 tensor per component to
+    write into, or None.
+
+    At full size with use_pallas, kernel B2 (fused.dequant_idct_planes)
+    ONCE for all components, reading the scan order in place. Otherwise
+    each component's blocks go to raster order (layout.scan_to_raster on
+    the images' MCU rows stacked) and through _samples."""
+    scan = (None,) * len(zzs) if scan is None else scan
+    outs = (None,) * len(zzs) if outs is None else outs
+    if k == 8 and use_pallas:
+        return fused.dequant_idct_planes(zzs, qtabs, shapes, scan, n_img,
+                                         outs)
+    planes = []
+    for zz, q, shape, geo, out in zip(zzs, qtabs, shapes, scan, outs):
+        zz = zz.reshape(-1, 64)
+        if geo is not None:
+            mcu_rows, mcu_cols, v, h = geo
+            zz = layout.scan_to_raster(zz, n_img * mcu_rows, mcu_cols, v, h)
+        planes.append(_samples(zz, q, shape, k, use_pallas, n_img, out))
+    return planes
+
+
 def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
                   fancy=(True, True, True), is_rgb: bool = False, k: int = 8,
                   n_img: int | None = None, use_pallas: bool = True,
-                  hlim: int | None = None, wlim: int | None = None):
+                  hlim: int | None = None, wlim: int | None = None,
+                  scan=None):
     """shapes: per-component block grids (hb, wb); factors: per-component
     (fh, fv) upsampling ratios to the max-sampled grid. fancy: per-component
     triangular-vs-replication choice (upsample_choices). n_img: the blocks
-    hold that many images, one after another, and the result gains a leading
-    image axis (every step after the IDCT works on each sample's own image
-    only, so the pixels are those of n_img separate calls). hlim, wlim: the
-    crop (None: the whole padded grid).
+    hold that many images, one after another (or as (n_img, N, 64) rows),
+    and the result gains a leading image axis (every step after the IDCT
+    works on each sample's own image only, so the pixels are those of n_img
+    separate calls). hlim, wlim: the crop (None: the whole padded grid).
+    scan: per component None or its MCU geometry (_component_samples).
 
-    Per component the uint8 samples (_samples: kernel B2 on a card), then
-    the upsample, colour map and crop in one call (finish.finish_color:
-    kernel H on a card); on the CPU both run their plain twins."""
+    The components' uint8 samples (_component_samples: kernel B2 once on a
+    card), then the upsample, colour map and crop in one call
+    (finish.finish_color: kernel H on a card); on the CPU both run their
+    plain twins."""
     n = 1 if n_img is None else n_img
-    planes = []
-    for zz, q, (hb, wb) in zip((y_zz, cb_zz, cr_zz), (qy, qcb, qcr), shapes):
-        s = _samples(zz, q, (hb, wb), k, use_pallas, n)
-        planes.append(s if n_img is None else s.reshape(n, hb * k, wb * k))
+    samples = _component_samples((y_zz, cb_zz, cr_zz), (qy, qcb, qcr),
+                                 shapes, k, use_pallas, n, scan)
+    planes = [s if n_img is None else s.reshape(n, hb * k, wb * k)
+              for s, (hb, wb) in zip(samples, shapes)]
     fh, fv = factors[0]
     hlim = shapes[0][0] * k * fv if hlim is None else hlim
     wlim = shapes[0][1] * k * fh if wlim is None else wlim
@@ -179,7 +209,8 @@ def _finish_color(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, factors,
 def _finish_gray(zz, qy, shape, k: int = 8, use_pallas: bool = True,
                  hlim: int | None = None, wlim: int | None = None):
     """One component's uint8 samples (kernel B2 on a card), cropped."""
-    return _samples(zz, qy, shape, k, use_pallas)[:hlim, :wlim]
+    return _component_samples((zz,), (qy,), (shape,), k,
+                              use_pallas)[0][:hlim, :wlim]
 
 
 class YCbCrPlanes(typing.NamedTuple):
@@ -200,21 +231,21 @@ class YCbCrPlanes(typing.NamedTuple):
 
 
 def _finish_planes(y_zz, cb_zz, cr_zz, qy, qcb, qcr, shapes, k: int = 8,
-                   flat: bool = False, use_pallas: bool = True):
+                   flat: bool = False, use_pallas: bool = True, scan=None):
     """Device half of the ycbcr output: per-component integer sample planes
     (the exact values _finish_color would feed its upsample/colour tail),
     as uint8. flat=True returns ONE concatenated 1-D buffer instead of a
     tuple, each plane written into its slice: the to-host case fetches it in
-    a single copy."""
+    a single copy. scan: as _component_samples."""
     zzs, qtabs = (y_zz, cb_zz, cr_zz), (qy, qcb, qcr)
     if not flat:
-        return tuple(_samples(zz, q, shape, k, use_pallas)
-                     for zz, q, shape in zip(zzs, qtabs, shapes))
+        return tuple(_component_samples(zzs, qtabs, shapes, k, use_pallas,
+                                        scan=scan))
     sizes = [hb * k * wb * k for hb, wb in shapes]
     buf = torch.empty(sum(sizes), dtype=torch.uint8, device=y_zz.device)
-    for zz, q, (hb, wb), piece in zip(zzs, qtabs, shapes, buf.split(sizes)):
-        _samples(zz, q, (hb, wb), k, use_pallas,
-                 out=piece.view(hb * k, wb * k))
+    _component_samples(zzs, qtabs, shapes, k, use_pallas, scan=scan, outs=[
+        piece.view(hb * k, wb * k)
+        for (hb, wb), piece in zip(shapes, buf.split(sizes))])
     return buf
 
 
@@ -523,10 +554,14 @@ def _decode_noninterleaved(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
     return out
 
 
-def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
-                   entropy: str, device: torch.device):
+def _scan_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
+                 entropy: str, device: torch.device):
     """Entropy-decode every scan and bring the coefficients to `device`:
-    per-component (N, 64) int32 zig-zag tensors in plane raster order.
+    (per-component (N, 64) int32 zig-zag tensors, per-component scan
+    geometry). A component's geometry is (mcu_rows, mcu_cols, v, h) where
+    its blocks come in the MCU scan order of an interleaved scan (spec
+    A.2.3: several blocks to an MCU), and None where they are in plane
+    raster order already.
 
     "indexed" and "device" run the Huffman decode of every baseline scan on
     the device (_decode_scan_device), and "auto" on a card takes "device"
@@ -537,11 +572,10 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
     which go up as they are. (The reference re-encodes them as the sparse
     payload first; on this card that costs more than the dense upload, see
     PERF.md section 5, so decode_device.sparse_payload_from_blocks has no
-    caller here.) Scan order -> raster order (spec A.2.3)
-    happens on the device either way, as a reshape + permute."""
+    caller here.)"""
     comps = info.components
     n_mcu = mcu_rows * mcu_cols
-    raster = [None] * len(comps)  # per component: (rows, cols, v, h) to reorder
+    scan = [None] * len(comps)  # per component: (rows, cols, v, h) of MCU order
     single_scan = not info.progressive and (len(comps) == 1 or (
         len(info.scans) <= 1 and len(info.scans[0].comp_ids) == len(comps)))
     payload = None
@@ -556,8 +590,8 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
             mcu_layout = [
                 (i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)
             ]
-            raster = [(mcu_rows, mcu_cols, c.v, c.h) if c.h * c.v > 1
-                      else None for c in comps]
+            scan = [(mcu_rows, mcu_cols, c.v, c.h) if c.h * c.v > 1
+                    else None for c in comps]
         backend = entropy
         if entropy == "auto":
             backend = _auto_backend(device)
@@ -590,8 +624,22 @@ def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
         zz = [z if isinstance(z, torch.Tensor) else torch.as_tensor(
             np.ascontiguousarray(z, dtype=np.int32), device=device)
             for z in host]
+    return zz, scan
+
+
+def _raster_blocks(zz, scan):
+    """_scan_blocks' blocks in plane raster order (a reshape + permute on
+    the device where a component came in MCU scan order)."""
     return [layout.scan_to_raster(z, *geo) if geo is not None else z
-            for z, geo in zip(zz, raster)]
+            for z, geo in zip(zz, scan)]
+
+
+def _device_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
+                   entropy: str, device: torch.device):
+    """_scan_blocks' per-component (N, 64) int32 zig-zag tensors, in plane
+    raster order (the mesh layer's stripes take them so)."""
+    return _raster_blocks(*_scan_blocks(info, mcu_rows, mcu_cols, entropy,
+                                        device))
 
 
 def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
@@ -675,7 +723,7 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         # A.2.2), so scan order is raster order.
         mcu_rows = layout.ceil_div(info.height, 8)
         mcu_cols = layout.ceil_div(info.width, 8)
-        zz = _device_blocks(info, mcu_rows, mcu_cols, entropy, device)[0]
+        zz = _scan_blocks(info, mcu_rows, mcu_cols, entropy, device)[0][0]
         return deliver(_finish_gray(zz, qtab(comps[0]), (mcu_rows, mcu_cols),
                                     k, use_pallas, hlim, wlim))
 
@@ -712,7 +760,7 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
 
     mcu_rows = layout.ceil_div(info.height, 8 * vmax)
     mcu_cols = layout.ceil_div(info.width, 8 * hmax)
-    zz = _device_blocks(info, mcu_rows, mcu_cols, entropy, device)
+    zz, scan = _scan_blocks(info, mcu_rows, mcu_cols, entropy, device)
     shapes = tuple((mcu_rows * c.v, mcu_cols * c.h) for c in comps)
     factors = tuple((hmax // c.h, vmax // c.v) for c in comps)
     qtabs = [qtab(c) for c in comps]
@@ -723,17 +771,19 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         # (H, W, 4) samples matching PIL's CMYK mode (complemented when the
         # Adobe APP14 marker is present: PIL rawmode "CMYK;I").
         return deliver(_finish_cmyk(
-            zz, qtabs, shapes, factors, fancy, info.adobe_transform == 2,
+            _raster_blocks(zz, scan), qtabs, shapes, factors, fancy,
+            info.adobe_transform == 2,
             info.adobe_transform is not None, use_pallas)[:hlim, :wlim])
     if output == "ycbcr":
         flat = not device_output  # one copy to the host
-        planes = _finish_planes(*zz, *qtabs, shapes, k, flat, use_pallas)
+        planes = _finish_planes(*zz, *qtabs, shapes, k, flat, use_pallas,
+                                scan)
         if flat:
             planes = _split_flat_planes(planes.cpu().numpy(), shapes, k)
         return YCbCrPlanes(tuple(planes), hlim, wlim, factors, fancy)
     return deliver(_finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb,
                                  k, use_pallas=use_pallas, hlim=hlim,
-                                 wlim=wlim))
+                                 wlim=wlim, scan=scan))
 
 
 BATCH_MODES = ("auto", "pipelined", "fused")
@@ -761,9 +811,9 @@ def decode_batched(datas, fancy_upsample: bool = True,
 
     batch_mode selects how the device work is composed (identical pixels
     either way):
-      "fused": all K payloads go up as one tensor, then one densify, and one
-        launch of kernel B2 per component on the K planes stacked along
-        their rows, and one of kernel H for the batch.
+      "fused": all K payloads go up as one tensor, then one densify, one
+        launch of kernel B2 for every component of the K images (reading
+        the densified rows in place), and one of kernel H for the batch.
       "pipelined": image by image. Payload i+1 is packed on the host and
         uploaded from a pinned buffer on a side stream while image i
         densifies and finishes.
@@ -887,19 +937,16 @@ def decode_batched(datas, fancy_upsample: bool = True,
     hlim = layout.ceil_div(i0.height, scale_denom)
     wlim = layout.ceil_div(i0.width, scale_denom)
 
+    scan = [(mcu_rows, mcu_cols, c.v, c.h) if c.h * c.v > 1 else None
+            for c in comps]
+
     def finish(rows):
-        """(n, B, 64) densified rows of n images -> (n, hlim, wlim, 3)."""
-        n = rows.shape[0]
-        zz = []
-        for (lo, hi), c in zip(ranges, comps):
-            z = rows[:, lo:hi].reshape(-1, 64)
-            if c.h * c.v > 1:
-                # n images' MCU rows, one image after another, are the MCU
-                # rows of one tall image.
-                z = layout.scan_to_raster(z, n * mcu_rows, mcu_cols, c.v, c.h)
-            zz.append(z)
-        return _finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb, k,
-                             n_img=n, hlim=hlim, wlim=wlim)
+        """(n, B, 64) densified rows of n images -> (n, hlim, wlim, 3): each
+        component's (n, blocks, 64) slice of the rows, in scan order."""
+        return _finish_color(*(rows[:, lo:hi] for lo, hi in ranges), *qtabs,
+                             shapes, factors, fancy, is_rgb, k,
+                             n_img=rows.shape[0], hlim=hlim, wlim=wlim,
+                             scan=scan)
 
     if batch_mode == "fused":
         out = finish(decode_device.densify_body(

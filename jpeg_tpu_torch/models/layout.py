@@ -8,9 +8,16 @@ encoder (raster -> scan gather) and decoder (scan -> raster scatter).
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
+
+# scan_to_raster calls since the last reset (plus one per call, nowhere
+# else): the decoder's paths through kernel B2 read scan order in place and
+# make none. Decodes run on worker threads too, so the increment holds a lock.
+SCAN_TO_RASTER_CALLS = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -44,6 +51,9 @@ def scan_to_raster(blocks, mcu_rows: int, mcu_cols: int, v: int, h: int):
     raster block order, as a reshape + axis swap (NumPy arrays on the host,
     tensors on their device; equals blocks[inverse_permutation(...)] without
     the gather)."""
+    global SCAN_TO_RASTER_CALLS
+    with _COUNT_LOCK:
+        SCAN_TO_RASTER_CALLS += 1
     lead = tuple(blocks.shape[1:])
     x = blocks.reshape(mcu_rows, mcu_cols, v, h, *lead)
     axes = (0, 2, 1, 3, *range(4, 4 + len(lead)))

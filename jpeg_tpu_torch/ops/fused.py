@@ -9,10 +9,13 @@ that does the whole 2-D transform in one pass:
   - kernel B, csrc/idct8.cu, replaces fused._idct8_kernel (pallas_call at
     fused.py:121);
   - kernel B2, the second entry of csrc/idct8.cu, does B's work for the
-    decoder's finish on the entropy decoder's zig-zag blocks and writes
-    rounded uint8 samples (dequant_idct_samples).
+    decoder's finish: one launch over all of a decode's components, on the
+    entropy decoder's zig-zag blocks in their scan order, writing rounded
+    uint8 samples (dequant_idct_planes; dequant_idct_samples for one
+    component).
 On a CPU tensor each runs its plain twin (fused_dct_quantize_reference,
-fused_dequant_idct_reference, dequant_idct_samples_reference). The kernels' source notes say what bounds
+fused_dequant_idct_reference, dequant_idct_planes_reference,
+dequant_idct_samples_reference). The kernels' source notes say what bounds
 them on the card. A kernel and its twin sum in f32 and are held to the bounds
 of tests/test_fused.py: quantized coefficients within 1 in at most
 max(8, 5e-4 n) places; IDCT samples to |diff| <= 1e-2. Kernel C's FMA chains
@@ -203,6 +206,161 @@ def _check_out(out, shape, device) -> None:
             f"{tuple(out.shape)} {out.dtype} on {out.device}")
 
 
+def _components(zzs, qtables, shapes, scan, n_img: int, outs) -> list:
+    """Checks dequant_idct_planes' arguments; per component (zz, qtable,
+    (hb, wb), scan geometry or None, out or None)."""
+    ncomp = len(zzs)
+    scan = (None,) * ncomp if scan is None else tuple(scan)
+    outs = (None,) * ncomp if outs is None else tuple(outs)
+    if not 1 <= ncomp <= 3 or not (len(qtables) == len(shapes) == len(scan)
+                                   == len(outs) == ncomp):
+        raise ValueError("dequant_idct_planes takes 1-3 components, with a "
+                         "table, a block grid and a scan order each")
+    if n_img < 1:
+        raise ValueError(f"n_img must be at least 1, got {n_img}")
+    comps = []
+    for zz, q, shape, geo, out in zip(zzs, qtables, shapes, scan, outs):
+        hb, wb = (int(n) for n in shape)
+        per = hb * wb
+        want = (n_img, per, 64) if zz.ndim == 3 else (n_img * per, 64)
+        if tuple(zz.shape) != want or zz.device != zzs[0].device:
+            raise ValueError(
+                f"zz must be {want} zig-zag blocks on {zzs[0].device}, got "
+                f"{tuple(zz.shape)} on {zz.device}")
+        if geo is not None:
+            mcu_rows, mcu_cols, v, h = (int(n) for n in geo)
+            if (mcu_rows * v, mcu_cols * h) != (hb, wb):
+                raise ValueError(
+                    f"scan geometry {tuple(geo)} does not tile the {hb}x{wb} "
+                    "block grid")
+            geo = (mcu_rows, mcu_cols, v, h)
+        _check_out(out, (n_img * hb * 8, wb * 8), zz.device)
+        comps.append((zz, q, (hb, wb), geo, out))
+    return comps
+
+
+def dequant_idct_planes_reference(zzs, qtables, shapes, scan=None,
+                                  n_img: int = 1, outs=None) -> list:
+    """Plain twin of dequant_idct_planes (any device): per component the
+    blocks to plane raster order (the MCU reorder as a reshape + permute,
+    layout.scan_to_raster's), then dequant_idct_samples_reference on the
+    images stacked along their rows."""
+    res = []
+    for zz, q, (hb, wb), geo, out in _components(zzs, qtables, shapes, scan,
+                                                 n_img, outs):
+        z = zz.reshape(-1, 64)
+        if geo is not None:
+            mcu_rows, mcu_cols, v, h = geo
+            z = z.reshape(n_img * mcu_rows, mcu_cols, v, h, 64).permute(
+                0, 2, 1, 3, 4).reshape(-1, 64)
+        res.append(dequant_idct_samples_reference(z, q, (n_img * hb, wb),
+                                                  out))
+    return res
+
+
+def _launch_idct_samples(zzs, qs, outs, geos, lib=None) -> None:
+    """Enqueue kernel B2 on PyTorch's current stream, one launch for every
+    component: per component prepared tensors (int32 zig-zag blocks whose
+    rows are contiguous, 16-byte aligned; (64,) f32 raster table; the
+    contiguous uint8 plane out, 8-byte aligned) and its geometry (n, hb,
+    wb, image stride in blocks, mcu_cols, v, h); no checks and no
+    allocation. Counts the launch. A CPU device takes the host build of the
+    kernel's bodies that the tests pass as `lib`."""
+    global ZZ_LAUNCHES
+    dev = zzs[0].device
+    lib = lib or _cuda.load("idct8")
+    n = len(zzs)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+
+    geo = (ctypes.c_int * (7 * n))(*(int(v) for g in geos for v in g))
+    args = (ptrs(zzs), ptrs(qs), ptrs(outs), geo, ctypes.c_int(n))
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            err = lib.jt_idct8_samples(*args, _cuda.stream_handle(dev))
+    else:
+        err = lib.jt_idct8_samples(*args, None)
+    _cuda.check("idct8_samples", err)
+    with _COUNT_LOCK:
+        ZZ_LAUNCHES += 1
+
+
+# B2 numbers a component's blocks in 32 bits.
+MAX_BLOCKS = (1 << 31) - 1
+
+
+def _prepare_planes(comps, n_img: int, device):
+    """Kernel B2's launch arguments from _components: (blocks, tables,
+    outs, geometries), each output allocated where not given."""
+    zs, qs, outs, geos = [], [], [], []
+    for zz, q, (hb, wb), geo, out in comps:
+        z = zz.to(torch.int32)
+        per = hb * wb
+        if z.ndim == 3 and z.stride(2) == 1 and z.stride(1) == 64 and (
+                z.stride(0) % 64 == 0):
+            stride = z.stride(0) // 64
+        else:
+            z, stride = z.contiguous(), per
+        if n_img * per > MAX_BLOCKS or n_img * stride > MAX_BLOCKS:
+            raise ValueError(f"{n_img} x {per} blocks: at most {MAX_BLOCKS}")
+        mcu_cols, v, h = (wb, 1, 1) if geo is None else geo[1:]
+        if out is None:
+            out = torch.empty((n_img * hb * 8, wb * 8), dtype=torch.uint8,
+                              device=device)
+        if per:
+            _require_aligned("dequant_idct_planes", zz=z)
+            if out.data_ptr() % 8:
+                raise ValueError(
+                    "dequant_idct_planes: out is not 8-byte aligned")
+        zs.append(z)
+        qs.append(torch.as_tensor(q, dtype=torch.float32,
+                                  device=device).reshape(64).contiguous())
+        outs.append(out)
+        geos.append((n_img, hb, wb, stride, mcu_cols, v, h))
+    return zs, qs, outs, geos
+
+
+def _dequant_idct_planes_cuda(zzs, qtables, shapes, scan=None,
+                              n_img: int = 1, outs=None) -> list:
+    comps = _components(zzs, qtables, shapes, scan, n_img, outs)
+    zs, qs, outs, geos = _prepare_planes(comps, n_img, zzs[0].device)
+    if any(g[1] * g[2] for g in geos):
+        _launch_idct_samples(zs, qs, outs, geos)
+    return outs
+
+
+def dequant_idct_planes(zzs, qtables, shapes, scan=None, n_img: int = 1,
+                        outs=None) -> list:
+    """1-3 components' int32 zig-zag quantized blocks -> each one's uint8
+    samples, clip(round(IDCT(deq) + 128), 0, 255), as a (n_img 8 hb, 8 wb)
+    plane (n_img images stacked along their rows).
+
+    Per component: zz, its blocks, (n_img hb wb, 64) or, for n_img images
+    whose blocks lie at a fixed stride (a slice of a batch's (n, B, 64)
+    rows, read without a copy), (n_img, hb wb, 64); its (8, 8) table (array,
+    or a tensor on zz's device); its block grid (hb, wb) per image; its scan
+    order, None for plane raster block order or (mcu_rows, mcu_cols, v, h)
+    for the entropy decoder's MCU order (each image's MCUs in raster order,
+    each MCU's v x h blocks in raster order, spec A.2.3); and `outs`, a
+    contiguous uint8 plane per component to write into (slices of one
+    buffer save a copy), or None. Returns the planes.
+
+    CUDA tensors launch kernel B2 (csrc/idct8.cu, jt_idct8_samples) ONCE for
+    every component, reading the blocks in their scan order in place; its
+    samples equal kernel B's rounded and clamped bit for bit. CPU tensors
+    run the plain twin. Any other device raises."""
+    kind = zzs[0].device.type
+    if kind == "cpu":
+        return dequant_idct_planes_reference(zzs, qtables, shapes, scan,
+                                             n_img, outs)
+    if kind == "cuda":
+        return _dequant_idct_planes_cuda(zzs, qtables, shapes, scan, n_img,
+                                         outs)
+    raise ValueError(
+        f"dequant_idct_planes: unsupported device {zzs[0].device}")
+
+
 def dequant_idct_samples_reference(zz: torch.Tensor, qtable, blocks_shape,
                                    out=None) -> torch.Tensor:
     """Plain twin of dequant_idct_samples (any device): the chain it
@@ -218,46 +376,6 @@ def dequant_idct_samples_reference(zz: torch.Tensor, qtable, blocks_shape,
     return out.copy_(samples)
 
 
-def _launch_idct_samples(zz, q, out, hb: int, wb: int, lib=None) -> None:
-    """Enqueue kernel B2 on PyTorch's current stream: prepared contiguous
-    tensors ((hb wb, 64) int32 zig-zag blocks, 16-byte aligned; (8 hb, 8 wb)
-    uint8 out, 8-byte aligned; (64,) f32 raster table), no checks and no
-    allocation. Counts the launch. A CPU device takes the host build of the
-    kernel's block body that the tests pass as `lib`."""
-    global ZZ_LAUNCHES
-    dev = zz.device
-    lib = lib or _cuda.load("idct8")
-    args = (ctypes.c_void_p(zz.data_ptr()), ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_int(hb), ctypes.c_int(wb))
-    if dev.type == "cuda":
-        with torch.cuda.device(dev):
-            err = lib.jt_idct8_zz_u8(*args, _cuda.stream_handle(dev))
-    else:
-        err = lib.jt_idct8_zz_u8(*args, None)
-    _cuda.check("idct8_zz_u8", err)
-    with _COUNT_LOCK:
-        ZZ_LAUNCHES += 1
-
-
-def _dequant_idct_samples_cuda(zz: torch.Tensor, qtable, blocks_shape,
-                               out=None) -> torch.Tensor:
-    hb, wb = _check_blocks(zz, blocks_shape)
-    dev = zz.device
-    _check_out(out, (hb * 8, wb * 8), dev)
-    z = zz.to(torch.int32).contiguous()
-    q = torch.as_tensor(qtable, dtype=torch.float32, device=dev).reshape(
-        64).contiguous()
-    if out is None:
-        out = torch.empty((hb * 8, wb * 8), dtype=torch.uint8, device=dev)
-    if hb == 0 or wb == 0:
-        return out
-    _require_aligned("dequant_idct_samples", zz=z)
-    if out.data_ptr() % 8:
-        raise ValueError("dequant_idct_samples: out is not 8-byte aligned")
-    _launch_idct_samples(z, q, out, hb, wb)
-    return out
-
-
 def dequant_idct_samples(zz: torch.Tensor, qtable, blocks_shape,
                          out=None) -> torch.Tensor:
     """(hb wb, 64) int32 zig-zag quantized blocks in plane raster block
@@ -268,12 +386,14 @@ def dequant_idct_samples(zz: torch.Tensor, qtable, blocks_shape,
     tensor on zz's device, receives the samples (a slice of a larger buffer
     saves a copy); it is returned.
 
-    CUDA tensors launch kernel B2 (csrc/idct8.cu, jt_idct8_zz_u8), whose
-    samples equal kernel B's rounded and clamped bit for bit; CPU tensors run
-    the plain twin. Any other device raises."""
+    One component of dequant_idct_planes: CUDA tensors launch kernel B2
+    (csrc/idct8.cu, jt_idct8_samples) once; CPU tensors run the plain twin.
+    Any other device raises."""
     kind = zz.device.type
     if kind == "cpu":
         return dequant_idct_samples_reference(zz, qtable, blocks_shape, out)
     if kind == "cuda":
-        return _dequant_idct_samples_cuda(zz, qtable, blocks_shape, out)
+        hb, wb = _check_blocks(zz, blocks_shape)
+        return _dequant_idct_planes_cuda([zz], [qtable], [(hb, wb)],
+                                         outs=[out])[0]
     raise ValueError(f"dequant_idct_samples: unsupported device {zz.device}")

@@ -40,17 +40,24 @@ builds the package's program once more with extra nvcc flags (e.g.
 "-DJT_CHUNK_BITS=1024", "-DJT_LANES=1") as a further contender. --ef-only
 runs this comparison and nothing else.
 
-The decode finish (kernels B2 and H, csrc/idct8.cu's jt_idct8_zz_u8 and
-csrc/finish_color.cu) is timed on the 4K stream's blocks as the decoder
-gives them: B2 on the Y and a chroma plane and H alone, kernel only, in
-turns with their --flags-b2 / --flags-h builds (e.g. "-DJT_GROUP=4",
-"-DJT_THREADS=256"); and the whole finish, wall time, in turns with the one
-before them, kernel B + torch ops (from_zigzag, unblockify, kernel B,
-round, clamp, the torch upsample and colour map), whose kernel B is built
-from --previous-finish DIR (a directory that holds an idct8.cu with the
-jt_idct8 entry, e.g. an older tree's csrc) or else from the package. Every
-contender's samples or pixels are held to the package's first, 0 apart.
---finish-only runs this comparison and nothing else.
+The decode finish (kernels B2 and H, csrc/idct8.cu's jt_idct8_samples and
+csrc/finish_color.cu) is timed on the blocks as the decoder gives them
+(scan order) of the 4K image at 4:2:0, 4:4:4 and 4:2:2 and of a K = 4
+stack of 4:2:0 frames (decode_batched's rows): B2 over all three
+components in one launch and H alone, kernel only, in turns with their
+--flags-b2 / --flags-h builds (e.g. "-DJT_THREADS=64") and, with
+--previous-finish DIR (an older tree's csrc holding an idct8.cu with the
+per-plane entry jt_idct8_zz_u8 and a finish_color.cu with jt_finish_color,
+e.g. commit 970af81's), against the previous forms: the scan -> raster
+copy and a B2 launch per component, and the previous H. Each build's
+kernels are counted with cuobjdump -sass,
+and the count gives an issue bound: warp instructions / (132 SMs x 4 per
+clock x nvidia-smi's highest SM clock). Then the whole finish, wall time,
+in turns: kernel B + torch ops (from_zigzag, unblockify, kernel B, round,
+clamp, the torch upsample and colour map; kernel B built from
+--previous-finish or else from the package), the previous B2 x3 + H, and
+B2 + H. Every contender's samples or pixels are held to the package's
+first, 0 apart. --finish-only runs this comparison and nothing else.
 
 Inputs are those of chip_smoke.py's main path: the 3840x2160 4:2:0 image's
 194,400 level-1 blocks at q75 and at q95 (dense), its Y and Cb coefficient
@@ -333,32 +340,58 @@ def compare_ef(args, torch, card, dev, img, build, results):
         by_launch("E", case, launch_sets)
 
 
+def sass_counts(lib_path) -> dict:
+    """Kernel function (mangled name) -> its SASS instructions (NOPs left
+    out), from cuobjdump -sass on a built library; {} where the toolkit has
+    no cuobjdump."""
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return {}
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line) and (
+                " NOP" not in line):
+            counts[name] += 1
+    return counts
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    return float(out.split()[0])
+
+
 def compare_finish(args, torch, card, dev, img, build, results):
-    """Kernels B2 and H against their --flags-b2 / --flags-h builds, kernel
-    only, and the finish against the one before them (kernel B + torch
-    ops), wall time; all in turns."""
+    """Kernels B2 and H against their --flags-b2 / --flags-h builds and
+    against --previous-finish's forms (a launch of the previous B2 per
+    component after the scan -> raster copy; the previous H), kernel only,
+    in turns, on the 4K image at 4:2:0, 4:4:4 and 4:2:2 and on a K = 4
+    stack of 4:2:0 frames as decode_batched stacks them; each kernel's SASS
+    instructions and the issue bound they give; and the 4K 4:2:0 finish
+    against the one before B2 and H (kernel B + torch ops) and the previous
+    forms, wall time, in turns."""
     import jpeg_tpu_torch
     from jpeg_tpu_torch.io import jfif
     from jpeg_tpu_torch.models import decoder, layout
     from jpeg_tpu_torch.ops import _cuda, finish as fin, fused, tile, zigzag
 
-    jpg = jpeg_tpu_torch.encode(img, cs.QUALITY, cs.SUBSAMPLING, device=dev)
-    info = jfif.parse_jpeg(jpg)
-    comps = info.components
-    hm, vm = max(c.h for c in comps), max(c.v for c in comps)
-    mr = layout.ceil_div(info.height, 8 * vm)
-    mc = layout.ceil_div(info.width, 8 * hm)
-    zz = decoder._device_blocks(info, mr, mc, "auto", dev)
-    qt = [torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
-                          device=dev) for c in comps]
-    shapes = [(mr * c.v, mc * c.h) for c in comps]
-    factors = tuple((hm // c.h, vm // c.v) for c in comps)
-    fancy = decoder.upsample_choices(info.width, comps, hm, True)
-    h, w = info.height, info.width
-    samples = [fused.dequant_idct_samples(z, q, s)
-               for z, q, s in zip(zz, qt, shapes)]
-    rgb = fin.finish_color(samples, factors, fancy, False, h, w)
     stream = lambda: _cuda.stream_handle(dev)  # noqa: E731
+    clock = sm_clock_mhz()
 
     def in_turns(kernel, case, contenders, nbytes):
         """contenders: name -> (launch(i), buffer sets)."""
@@ -385,49 +418,173 @@ def compare_finish(args, torch, card, dev, img, build, results):
         results.append({"kernel": kernel, "case": case, "version": name,
                         "agrees": bool(agrees)})
 
-    b2_libs = {"package": _cuda.load("idct8")}
+    def sass(kernel, version, lib_name, fn_part, warps):
+        """Print one kernel function's SASS instruction count and the issue
+        bound of `warps` warps each issuing that many: warp instructions /
+        (132 SMs x 4 issues per clock x the highest SM clock)."""
+        counts = sass_counts(_cuda._BUILD_DIR / f"lib{lib_name}.so")
+        for fn, n in counts.items():
+            if fn_part in fn:
+                us = warps * n / (132 * 4 * clock * 1e6) * 1e6
+                print(f"SASS {kernel} [{version}] {fn}: {n} instructions; "
+                      f"x {warps} warps -> issue bound {us:.2f} us at "
+                      f"{clock:.0f} MHz [{card}]", flush=True)
+                results.append({"kernel": kernel, "version": version,
+                                "function": fn, "sass_instructions": n,
+                                "warps": warps, "issue_bound_us": us,
+                                "sm_clock_mhz": clock})
+        if not counts:
+            print(f"SASS {kernel} [{version}]: no cuobjdump", flush=True)
+
+    b2_libs = {"package": ("idct8", _cuda.load("idct8"))}
     for i, flags in enumerate(args.flags_b2):
-        b2_libs[f"flags {flags}"] = build(f"idct8_b2_flags{i}",
-                                          _cuda._CSRC / "idct8.cu",
-                                          shlex.split(flags))
-    for label, k in (("Y", 0), ("Cb", 1)):
-        hb, wb = shapes[k]
-        q = qt[k].reshape(64).contiguous()
-        nbytes = hb * wb * 64 * 5
-        nbuf = cs.rotation(nbytes)
-        ins = [zz[k].clone() for _ in range(nbuf)]
-        outs = [torch.empty_like(samples[k]) for _ in range(nbuf)]
-        contenders = {}
-        for name, lib in b2_libs.items():
-            fused._launch_idct_samples(ins[0], q, outs[0], hb, wb, lib=lib)
-            torch.cuda.synchronize()
-            note("B2", label, name, torch.equal(outs[0], samples[k]))
-            contenders[name] = (lambda i, lib=lib: fused._launch_idct_samples(
-                ins[i], q, outs[i], hb, wb, lib=lib), nbuf)
-        in_turns("B2", f"{label} {hb * wb} blocks", contenders, nbytes)
-
-    h_libs = {"package": _cuda.load("finish_color")}
+        b2_libs[f"flags {flags}"] = (f"idct8_b2_flags{i}", build(
+            f"idct8_b2_flags{i}", _cuda._CSRC / "idct8.cu", shlex.split(flags)))
+    h_libs = {"package": ("finish_color", _cuda.load("finish_color"))}
     for i, flags in enumerate(args.flags_h):
-        h_libs[f"flags {flags}"] = build(f"finish_color_flags{i}",
-                                         _cuda._CSRC / "finish_color.cu",
-                                         shlex.split(flags))
-    _, geo = fin._geometry(samples, factors, fancy, h, w)
-    nbytes = sum(p.numel() for p in samples) + rgb.numel()
-    nbuf = cs.rotation(nbytes)
-    ins = [[p.clone() for p in samples] for _ in range(nbuf)]
-    outs = [torch.empty_like(rgb) for _ in range(nbuf)]
-    contenders = {}
-    for name, lib in h_libs.items():
-        fin._launch_finish(ins[0], geo, outs[0], 1, h, w, False, lib=lib)
-        torch.cuda.synchronize()
-        note("H", "4K", name, torch.equal(outs[0], rgb))
-        contenders[name] = (lambda i, lib=lib: fin._launch_finish(
-            ins[i], geo, outs[i], 1, h, w, False, lib=lib), nbuf)
-    in_turns("H", f"4K {cs.SUBSAMPLING} {h}x{w}", contenders, nbytes)
-
+        h_libs[f"flags {flags}"] = (f"finish_color_flags{i}", build(
+            f"finish_color_flags{i}", _cuda._CSRC / "finish_color.cu",
+            shlex.split(flags)))
+    prev_b2 = None
     if args.previous_finish:
-        lib_b = build("idct8_previous_finish",
-                      pathlib.Path(args.previous_finish) / "idct8.cu")
+        prev_b2 = build("idct8_previous_finish",
+                        pathlib.Path(args.previous_finish) / "idct8.cu")
+        h_libs["previous"] = ("finish_color_previous", build(
+            "finish_color_previous",
+            pathlib.Path(args.previous_finish) / "finish_color.cu"))
+
+    def case_inputs(subsampling, k):
+        """The decoder's finish inputs for k frames (the image rolled by
+        cs.ROLL columns) of one stream geometry: per component the blocks
+        as the decoder hands them over (k > 1: decode_batched's (k, B, 64)
+        rows, a slice per component), tables, block grids of one image, scan
+        geometry, ratios, upsample choices, rows and columns."""
+        jpgs = [jpeg_tpu_torch.encode(np.roll(img, i * cs.ROLL, axis=1),
+                                      cs.QUALITY, subsampling, device=dev)
+                for i in range(k)]
+        info = jfif.parse_jpeg(jpgs[0])
+        comps = info.components
+        hm, vm = max(c.h for c in comps), max(c.v for c in comps)
+        mr = layout.ceil_div(info.height, 8 * vm)
+        mc = layout.ceil_div(info.width, 8 * hm)
+        per = [decoder._scan_blocks(jfif.parse_jpeg(j), mr, mc, "auto", dev)
+               for j in jpgs]
+        zs, scan = per[0]
+        if k > 1:
+            rows = torch.stack([torch.cat(z) for z, _ in per])
+            bounds = np.cumsum([0] + [z.shape[0] for z in zs])
+            zs = [rows[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+        qt = [torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
+                              device=dev) for c in comps]
+        shapes = [(mr * c.v, mc * c.h) for c in comps]
+        factors = tuple((hm // c.h, vm // c.v) for c in comps)
+        fancy = decoder.upsample_choices(info.width, comps, hm, True)
+        return (zs, qt, shapes, scan, factors, fancy, info.height,
+                info.width)
+
+    def compare_case(label, subsampling, k):
+        """B2 and H alone, in turns with their other builds and forms."""
+        zs, qt, shapes, scan, factors, fancy, h, w = case_inputs(
+            subsampling, k)
+        samples = fused.dequant_idct_planes(zs, qt, shapes, scan, n_img=k)
+        planes = [s if k == 1 else s.reshape(k, hb * 8, wb * 8)
+                  for s, (hb, wb) in zip(samples, shapes)]
+        rgb = fin.finish_color(planes, factors, fancy, False, h, w)
+        # Kernel B2: every component in one launch, reading the scan order
+        # in place; the previous form: the scan -> raster copy of the
+        # components with several blocks to an MCU, then a launch per
+        # component on the k images stacked along their rows.
+        _, qs, _, geos = fused._prepare_planes(fused._components(
+            zs, qt, shapes, scan, k, samples), k, dev)
+        nblk = k * sum(hb * wb for hb, wb in shapes)
+        nbytes = nblk * 64 * 5
+        nbuf = cs.rotation(nbytes)
+        ins = [[z.contiguous().clone() for z in zs] for _ in range(nbuf)]
+        geos_c = [(g[0], g[1], g[2], g[1] * g[2], *g[4:]) for g in geos]
+        outs = [[torch.empty_like(s) for s in samples] for _ in range(nbuf)]
+        contenders = {}
+        for name, (_, lib) in b2_libs.items():
+            fused._launch_idct_samples(ins[0], qs, outs[0], geos_c, lib=lib)
+            torch.cuda.synchronize()
+            note("B2", label, name, all(torch.equal(o, s)
+                                        for o, s in zip(outs[0], samples)))
+            contenders[name] = (lambda i, lib=lib: fused._launch_idct_samples(
+                ins[i], qs, outs[i], geos_c, lib=lib), nbuf)
+        if prev_b2 is not None:
+            reordered = [[torch.empty_like(z) for z in ins[0]]
+                         for _ in range(nbuf)]
+
+            def prev_launch(i):
+                for z, r, q, o, (hb, wb), g in zip(ins[i], reordered[i], qs,
+                                                   outs[i], shapes, scan):
+                    if g is not None:
+                        mr_, mc_, v, h_ = g
+                        r.view(k * mr_, v, mc_, h_, 64).copy_(
+                            z.view(k * mr_, mc_, v, h_, 64).permute(
+                                0, 2, 1, 3, 4))
+                        z = r
+                    _cuda.check("previous B2", prev_b2.jt_idct8_zz_u8(
+                        *_ptrs(z, q, o), ctypes.c_int(k * hb),
+                        ctypes.c_int(wb), stream()))
+
+            prev_launch(0)
+            torch.cuda.synchronize()
+            name = "previous: scan -> raster copy + a launch per component"
+            note("B2", label, name, all(torch.equal(o, s)
+                                        for o, s in zip(outs[0], samples)))
+            contenders[name] = (prev_launch, nbuf)
+        in_turns("B2", f"{label}, {nblk} blocks of three components",
+                 contenders, nbytes)
+
+        # Kernel H.
+        _, geo = fin._geometry(planes, factors, fancy, h, w)
+        nbytes = sum(p.numel() for p in planes) + rgb.numel()
+        nbuf = cs.rotation(nbytes)
+        ins = [[p.clone() for p in planes] for _ in range(nbuf)]
+        outs = [torch.empty_like(rgb) for _ in range(nbuf)]
+        contenders = {}
+        for name, (_, lib) in h_libs.items():
+            fin._launch_finish(ins[0], geo, outs[0], k, h, w, False, lib=lib)
+            torch.cuda.synchronize()
+            note("H", label, name, torch.equal(outs[0], rgb))
+            contenders[name] = (lambda i, lib=lib: fin._launch_finish(
+                ins[i], geo, outs[i], k, h, w, False, lib=lib), nbuf)
+        in_turns("H", f"{label} {h}x{w}", contenders, nbytes)
+        return zs, qt, shapes, scan, factors, fancy, h, w, samples, rgb, geos
+
+    cases = [(f"4K {cs.SUBSAMPLING}", cs.SUBSAMPLING, 1), ("4K 444", "444", 1),
+             ("4K 422", "422", 1), (f"K=4 4K {cs.SUBSAMPLING}",
+                                    cs.SUBSAMPLING, 4)]
+    first = None
+    for label, subsampling, k in cases:
+        got = compare_case(label, subsampling, k)
+        first = first or got
+    zs, qt, shapes, scan, factors, fancy, h, w, samples, rgb, geos = first
+
+    # Instructions: B2 (all three components of the 4K 4:2:0 image), H in
+    # the form the 4:2:0 image takes and in its general form (the package's
+    # build: 128 threads, tiles of 16 rows x 256 columns).
+    warps_b2 = sum(-(-hb * wb // 128) for hb, wb in shapes) * 4
+    for name, (lib_name, _) in b2_libs.items():
+        sass("B2", name, lib_name, "idct8_samples_kernel", warps_b2)
+    if prev_b2 is not None:
+        sass("B2", "previous, a launch per component", "idct8_previous_finish",
+             "idct8_kernelILb1", warps_b2)
+    warps_h = -(-w // 256) * -(-h // 16) * 4
+    for name, (lib_name, _) in h_libs.items():
+        if name == "previous":
+            sass("H", name, lib_name, "finish_color_kernel",
+                 -(-w // 8 // 128) * h * 4)
+        else:
+            sass("H", f"{name}, 4:2:0 form", lib_name,
+                 "finish_color_kernelILb1ELi1E", warps_h)
+            sass("H", f"{name}, general form", lib_name,
+                 "finish_color_kernelILb1ELi0E", warps_h)
+
+    # The 4K finish, wall time, in turns.
+    _, geo = fin._geometry(samples, factors, fancy, h, w)
+    if args.previous_finish:
+        lib_b = prev_b2
         label_b = f"kernel B from {args.previous_finish} + torch ops"
     else:
         lib_b = _cuda.load("idct8")
@@ -435,7 +592,8 @@ def compare_finish(args, torch, card, dev, img, build, results):
 
     def torch_finish():
         planes = []
-        for z, q, (hb, wb), f, fan in zip(zz, qt, shapes, factors, fancy):
+        for z, q, (hb, wb), f, fan in zip(
+                decoder._raster_blocks(zs, scan), qt, shapes, factors, fancy):
             coeffs = tile.unblockify(zigzag.from_zigzag(
                 z.reshape(hb, wb, 64))).contiguous()
             plane = torch.empty(coeffs.shape, dtype=torch.float32, device=dev)
@@ -447,15 +605,43 @@ def compare_finish(args, torch, card, dev, img, build, results):
         return fin.rgb_from_planes(planes, False)[:h, :w]
 
     def b2_h():
-        return decoder._finish_color(*zz, *qt, shapes, factors, fancy,
-                                     hlim=h, wlim=w)
+        return decoder._finish_color(*zs, *qt, shapes, factors, fancy,
+                                     hlim=h, wlim=w, scan=scan)
 
-    note("finish", "4K", label_b, torch.equal(torch_finish(), rgb))
-    note("finish", "4K", "kernels B2 + H", torch.equal(b2_h(), rgb))
-    times = {label_b: [], "kernels B2 + H": []}
+    def b2_h_direct():
+        planes = [torch.empty_like(s) for s in samples]
+        fused._launch_idct_samples(zs, [q.reshape(64) for q in qt], planes,
+                                   geos)
+        out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+        fin._launch_finish(planes, geo, out, 1, h, w, False)
+        return out
+
+    forms = {label_b: torch_finish, "kernels B2 + H": b2_h,
+             "kernels B2 + H, launched directly": b2_h_direct}
+    if args.previous_finish:
+        prev_h = h_libs["previous"][1]
+
+        def prev_b2_h():
+            planes = []
+            for z, q, (hb, wb) in zip(decoder._raster_blocks(zs, scan), qt,
+                                      shapes):
+                o = torch.empty((hb * 8, wb * 8), dtype=torch.uint8,
+                                device=dev)
+                _cuda.check("previous B2", prev_b2.jt_idct8_zz_u8(
+                    *_ptrs(z, q.reshape(64).contiguous(), o),
+                    ctypes.c_int(hb), ctypes.c_int(wb), stream()))
+                planes.append(o)
+            out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+            fin._launch_finish(planes, geo, out, 1, h, w, False, lib=prev_h)
+            return out
+
+        forms["previous B2 x3 + H (scan -> raster first), launched "
+              "directly"] = prev_b2_h
+    for name, fn in forms.items():
+        note("finish", "4K", name, torch.equal(fn(), rgb))
+    times = {name: [] for name in forms}
     for _ in range(ROUNDS):
-        ms = cs.medians_in_turns({label_b: torch_finish,
-                                  "kernels B2 + H": b2_h}, torch, cs.RUNS)
+        ms = cs.medians_in_turns(forms, torch, cs.RUNS)
         for name, v in ms.items():
             times[name].append(v)
     for name, ts in times.items():
@@ -467,11 +653,10 @@ def compare_finish(args, torch, card, dev, img, build, results):
 
 
 def trace_decode(torch, img, card):
-    """Profile one warm 4K colour decode and report where kernel B2's three
-    launches (idct8_kernel) lie on the device's timeline: each launch's
-    duration, and for
-    each gap between two of them its length, the other kernels that ran in
-    it and the time the device was idle in it."""
+    """Profile one warm 4K colour decode and report where kernel B2's
+    launches (idct8_samples_kernel) lie on the device's timeline: each
+    launch's duration, and for each gap between two of them its length, the
+    other kernels that ran in it and the time the device was idle in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -488,7 +673,8 @@ def trace_decode(torch, img, card):
         ((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
          if e.device_type == DeviceType.CUDA),
         key=lambda k: k[0])
-    idct = [i for i, k in enumerate(kernels) if "idct8_kernel" in k[2]]
+    idct = [i for i, k in enumerate(kernels)
+            if "idct8_samples_kernel" in k[2]]
     report = {"idct8_us": [kernels[i][1] - kernels[i][0] for i in idct],
               "gaps": []}
     for i, j in zip(idct, idct[1:]):

@@ -30,7 +30,7 @@ against their CPU bytes; kernels A and B past 2^31 bytes of input against
 their twins on slices (blocks are independent). Kernels B2 (zig-zag blocks
 in, uint8 samples out) and H (upsample, colour map, round, clip, crop) equal
 their twins with 0 apart, past 2^31 bytes of input too (on slices: blocks
-and images are independent); a colour decode launches B2 three times and H
+and images are independent); a colour decode launches B2 once and H
 once, kernel B never. The device Huffman
 decoders are integers throughout: kernels D and E and program F equal their
 twins run on the same tensors, native.decode_scan and native.index_scan, with
@@ -156,20 +156,62 @@ def test_kernel_b2_matches_plain(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("comps_hv", [((2, 2), (1, 1), (1, 1)),
+                                      ((2, 1), (1, 1), (1, 1)),
+                                      ((1, 1), (1, 1), (1, 1)),
+                                      ((2, 2), (1, 2), (2, 1))])
+def test_kernel_b2_one_launch_over_a_stack(comps_hv):
+    """Kernel B2 over every component of n = 3 images at once: the (3, B,
+    64) rows a batch densifies, each component a slice read in place at the
+    stride B and in its MCU scan order; one launch, 0 apart from the
+    twin, also into the slices of one flat buffer."""
+    dev = require_cuda()
+    rng = np.random.default_rng(sum(h * 3 + v for h, v in comps_hv))
+    mcu_rows, mcu_cols = 17, 30
+    shapes = [(mcu_rows * v, mcu_cols * h) for h, v in comps_hv]
+    per = [hb * wb for hb, wb in shapes]
+    rows = torch.as_tensor(random_blocks(rng, 3 * sum(per), 0.2).reshape(
+        3, sum(per), 64), device=dev)
+    bounds = np.cumsum([0] + per)
+    views = [rows[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+    scan = [(mcu_rows, mcu_cols, v, h) if h * v > 1 else None
+            for h, v in comps_hv]
+    qs = [quant.luma_table(60), quant.chroma_table(60),
+          quant.chroma_table(70)]
+    before = fused.ZZ_LAUNCHES
+    got = fused.dequant_idct_planes(views, qs, shapes, scan, n_img=3)
+    torch.cuda.synchronize()
+    assert fused.ZZ_LAUNCHES == before + 1
+    want = fused.dequant_idct_planes_reference(views, qs, shapes, scan,
+                                               n_img=3)
+    for g, w, (hb, wb) in zip(got, want, shapes):
+        assert g.shape == (3 * hb * 8, wb * 8)
+        assert torch.equal(g, w)
+    sizes = [3 * n * 64 for n in per]
+    buf = torch.zeros(sum(sizes), dtype=torch.uint8, device=dev)
+    fused.dequant_idct_planes(views, qs, shapes, scan, n_img=3, outs=[
+        piece.view(3 * hb * 8, wb * 8)
+        for (hb, wb), piece in zip(shapes, buf.split(sizes))])
+    assert torch.equal(buf, torch.cat([w.reshape(-1) for w in want]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [None, 3])
 def test_kernel_h_matches_plain(n):
     """Kernel H against its twin, 0 apart: every ratio pair in
     {1, 2, 3, 4}^2, fancy and not, YCbCr and RGB, crops to a width that is
-    a multiple of 4 (word stores through shared memory) and to one that is
-    not (byte stores), and the padded grid of a 1001x777 4:2:0 frame."""
+    a multiple of 8 (8-byte stores), of 4 only (word stores) and of neither
+    (byte stores), and the padded grid of a 1001x777 4:2:0 frame (four
+    tiles of 256 columns), also cropped to 992 columns."""
     dev = require_cuda()
     rng = np.random.default_rng(7 if n is None else n)
     lead = () if n is None else (n,)
     cases = [(((1, 1), (fh, fv), (fh, fv)), (96, 120), crop)
              for fh in range(1, 5) for fv in range(1, 5)
-             for crop in ((91, 113), (91, 116))]
+             for crop in ((91, 113), (91, 116), (96, 120))]
     cases.append((((1, 1), (2, 2), (2, 2)), (784, 1008), (777, 1001)))
     cases.append((((2, 1), (1, 2), (1, 1)), (784, 1008), (777, 1001)))
+    cases.append((((1, 1), (2, 2), (2, 2)), (784, 1008), (777, 992)))
     for factors, full, crop in cases:
         planes = [torch.as_tensor(rng.integers(
             0, 256, size=lead + (full[0] // fv, full[1] // fh)).astype(
@@ -219,7 +261,7 @@ def test_encode_decode_on_card_match_cpu(mode, shape, restart):
     assert pack.LAUNCHES == launches_a + 1
     before = _counts()
     got = jpeg_tpu_torch.decode(a, device="cuda")
-    assert _since(before) == (0, 0, 0, 3, 1)
+    assert _since(before) == (0, 0, 0, 1, 1)
     ref = jpeg_tpu_torch.decode(a, device="cpu")
     diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
     assert diff.max() <= 1
@@ -470,8 +512,8 @@ def test_decode_batched_on_card(batch_mode, scale_denom):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got, ref)
     if scale_denom == 1 and batch_mode != "auto":
-        assert _since(before) == ((0, 0, 0, 3, 1) if batch_mode == "fused"
-                                  else (0, 0, 0, 9, 3))
+        assert _since(before) == ((0, 0, 0, 1, 1) if batch_mode == "fused"
+                                  else (0, 0, 0, 3, 3))
     out = jpeg_tpu_torch.decode_batched(
         jpgs, scale_denom=scale_denom, batch_mode=batch_mode,
         device_output=True, device="cuda")
@@ -514,7 +556,7 @@ def test_decode_stream_on_card_counts_under_threads(depth):
     before = _counts()
     got = list(jpeg_tpu_torch.decode_stream(iter(jpgs), depth=depth,
                                             device="cuda"))
-    assert _since(before) == (0, 0, 0, 3 * len(jpgs), len(jpgs))
+    assert _since(before) == (0, 0, 0, len(jpgs), len(jpgs))
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
     dev = list(jpeg_tpu_torch.decode_stream(jpgs[:4], depth=depth,
@@ -553,7 +595,7 @@ def test_decode_from_four_threads_on_side_streams_counts_exactly():
         w.join(timeout=300)
         assert not w.is_alive()
     assert not bad
-    assert _since(before) == (0, 0, 0, 3 * rounds * threads, rounds * threads)
+    assert _since(before) == (0, 0, 0, rounds * threads, rounds * threads)
 
 
 @pytest.mark.cuda
@@ -775,8 +817,7 @@ def test_device_entropy_on_fixtures_and_streams_on_card(entropy):
     before = fused.ZZ_LAUNCHES
     got = list(jpeg_tpu_torch.decode_stream(iter(jpgs), depth=4,
                                             entropy=entropy, device="cuda"))
-    assert fused.ZZ_LAUNCHES - before == sum(1 if r.ndim == 2 else 3
-                                             for r in ref)
+    assert fused.ZZ_LAUNCHES - before == len(ref)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
 

@@ -1,11 +1,15 @@
 """The decode finish of the port (models/decoder._finish_color,
 _finish_gray, _finish_planes) and its two kernels' plain twins, on the CPU.
 
-Kernel B2 (csrc/idct8.cu, jt_idct8_zz_u8: zig-zag blocks in, uint8 samples
-out) and kernel H (csrc/finish_color.cu: upsample, YCbCr -> RGB, round,
-clip, crop) run only on a card; here their per-thread bodies are compiled
-with g++ against stand-ins for the CUDA built-ins they use and driven
-through the wrappers' launch functions. Tolerances:
+Kernel B2 (csrc/idct8.cu, jt_idct8_samples: every component's zig-zag
+blocks in, in scan or raster order, uint8 samples out, one launch) and
+kernel H (csrc/finish_color.cu: upsample, YCbCr -> RGB, round, clip, crop,
+a tile per thread block) run only on a card; here their bodies are compiled
+with g++ against stand-ins for the CUDA built-ins they use and run thread
+by thread (B2: every thread's chunk placement into the shared tile, then
+every thread's block body; H: every thread's share of the tile fill, then
+every thread's patch and store) through the wrappers' launch functions.
+Tolerances:
   - exact: the twins (ops/fused.dequant_idct_samples_reference,
     ops/finish.finish_color_reference) against the chain of torch ops the
     decoder ran before them (the f32 _reconstruct_plane, the upsamplers of
@@ -15,8 +19,11 @@ through the wrappers' launch functions. Tolerances:
     cases (integer samples make every step before the colour map exact,
     and the kernel keeps the map's f32 operations in their order); kernel
     B2's body against kernel B's body rounded and clamped, and against a
-    numpy emulation of its FMA chains; decode(device="cpu") against the
-    old chain composed here from the decoder's blocks;
+    numpy emulation of its FMA chains, in raster order and in the MCU scan
+    order of the 4:2:0, 4:2:2, 4:4:4, gray and six general layouts, for a
+    stack of images at a stride and into one flat buffer; B2's twin on scan
+    order against the twin on the reordered blocks; decode(device="cpu")
+    against the old chain composed here from the decoder's blocks;
   - kernel B2's body against its twin: their f32 sums may differ in order
     (a CPU matrix product against FMA chains), so a sample on a .5
     boundary may round the other way: +-1 in at most 0.5% of samples;
@@ -49,6 +56,7 @@ from jpeg_tpu_torch.ops import (
     tile as PT, zigzag as PZ)
 
 import torch_port_fixtures as port_fixtures
+from test_sampling_general import LAYOUTS
 from torch_port_util import make_image, random_blocks
 
 CSRC = (pathlib.Path(__file__).resolve().parent.parent / "jpeg_tpu_torch"
@@ -99,11 +107,36 @@ _STANDIN_HEAD = r"""
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 static inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+static inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+static inline uint4 make_uint4(unsigned a, unsigned b, unsigned c,
+                               unsigned d) {
+  return {a, b, c, d};
+}
+static inline uint4 __ldg(const uint4* p) { return *p; }
+static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
 static inline int4 __ldg(const int4* p) { return *p; }
 static inline unsigned char __ldg(const unsigned char* p) { return *p; }
+static inline uint32_t __ldg(const uint32_t* p) { return *p; }
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, int sh) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (sh & 31));
+}
+// cvt.pack.sat.u8.s32.b32 d, a, b, c (PTX ISA): d = (c << 16) |
+// (sat_u8(a) << 8) | sat_u8(b).
+static inline uint32_t pack_sat_u8(int a, int b, uint32_t c) {
+  const uint32_t sa = a < 0 ? 0 : (a > 255 ? 255 : a);
+  const uint32_t sb = b < 0 ? 0 : (b > 255 ? 255 : b);
+  return (c << 16) | (sa << 8) | sb;
+}
 static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fadd_rn(float a, float b) { return a + b; }
 #include <cstring>
@@ -121,36 +154,65 @@ static inline float __int_as_float(int i) {
 
 _STANDIN_IDCT8 = _STANDIN_HEAD + r"""
 #include "idct8.cu"
-// One loop iteration per CUDA thread (block), in reverse order.
-extern "C" int jt_idct8_zz_u8(const void* zz, const void* qtab, void* out,
-                              int hb, int wb, void*) {
-  for (long t = (long)hb * wb - 1; t >= 0; --t)
-    idct8_block<true>((const int32_t*)zz, (const float*)qtab, out, t, 8 * wb,
-                      wb);
+// Kernel B2: thread blocks in reverse order; in each, every thread's chunk
+// placement into the tile (threads in reverse order), then every thread's
+// block body (the kernel's one barrier lies between the two).
+extern "C" int jt_idct8_samples(const void* const* zz, const void* const* q,
+                                void* const* out, const int* geo, int ncomp,
+                                void*) {
+  ZArgs a;
+  const long grid = make_zargs(zz, q, out, geo, ncomp, a);
+  static int32_t s[64 * kPitch];
+  for (long g = grid - 1; g >= 0; --g) {
+    int i = 0;
+    while (i + 1 < ncomp && g >= a.c[i + 1].first) ++i;
+    const ZComp& c = a.c[i];
+    const int t0 = (int)(g - c.first) * kThreads;
+    const int nb = c.nblocks - t0 < kThreads ? c.nblocks - t0 : kThreads;
+    for (int tid = kThreads - 1; tid >= 0; --tid) b2_fill(c, t0, nb, tid, s);
+    for (int tid = nb - 1; tid >= 0; --tid) b2_body(c, t0, tid, s, c.q);
+  }
   return 0;
 }
+// Kernel B: one loop iteration per CUDA thread (block), in reverse order.
 extern "C" int jt_idct8(const void* coeffs, const void* qtab, void* out,
                         int h, int w, void*) {
   for (long t = (long)(h / 8) * (w / 8) - 1; t >= 0; --t)
-    idct8_block<false>((const int32_t*)coeffs, (const float*)qtab, out, t, w,
-                       w / 8);
+    idct8_block((const int32_t*)coeffs, (const float*)qtab, (float*)out, t,
+                w, w / 8);
   return 0;
 }
 """
 
 _STANDIN_FINISH = _STANDIN_HEAD + r"""
 #include "finish_color.cu"
-// One loop iteration per CUDA thread (group of pixels), in reverse order.
+// Tiles in reverse order; in each, every thread's share of the fill
+// (threads in reverse order), then every thread's patches and stores (the
+// kernel's one barrier lies between the two).
 extern "C" int jt_finish_color(const void* const* planes, const int* geo,
                                const float* m, void* out, int n, int hlim,
                                int wlim, int is_rgb, void*) {
   const Args a = make_args(planes, geo, m, out, hlim, wlim, is_rgb);
+  const int layout = identity_entries(a) && !is_rgb ? kernel_layout(a) : -1;
+  alignas(16) static uint32_t s[3 * kMaxRows * kPitch];
   for (int img = n - 1; img >= 0; --img)
-    for (int orow = hlim - 1; orow >= 0; --orow)
-      for (int g = row_groups(wlim) - 1; g >= 0; --g) {
-        uint32_t b[3 * kGroup];
-        group_bytes(a, img, orow, g * kGroup, b);
-        store_group(a, img, orow, g * kGroup, b);
+    for (int R0 = (hlim - 1) / kTileRows * kTileRows; R0 >= 0;
+         R0 -= kTileRows)
+      for (int C0 = (wlim - 1) / kTileCols * kTileCols; C0 >= 0;
+           C0 -= kTileCols) {
+        Win w[3];
+        tile_windows(a, R0, C0, w);
+        for (int tid = kThreads - 1; tid >= 0; --tid)
+          tile_fill(a, w, img, tid, s);
+        for (int tid = kThreads - 1; tid >= 0; --tid) {
+          switch (layout) {
+            case 0: tile_thread<true, 0>(a, w, s, img, R0, C0, tid); break;
+            case 1: tile_thread<true, 1>(a, w, s, img, R0, C0, tid); break;
+            case 2: tile_thread<true, 2>(a, w, s, img, R0, C0, tid); break;
+            case 3: tile_thread<true, 3>(a, w, s, img, R0, C0, tid); break;
+            default: tile_thread<false, 0>(a, w, s, img, R0, C0, tid);
+          }
+        }
       }
   return 0;
 }
@@ -177,24 +239,34 @@ def standin_idct8(tmp_path_factory):
 
 @pytest.fixture(scope="module", params=[None, 4])
 def standin_finish(request, tmp_path_factory):
-    """Kernel H's body as built (8 pixels to a thread), and with 4
-    (-DJT_GROUP=4)."""
+    """Kernel H's body as built (tiles of 16 output rows: 128 threads, two
+    patches of 2 rows each), and with tiles of 4 (-DJT_THREADS=64
+    -DJT_ROW_PAIRS=1)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
-    flags = [f"-DJT_GROUP={request.param}"] if request.param else []
+    flags = ([f"-DJT_THREADS={16 * request.param}", "-DJT_ROW_PAIRS=1"]
+             if request.param else [])
     return _build(tmp_path_factory.mktemp("finish_standin"), _STANDIN_FINISH,
                   flags)
 
 
-def b2_on_host(lib, zz, q, shape):
-    """Kernel B2's body through the wrapper's launch function."""
-    hb, wb = shape
-    out = torch.full((hb * 8, wb * 8), 7, dtype=torch.uint8)
-    qf = torch.as_tensor(q, dtype=torch.float32).reshape(64).contiguous()
+def b2_planes_on_host(lib, zzs, qs, shapes, scan=None, n_img=1, outs=None):
+    """Kernel B2's bodies through the wrapper's argument preparation and
+    launch function: one launch for every component."""
+    comps = PF._components(zzs, qs, shapes, scan, n_img, outs)
+    outs = [torch.full((n_img * hb * 8, wb * 8), 7, dtype=torch.uint8)
+            if o is None else o for _, _, (hb, wb), _, o in comps]
+    comps = [c[:4] + (o,) for c, o in zip(comps, outs)]
+    zs, qf, outs, geos = PF._prepare_planes(comps, n_img, torch.device("cpu"))
     before = PF.ZZ_LAUNCHES
-    PF._launch_idct_samples(zz.contiguous(), qf, out, hb, wb, lib=lib)
+    PF._launch_idct_samples(zs, qf, outs, geos, lib=lib)
     assert PF.ZZ_LAUNCHES == before + 1
-    return out
+    return outs
+
+
+def b2_on_host(lib, zz, q, shape):
+    """Kernel B2's body on one component in raster order."""
+    return b2_planes_on_host(lib, [zz], [q], [shape])[0]
 
 
 def b_on_host(lib, coeffs, q):
@@ -318,6 +390,123 @@ def test_kernel_b2_body_clamps_huge_coefficients(standin_idct8):
     assert set(np.unique(got.numpy())) <= {0, 255}
 
 
+# Layouts of a colour (or gray) frame's components, (h, v) each: the
+# decoder hands B2 the blocks of a component with several blocks to an MCU
+# in the MCU scan order of the interleaved scan.
+B2_LAYOUTS = [pytest.param([(2, 2), (1, 1), (1, 1)], id="420"),
+              pytest.param([(1, 1), (1, 1), (1, 1)], id="444"),
+              pytest.param([(1, 1)], id="gray")] + LAYOUTS
+
+
+def _scan_components(rng, comps_hv, mcu_rows, mcu_cols, n_img=1):
+    """Per component: zig-zag blocks of n_img images in the scan order the
+    entropy decoder gives (n_img * blocks, 64), its table, block grid and
+    scan geometry (None where one block makes an MCU)."""
+    zzs, qs, shapes, scan = [], [], [], []
+    for i, (h, v) in enumerate(comps_hv):
+        shape = (mcu_rows * v, mcu_cols * h)
+        zzs.append(_blocks(rng, (n_img * shape[0], shape[1]), 0.3))
+        qs.append(JQ.luma_table(40 + 20 * i) if i == 0
+                  else JQ.chroma_table(40 + 20 * i))
+        shapes.append(shape)
+        scan.append((mcu_rows, mcu_cols, v, h) if h * v > 1 else None)
+    return zzs, qs, shapes, scan
+
+
+def _in_raster_order(zz, geo, n_img=1):
+    if geo is None:
+        return zz
+    mcu_rows, mcu_cols, v, h = geo
+    return layout.scan_to_raster(zz, n_img * mcu_rows, mcu_cols, v, h)
+
+
+@pytest.mark.parametrize("comps_hv", B2_LAYOUTS)
+def test_kernel_b2_body_reads_scan_order(standin_idct8, comps_hv):
+    """One launch for every component, each read in its MCU scan order in
+    place: equal to the numpy emulation of B2's chains on the blocks put in
+    raster order, and within +-1 of the twin; the twin on scan order equals
+    the twin on the reordered blocks exactly."""
+    rng = np.random.default_rng(sum(7 * h + v for h, v in comps_hv))
+    zzs, qs, shapes, scan = _scan_components(rng, comps_hv, 3, 5)
+    got = b2_planes_on_host(standin_idct8, zzs, qs, shapes, scan)
+    twin = PF.dequant_idct_planes_reference(zzs, qs, shapes, scan)
+    assert len(got) == len(twin) == len(comps_hv)
+    for zz, q, shape, geo, g, t in zip(zzs, qs, shapes, scan, got, twin):
+        raster = _in_raster_order(zz, geo)
+        assert g.shape == (shape[0] * 8, shape[1] * 8)
+        np.testing.assert_array_equal(g.numpy(),
+                                      chain_samples(raster, q, shape))
+        np.testing.assert_array_equal(
+            t.numpy(), PF.dequant_idct_samples_reference(raster, q,
+                                                         shape).numpy())
+        diff = (g.long() - t.long()).abs()
+        assert int(diff.max()) <= 1
+        assert int((diff != 0).sum()) <= DIFF_SHARE * diff.numel()
+
+
+@pytest.mark.parametrize("comps_hv", B2_LAYOUTS[:2])
+def test_kernel_b2_body_on_a_stack_at_a_stride(standin_idct8, comps_hv):
+    """decode_batched's rows: n = 3 images' (3, B, 64) blocks, each
+    component a (3, blocks, 64) slice read in place at the stride B: the
+    planes of the three images stacked, each equal to that image's own
+    launch and to the twin's."""
+    rng = np.random.default_rng(len(comps_hv) + 11)
+    one = [_scan_components(rng, comps_hv, 2, 3) for _ in range(3)]
+    _, qs, shapes, scan = one[0]
+    rows = torch.stack([torch.cat(z[0]) for z in one])
+    bounds = np.cumsum([0] + [hb * wb for hb, wb in shapes])
+    views = [rows[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+    comps = PF._components(views, qs, shapes, scan, 3, None)
+    assert [g[3] for g in PF._prepare_planes(
+        comps, 3, torch.device("cpu"))[3]] == [rows.shape[1]] * len(views)
+    got = b2_planes_on_host(standin_idct8, views, qs, shapes, scan, n_img=3)
+    twin = PF.dequant_idct_planes_reference(views, qs, shapes, scan, n_img=3)
+    for c, (hb, wb) in enumerate(shapes):
+        assert got[c].shape == (3 * hb * 8, wb * 8)
+        diff = (got[c].long() - twin[c].long()).abs()
+        assert int(diff.max()) <= 1
+        for i in range(3):
+            alone = b2_planes_on_host(standin_idct8, one[i][0], qs, shapes,
+                                      scan)[c]
+            np.testing.assert_array_equal(
+                got[c][i * hb * 8:(i + 1) * hb * 8].numpy(), alone.numpy())
+
+
+def test_kernel_b2_body_into_one_flat_buffer(standin_idct8):
+    """output="ycbcr"'s flat buffer: the three planes written into their
+    slices of one buffer by one launch, as into planes of their own."""
+    rng = np.random.default_rng(29)
+    zzs, qs, shapes, scan = _scan_components(rng, [(2, 2), (1, 1), (1, 1)],
+                                             4, 3)
+    sizes = [hb * 8 * wb * 8 for hb, wb in shapes]
+    buf = torch.full((sum(sizes),), 7, dtype=torch.uint8)
+    views = [piece.view(hb * 8, wb * 8)
+             for (hb, wb), piece in zip(shapes, buf.split(sizes))]
+    got = b2_planes_on_host(standin_idct8, zzs, qs, shapes, scan, outs=views)
+    want = b2_planes_on_host(standin_idct8, zzs, qs, shapes, scan)
+    for g, v, w in zip(got, views, want):
+        assert g.data_ptr() == v.data_ptr()
+        np.testing.assert_array_equal(v.numpy(), w.numpy())
+
+
+def test_planes_wrappers_refuse_bad_input():
+    zz = torch.zeros((24, 64), dtype=torch.int32)
+    q = JQ.luma_table(50)
+    with pytest.raises(ValueError, match="1-3 components"):
+        PF.dequant_idct_planes([zz] * 4, [q] * 4, [(4, 6)] * 4)
+    with pytest.raises(ValueError, match="1-3 components"):
+        PF.dequant_idct_planes([zz], [q, q], [(4, 6)])
+    with pytest.raises(ValueError, match="does not tile"):
+        PF.dequant_idct_planes([zz], [q], [(4, 6)], scan=[(2, 2, 2, 2)])
+    with pytest.raises(ValueError, match="zig-zag blocks"):
+        PF.dequant_idct_planes([zz], [q], [(4, 6)], n_img=2)
+    with pytest.raises(ValueError, match="out must be"):
+        PF.dequant_idct_planes([zz], [q], [(4, 6)],
+                               outs=[torch.empty((32, 40), dtype=torch.uint8)])
+    with pytest.raises(ValueError, match="unsupported device"):
+        PF.dequant_idct_planes([zz.to("meta")], [q], [(4, 6)])
+
+
 def test_samples_wrappers_refuse_bad_input():
     zz = torch.zeros((6, 64), dtype=torch.int32)
     with pytest.raises(ValueError, match="zig-zag blocks"):
@@ -351,7 +540,10 @@ def _planes(rng, full, factors, n=None, extreme=False):
     return out
 
 
-# Every chroma ratio pair, both upsample choices, YCbCr and RGB, crops.
+# Every chroma ratio pair, both upsample choices, YCbCr and RGB, crops:
+# widths that are not multiples of 4 (byte stores), multiples of 4 but not
+# of 8 (word stores) and multiples of 8 (8-byte stores), across one, two
+# and three tiles of 256 columns.
 H_CASES = [
     (ratio, fan, is_rgb, full, crop)
     for ratio in RATIOS
@@ -359,6 +551,11 @@ H_CASES = [
     for is_rgb in (False, True)
     for full, crop in (((24, 36), (19, 29)), ((12, 12), (7, 10)),
                        ((36, 288), (31, 284)))
+] + [
+    (ratio, fan, False, (24, 528), crop)
+    for ratio in RATIOS
+    for fan in (True, False)
+    for crop in ((21, 520), (21, 512))
 ]
 
 
@@ -553,6 +750,25 @@ def test_gray_finish_matches_jpeg_tpu():
     want = np.array(JDEC._finish_gray(jnp.asarray(zz[0].numpy()),
                                       jnp.asarray(q[0]), shapes[0]))
     _within_contract(got.numpy(), want[:info.height, :info.width], 1)
+
+
+@pytest.mark.parametrize("name", ["420 131x203", "422 90x150"])
+def test_kernel_b2_paths_make_no_reorder_copy(name):
+    """decode, decode_batched and decode_stream read the MCU scan order in
+    place (no layout.scan_to_raster call); use_pallas=False, the scaled
+    decode and the mesh's raster blocks still reorder."""
+    jpg = STREAMS[name]
+    layout.SCAN_TO_RASTER_CALLS = 0
+    one = jpeg_tpu_torch.decode(jpg, device="cpu")
+    two = jpeg_tpu_torch.decode_batched([jpg, jpg], device="cpu")
+    three = list(jpeg_tpu_torch.decode_stream(iter([jpg] * 3), depth=2,
+                                              device="cpu"))
+    assert layout.SCAN_TO_RASTER_CALLS == 0
+    for px in (*two, *three):
+        np.testing.assert_array_equal(px, one)
+    jpeg_tpu_torch.decode(jpg, device="cpu", use_pallas=False)
+    jpeg_tpu_torch.decode(jpg, device="cpu", scale_denom=2)
+    assert layout.SCAN_TO_RASTER_CALLS == 2
 
 
 def test_batched_finish_is_per_image():

@@ -309,9 +309,10 @@ def test_decode_without_pallas_options(scale_denom):
 
 
 def test_use_pallas_selects_the_idct(monkeypatch):
-    """use_pallas=True (the default) goes through dequant_idct_samples
-    (kernel B2, its twin on the CPU) once per plane; False never does, and
-    takes the separable block IDCT; the scaled decode takes neither."""
+    """use_pallas=True (the default) goes through dequant_idct_planes
+    (kernel B2, its twin on the CPU) once for the three planes; False never
+    does, and takes the separable block IDCT; the scaled decode takes
+    neither."""
     calls = {"fused": 0, "blocks": 0}
 
     def count(name, fn):
@@ -320,11 +321,11 @@ def test_use_pallas_selects_the_idct(monkeypatch):
             return fn(*args, **kwargs)
         return wrapped
 
-    monkeypatch.setattr(PF, "dequant_idct_samples",
-                        count("fused", PF.dequant_idct_samples))
+    monkeypatch.setattr(PF, "dequant_idct_planes",
+                        count("fused", PF.dequant_idct_planes))
     monkeypatch.setattr(PD, "idct_blocks", count("blocks", PD.idct_blocks))
     jpg = _stream("420/0")
-    want = {"fused": 3, "blocks": 0}
+    want = {"fused": 1, "blocks": 0}
     for kwargs in ({}, {"use_pallas": True}, {"use_pallas": False},
                    {"use_pallas": False, "scale_denom": 2}):
         calls.update(fused=0, blocks=0)
