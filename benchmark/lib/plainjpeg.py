@@ -1,0 +1,677 @@
+"""A plain baseline JPEG codec in PyTorch and NumPy: the benchmark's own
+input maker and the reference that the port's outputs are held to.
+
+It imports nothing of the codec under test. Every table is written out from
+ITU-T T.81 (Annex K: quantization and Huffman tables; Figure 5: zig-zag) and
+the JFIF colour map, and the transform is worked out here from its
+definition, so a change to the port cannot change what is compared.
+
+Encode: RGB uint8 -> the exact fixed-point transform (colour, 2x2 box
+chroma, DCT, quantize) -> DC DPCM -> Huffman coding with the Annex K tables
+-> byte stuffing -> one baseline JFIF stream. The transform is the one that
+the port states as its contract: the composed linear map of the float32
+DCT basis and JFIF matrix held in 2^15 fixed point, evaluated in exact
+integer arithmetic, quantized with round half away from zero. Every step
+runs as whole-tensor operations on any device (the card in a run, the CPU in
+the tests); each field of the scan is placed by a prefix sum and the bits
+are merged by adding fields that never overlap, so the result does not
+depend on the order of the sums.
+
+Decode (the reference of the decode cells): quantized coefficients ->
+dequantize -> 2-D IDCT in float64 -> +128, round, clip -> libjpeg's
+triangular ("fancy") chroma upsampling -> the JFIF colour map in float64 ->
+round, clip, crop; and the bounds within which every decode that keeps the
+float32 contract lies (pixel_bounds). The serial parser and Huffman decoder
+at the end of this file are for the tests (small images only).
+"""
+
+from __future__ import annotations
+
+import math
+import struct
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Tables (ITU-T T.81)
+# ---------------------------------------------------------------------------
+
+
+def _zigzag() -> np.ndarray:
+    """ZIGZAG[k] = raster index (row * 8 + col) of the k-th zig-zag
+    coefficient (T.81 Figure 5): anti-diagonals, alternating direction."""
+    cells = sorted(((r, c) for r in range(8) for c in range(8)),
+                   key=lambda rc: (rc[0] + rc[1],
+                                   rc[0] if (rc[0] + rc[1]) % 2 else rc[1]))
+    return np.array([r * 8 + c for r, c in cells], dtype=np.int64)
+
+
+ZIGZAG = _zigzag()
+
+# Annex K.1, Tables K.1 and K.2, in raster order.
+QUANT_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99,
+], dtype=np.int64)
+QUANT_CHROMA = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+] + [99] * 32, dtype=np.int64)
+
+# Annex K.3, Tables K.3-K.6: (BITS, HUFFVAL) as in a DHT segment.
+DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+DC_CHROMA = ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12)))
+AC_LUMA = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], [
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08,
+    0x23, 0x42, 0xB1, 0xC1, 0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0A, 0x16, 0x17, 0x18, 0x19, 0x1A, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3A, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3,
+    0xA4, 0xA5, 0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6,
+    0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9,
+    0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA, 0xE1, 0xE2,
+    0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF1, 0xF2, 0xF3, 0xF4,
+    0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA,
+])
+AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xA1, 0xB1, 0xC1, 0x09, 0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1,
+    0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25, 0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26,
+    0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3A, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A,
+    0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4,
+    0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7,
+    0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA,
+    0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF2, 0xF3, 0xF4,
+    0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA,
+])
+
+# JFIF (BT.601 full range): ycc = RGB_TO_YCBCR @ rgb + (0, 128, 128). The
+# transform's stated precision holds these entries as float32 values.
+RGB_TO_YCBCR = np.array([
+    [0.299, 0.587, 0.114],
+    [-0.168735892, -0.331264108, 0.5],
+    [0.5, -0.418687589, -0.081312411],
+], dtype=np.float32)
+# rgb = YCBCR_TO_RGB @ (y, cb - 128, cr - 128), in float64 here.
+YCBCR_TO_RGB = np.array([
+    [1.0, 0.0, 1.402],
+    [1.0, -0.344136286, -0.714136286],
+    [1.0, 1.772, 0.0],
+], dtype=np.float64)
+
+# Fixed point of the encode transform: the composed kernel is held as
+# integers at 2^SCALE_BITS.
+SCALE_BITS = 15
+
+
+def quality_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """IJG quality scaling (libjpeg jcparam.c): 50 keeps the base table,
+    entries clamped to [1, 255] for baseline. Raster order."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def huffman_codes(spec) -> tuple[np.ndarray, np.ndarray]:
+    """(BITS, HUFFVAL) -> (code[256], length[256]) by T.81 Annex C."""
+    bits, vals = spec
+    code_of = np.zeros(256, dtype=np.int64)
+    len_of = np.zeros(256, dtype=np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code_of[vals[k]] = code
+            len_of[vals[k]] = length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def dct_basis_f32() -> np.ndarray:
+    """Orthonormal DCT-II basis D[u, x] = c(u)/2 cos((2x+1) u pi / 16),
+    c(0) = 1/sqrt(2), rounded to float32 (the stated precision of the
+    transform's constants), returned as float64."""
+    u = np.arange(8)[:, None].astype(np.float64)
+    x = np.arange(8)[None, :].astype(np.float64)
+    d = 0.5 * np.cos((2.0 * x + 1.0) * u * np.pi / 16.0)
+    d[0, :] *= 1.0 / np.sqrt(2.0)
+    return d.astype(np.float32).astype(np.float64)
+
+
+def transform_kernel(h: int = 2, v: int = 2) -> tuple[np.ndarray, np.ndarray]:
+    """The encode transform of one MCU as a linear map, in float64:
+    (kernel (mh * mw * 3 pixel values, (hv + 2) * 64), bias). Output
+    channel blk * 64 + k is zig-zag coefficient k of the MCU's block blk
+    (luma blocks in raster order, then Cb, Cr), before quantization. The
+    bias is the -128 level shift of the luma DC (the chroma offsets of +128
+    cancel the shift)."""
+    hv = h * v
+    mh, mw = 8 * v, 8 * h
+    d = dct_basis_f32()
+    w = np.kron(d, d)[ZIGZAG].reshape(64, 8, 8)  # (k, row, col)
+    cw = RGB_TO_YCBCR.astype(np.float64)
+    kern = np.zeros((mh, mw, 3, (hv + 2) * 64))
+    for a in range(v):
+        for b in range(h):
+            blk = a * h + b
+            kern[8 * a:8 * a + 8, 8 * b:8 * b + 8, :, 64 * blk:64 * blk + 64] = (
+                np.einsum("kuv,c->uvck", w, cw[0]))
+    for ci, row in ((hv, cw[1]), (hv + 1, cw[2])):
+        full = np.einsum("kuv,c->uvck", w, row)
+        kern[:, :, :, 64 * ci:64 * ci + 64] = (
+            np.repeat(np.repeat(full, v, axis=0), h, axis=1) * (1.0 / hv))
+    bias = np.zeros((hv + 2) * 64)
+    bias[0:64 * hv:64] = -1024.0
+    return kern.reshape(mh * mw * 3, -1), bias
+
+
+def fixed_point_kernel(h: int = 2, v: int = 2) -> tuple[np.ndarray, np.ndarray]:
+    """transform_kernel held as integers at 2^SCALE_BITS (round half to
+    even), as float64 arrays of integer values."""
+    kern, bias = transform_kernel(h, v)
+    return np.rint(kern * (1 << SCALE_BITS)), np.rint(bias * (1 << SCALE_BITS))
+
+
+# ---------------------------------------------------------------------------
+# Encode
+# ---------------------------------------------------------------------------
+
+
+def pad_edges(rgb: torch.Tensor, mult_h: int, mult_w: int) -> torch.Tensor:
+    """(K, H, W, 3) -> edge-replicated up to multiples of (mult_h, mult_w)."""
+    _, hh, ww, _ = rgb.shape
+    ph, pw = (-hh) % mult_h, (-ww) % mult_w
+    if ph:
+        rgb = torch.cat([rgb, rgb[:, -1:].expand(-1, ph, -1, -1)], dim=1)
+    if pw:
+        rgb = torch.cat([rgb, rgb[:, :, -1:].expand(-1, -1, pw, -1)], dim=2)
+    return rgb
+
+
+def coefficients(rgb: torch.Tensor, quality: int,
+                 precision: str = "exact") -> torch.Tensor:
+    """(K, H, W, 3) uint8 RGB -> (K, n_mcu, 6, 64) int64 quantized zig-zag
+    coefficients of the 4:2:0 scan, MCU by MCU (Y0..Y3, Cb, Cr), DC not yet
+    differenced.
+
+    precision "exact": the fixed-point kernel applied in float64 to integer
+    pixels, so every partial sum is an integer below 2^53 and the sum is
+    exact in any order; then round half away from zero of acc / (q 2^15) in
+    integers. "float32" (the control): the float32 kernel applied in float32
+    arithmetic (TF32 off) and the quotient rounded half away from zero in
+    float32, the form a later change might be tempted to take."""
+    k = rgb.shape[0]
+    dev = rgb.device
+    x = pad_edges(rgb, 16, 16)
+    r, c = x.shape[1] // 16, x.shape[2] // 16
+    patches = x.reshape(k, r, 16, c, 48).permute(0, 1, 3, 2, 4).reshape(
+        k * r * c, 768)
+    order = ZIGZAG
+    qz = np.concatenate([np.tile(quality_table(QUANT_LUMA, quality)[order], 4),
+                         np.tile(quality_table(QUANT_CHROMA, quality)[order], 2)])
+    if precision == "exact":
+        kern, bias = fixed_point_kernel()
+        acc = patches.to(torch.float64) @ torch.as_tensor(kern, device=dev)
+        acc = acc.to(torch.int64) + torch.as_tensor(bias, device=dev).to(
+            torch.int64)
+        d = torch.as_tensor(qz, device=dev) << SCALE_BITS
+        q0 = (2 * acc.abs() + d) // (2 * d)
+        q = torch.where(acc < 0, -q0, q0)
+    elif precision == "float32":
+        kern, bias = transform_kernel()
+        acc = patches.to(torch.float32) @ torch.as_tensor(
+            kern, dtype=torch.float32, device=dev)
+        acc = acc + torch.as_tensor(bias, dtype=torch.float32, device=dev)
+        y = acc / torch.as_tensor(qz, dtype=torch.float32, device=dev)
+        q = (torch.sign(y) * torch.floor(y.abs() + 0.5)).to(torch.int64)
+    else:
+        raise ValueError(f"unknown precision {precision!r}")
+    return q.reshape(k, r * c, 6, 64)
+
+
+def _bit_length(v: torch.Tensor) -> torch.Tensor:
+    """Magnitude category of each value (bits of |v|; 0 for 0), exact."""
+    mag = v.abs()
+    size = torch.zeros_like(mag)
+    for b in range(16):
+        size += (mag >= (1 << b)).to(mag.dtype)
+    return size
+
+
+def _tables(dev):
+    luts = [huffman_codes(s) for s in (DC_LUMA, DC_CHROMA, AC_LUMA, AC_CHROMA)]
+    code = torch.as_tensor(np.stack([t[0] for t in luts]), device=dev)
+    length = torch.as_tensor(np.stack([t[1] for t in luts]), device=dev)
+    return code, length  # rows: DC Y, DC C, AC Y, AC C
+
+
+def scans(coefs: torch.Tensor) -> list[bytes]:
+    """(K, n_mcu, 6, 64) quantized coefficients -> the K entropy-coded scans
+    (byte-stuffed, 1-padded), one baseline interleaved 4:2:0 scan each."""
+    k, n_mcu = coefs.shape[:2]
+    dev = coefs.device
+    code, length = _tables(dev)
+    blocks = coefs.reshape(k * n_mcu * 6, 64).clone()
+    # DC differences per image and component, in scan order.
+    dc = coefs[..., 0]
+    y = dc[:, :, :4].reshape(k, -1)
+    dy = y - torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], dim=1)
+    dch = dc[:, :, 4:]
+    dc_ = dch - torch.cat([torch.zeros_like(dch[:, :1]), dch[:, :-1]], dim=1)
+    blocks[:, 0] = torch.cat([dy.reshape(k, n_mcu, 4), dc_], dim=2).reshape(-1)
+    nb = blocks.shape[0]
+    chroma = (torch.arange(nb, device=dev) % 6 >= 4).to(torch.int64)
+
+    # DC field of every block.
+    dsize = _bit_length(blocks[:, 0])
+    dval = blocks[:, 0]
+    damp = torch.where(dval >= 0, dval, dval + (1 << dsize) - 1)
+    dc_len = length[chroma, dsize] + dsize
+    dc_bits = (code[chroma, dsize] << dsize) | damp
+
+    # AC fields: per nonzero its ZRLs (run // 16 of them) and its symbol.
+    ac = blocks[:, 1:]
+    rows, cols = torch.nonzero(ac, as_tuple=True)
+    vals = ac[rows, cols]
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    prev = torch.where(first, torch.full_like(cols, -1),
+                       torch.cat([cols[:1], cols[:-1]]))
+    run = cols - prev - 1
+    zrl = run >> 4
+    vsize = _bit_length(vals)
+    sym = ((run & 15) << 4) | vsize
+    tab = 2 + chroma[rows]
+    amp = torch.where(vals >= 0, vals, vals + (1 << vsize) - 1)
+    sym_len = length[tab, sym] + vsize
+    sym_bits = (code[tab, sym] << vsize) | amp
+    zrl_len = length[tab, 0xF0]
+    group_len = zrl * zrl_len + sym_len
+    # EOB unless the block's last nonzero is coefficient 63.
+    last = torch.full((nb,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, rows, cols, reduce="amax")
+    has_eob = last < 62
+    eob_len = torch.where(has_eob, length[2 + chroma, 0], 0)
+    eob_bits = code[2 + chroma, 0]
+
+    # Bit offsets: blocks in scan order; each image starts a new scan.
+    ac_sum = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(
+        0, rows, group_len)
+    blen = dc_len + ac_sum + eob_len
+    per_img = blen.reshape(k, -1)
+    img_bits = per_img.sum(dim=1)
+    img_bytes = (img_bits + 7) // 8
+    img_base = 8 * (torch.cumsum(img_bytes, 0) - img_bytes)  # bit offset
+    bstart = (torch.cumsum(per_img, 1) - per_img + img_base[:, None]).reshape(-1)
+    gcum = torch.cumsum(group_len, 0) - group_len
+    blk_first = torch.cumsum(ac_sum, 0) - ac_sum
+    gstart = bstart[rows] + dc_len[rows] + gcum - blk_first[rows]
+
+    zidx = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), zrl)
+    zpos = torch.arange(zidx.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(zrl, 0) - zrl, zrl)
+    eob_at = torch.nonzero(has_eob, as_tuple=True)[0]
+    pad = (8 * img_bytes - img_bits)
+    pad_img = torch.nonzero(pad > 0, as_tuple=True)[0]
+    off = torch.cat([
+        bstart, gstart + zrl * zrl_len, gstart[zidx] + zpos * zrl_len[zidx],
+        bstart[eob_at] + blen[eob_at] - eob_len[eob_at],
+        img_base[pad_img] + img_bits[pad_img]])
+    val = torch.cat([dc_bits, sym_bits, code[2 + chroma[rows[zidx]], 0xF0],
+                     eob_bits[eob_at], (1 << pad[pad_img]) - 1])
+    ln = torch.cat([dc_len, sym_len, zrl_len[zidx], eob_len[eob_at],
+                    pad[pad_img]])
+    keep = ln > 0
+    off, val, ln = off[keep], val[keep], ln[keep]
+
+    # Merge the fields into 32-bit big-endian words (a field <= 27 bits
+    # spans at most two words; fields never overlap, so adding is OR-ing).
+    total_bytes = int(img_bytes.sum())
+    words = torch.zeros(total_bytes // 4 + 2, dtype=torch.int64, device=dev)
+    word = off >> 5
+    end = (off & 31) + ln
+    over = end > 32
+    hi = torch.where(over, val >> (end - 32).clamp(min=0),
+                     val << (32 - end).clamp(min=0))
+    lo = torch.where(over, (val << (64 - end).clamp(max=63)) & 0xFFFFFFFF,
+                     torch.zeros_like(val))
+    words.index_add_(0, word, hi)
+    words.index_add_(0, word + 1, lo)
+    shifts = torch.tensor([24, 16, 8, 0], device=dev)
+    raw = ((words[:, None] >> shifts) & 0xFF).reshape(-1)[:total_bytes]
+
+    # Byte stuffing: a 0x00 after every 0xFF.
+    ff = (raw == 0xFF).to(torch.int64)
+    step = 1 + ff
+    pos = torch.cumsum(step, 0) - step
+    out = torch.zeros(int(step.sum()), dtype=torch.uint8, device=dev)
+    out[pos] = raw.to(torch.uint8)
+    ends = torch.cumsum(img_bytes, 0)
+    stuffed_ends = torch.cumsum(step, 0)[ends - 1]
+    host = out.cpu().numpy().tobytes()
+    cuts = [0] + stuffed_ends.cpu().tolist()
+    return [host[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+
+def jfif_header(width: int, height: int, quality: int) -> bytes:
+    """SOI, APP0 (JFIF 1.01), DQT (tables 0 and 1, zig-zag order), SOF0
+    (8-bit, 3 components, Y 2x2 and Cb, Cr 1x1), DHT (the four Annex K
+    tables) and SOS of the interleaved 4:2:0 scan."""
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for tid, base in ((0, QUANT_LUMA), (1, QUANT_CHROMA)):
+        t = quality_table(base, quality)[ZIGZAG]
+        out.append(_segment(0xDB, bytes([tid]) + bytes(int(v) for v in t)))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, height, width, 3)
+                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for tc_th, (bits, vals) in ((0x00, DC_LUMA), (0x10, AC_LUMA),
+                                (0x01, DC_CHROMA), (0x11, AC_CHROMA)):
+        out.append(_segment(0xC4, bytes([tc_th]) + bytes(bits) + bytes(vals)))
+    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    return b"".join(out)
+
+
+def encode(rgb: torch.Tensor, quality: int) -> list[bytes]:
+    """(K, H, W, 3) uint8 RGB of one shape -> K baseline 4:2:0 JFIF streams."""
+    hh, ww = rgb.shape[1:3]
+    head = jfif_header(ww, hh, quality)
+    return [head + s + b"\xff\xd9" for s in scans(coefficients(rgb, quality))]
+
+
+# ---------------------------------------------------------------------------
+# Decode reference: coefficients -> pixels
+# ---------------------------------------------------------------------------
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to TF32 (10 stored mantissa bits, round to
+    nearest even), as the card's tensor cores read their inputs."""
+    b = x.contiguous().view(torch.int32)
+    b = (b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF
+    return b.view(torch.float32)
+
+
+def _samples(coefs: torch.Tensor, quality: int, precision: str) -> torch.Tensor:
+    """(n_mcu, 6, 64) quantized zig-zag coefficients (DC absolute) ->
+    (n_mcu, 6, 8, 8) IDCT values + 128, before rounding, in float64.
+
+    precision "float64": the reference. "tf32" (the control): float32
+    matrix products whose operands are rounded to TF32, the step below the
+    float32 that the configuration states for the IDCT."""
+    dev = coefs.device
+    qz = np.stack([quality_table(QUANT_LUMA, quality)[ZIGZAG]] * 4
+                  + [quality_table(QUANT_CHROMA, quality)[ZIGZAG]] * 2)
+    deq = coefs.to(torch.float64) * torch.as_tensor(qz, dtype=torch.float64,
+                                                    device=dev)
+    raster = torch.zeros_like(deq)
+    raster[..., torch.as_tensor(ZIGZAG, device=dev)] = deq
+    blk = raster.reshape(*coefs.shape[:2], 8, 8)
+    if precision == "float64":
+        d = torch.as_tensor(_dct_basis_f64(), device=dev)
+        return d.T @ blk @ d + 128.0
+    if precision == "tf32":
+        d32 = tf32(torch.as_tensor(dct_basis_f32(), dtype=torch.float32,
+                                   device=dev))
+        sp = tf32(d32.T @ tf32(blk.to(torch.float32))) @ d32
+        return sp.to(torch.float64) + 128.0
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def _planes(s: torch.Tensor, mr: int, mc: int, fancy: bool):
+    """(n_mcu, 6, 8, 8) samples -> Y at full size, Cb and Cr upsampled."""
+    s = s.reshape(mr, mc, 6, 8, 8)
+    y = s[:, :, :4].reshape(mr, mc, 2, 2, 8, 8).permute(0, 2, 4, 1, 3, 5).reshape(
+        16 * mr, 16 * mc)
+    cb = s[:, :, 4].permute(0, 2, 1, 3).reshape(8 * mr, 8 * mc)
+    cr = s[:, :, 5].permute(0, 2, 1, 3).reshape(8 * mr, 8 * mc)
+    return y, _upsample2(cb, fancy), _upsample2(cr, fancy)
+
+
+def _fancy(width: int) -> bool:
+    # libjpeg jdsample.c: triangular upsampling where the component's own
+    # width exceeds two samples, replication otherwise.
+    return (width + 1) // 2 > 2
+
+
+def pixels(coefs: torch.Tensor, quality: int, height: int, width: int,
+           precision: str = "float64") -> torch.Tensor:
+    """(n_mcu, 6, 64) quantized zig-zag coefficients of one 4:2:0 image
+    (DC absolute) -> (height, width, 3) uint8 RGB, as a baseline decoder
+    with fancy upsampling gives them: IDCT, round half to even, clip,
+    upsample, colour map, round, clip, crop. The colour map runs in the
+    IDCT's precision ("float64", or with TF32 operands for "tf32")."""
+    dev = coefs.device
+    mr, mc = (height + 15) // 16, (width + 15) // 16
+    samples = torch.clamp(torch.round(_samples(coefs, quality, precision)),
+                          0.0, 255.0)
+    y, cb, cr = _planes(samples, mr, mc, _fancy(width))
+    m = torch.as_tensor(YCBCR_TO_RGB, device=dev)
+    ycc = torch.stack([y, cb - 128.0, cr - 128.0], dim=-1)
+    if precision == "tf32":
+        rgb = (tf32(ycc.to(torch.float32)) @ tf32(m.to(torch.float32)).T).to(
+            torch.float64)
+    else:
+        rgb = ycc @ m.T
+    out = torch.clamp(torch.round(rgb), 0.0, 255.0).to(torch.uint8)
+    return out[:height, :width].contiguous()
+
+
+# Half-width of the band around a rounding boundary in which a float32
+# result may round either way: the port's float32 sums are off the exact
+# value by ~1e-4 of a level at most (64-term chains of values below 2^11).
+TIE_BAND = 0.01
+
+
+def pixel_bounds(coefs: torch.Tensor, quality: int, height: int, width: int,
+                 band: float = TIE_BAND) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (lo, hi) uint8 RGB images that bound every decode of these
+    coefficients that keeps the float32 contract: each sample rounds the
+    exact IDCT value, either way only where that value lies within `band`
+    of a .5 boundary; each RGB value rounds the exact colour map of samples
+    so chosen, either way only within `band` of a boundary. The colour map
+    is monotone in every sample (and the triangular filter's weights are
+    positive), so the bounds come from the lowest and highest samples."""
+    dev = coefs.device
+    mr, mc = (height + 15) // 16, (width + 15) // 16
+    x = _samples(coefs, quality, "float64")
+    near = (x - torch.floor(x) - 0.5).abs() < band
+    lo = torch.where(near, torch.floor(x), torch.round(x)).clamp(0.0, 255.0)
+    hi = torch.where(near, torch.floor(x) + 1.0, torch.round(x)).clamp(0.0, 255.0)
+    fancy = _fancy(width)
+    ylo, cblo, crlo = _planes(lo, mr, mc, fancy)
+    yhi, cbhi, crhi = _planes(hi, mr, mc, fancy)
+    m = YCBCR_TO_RGB
+    vmin, vmax = [], []
+    for row in m:
+        a, b = [ylo * row[0]], [yhi * row[0]]
+        for c_lo, c_hi, k in ((cblo, cbhi, row[1]), (crlo, crhi, row[2])):
+            if k >= 0:
+                a.append(k * (c_lo - 128.0))
+                b.append(k * (c_hi - 128.0))
+            else:
+                a.append(k * (c_hi - 128.0))
+                b.append(k * (c_lo - 128.0))
+        vmin.append(sum(a))
+        vmax.append(sum(b))
+    vmin = torch.stack(vmin, dim=-1)
+    vmax = torch.stack(vmax, dim=-1)
+    out_lo = torch.ceil(vmin - band - 0.5).clamp(0.0, 255.0).to(torch.uint8)
+    out_hi = torch.floor(vmax + band + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+    return (out_lo[:height, :width].contiguous(),
+            out_hi[:height, :width].contiguous())
+
+
+def _dct_basis_f64() -> np.ndarray:
+    u = np.arange(8)[:, None].astype(np.float64)
+    x = np.arange(8)[None, :].astype(np.float64)
+    d = 0.5 * np.cos((2.0 * x + 1.0) * u * np.pi / 16.0)
+    d[0, :] *= 1.0 / math.sqrt(2.0)
+    return d
+
+
+def _triangle(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Double one axis: output pair (3 near + far) / 4 with the far sample
+    the previous and the next one, edges replicated (libjpeg h2v1/h2v2)."""
+    x = x.movedim(dim, 0)
+    prev = torch.cat([x[:1], x[:-1]])
+    nxt = torch.cat([x[1:], x[-1:]])
+    out = torch.stack([(3 * x + prev) / 4, (3 * x + nxt) / 4], dim=1)
+    return out.reshape(2 * x.shape[0], *x.shape[1:]).movedim(0, dim)
+
+
+def _upsample2(p: torch.Tensor, fancy: bool) -> torch.Tensor:
+    if not fancy:
+        return p.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    return _triangle(_triangle(p, 1), 0)
+
+
+# ---------------------------------------------------------------------------
+# Parse and serial Huffman decode (tests: small images only)
+# ---------------------------------------------------------------------------
+
+
+def parse(data: bytes) -> dict:
+    """Baseline JFIF -> {"width", "height", "components": [(id, h, v, tq)],
+    "qtables": {id: zig-zag list}, "htables": {(class, id): (bits, vals)},
+    "scan_components": [(id, td, ta)], "restart": n, "scan": bytes}. Raises
+    ValueError on anything else than one baseline sequential scan."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("no SOI")
+    out = {"qtables": {}, "htables": {}, "restart": 0}
+    i = 2
+    while i < len(data):
+        if data[i] != 0xFF:
+            raise ValueError(f"marker expected at {i}")
+        marker = data[i + 1]
+        if marker == 0xFF:
+            i += 1
+            continue
+        (n,) = struct.unpack(">H", data[i + 2:i + 4])
+        body = data[i + 4:i + 2 + n]
+        if marker == 0xDB:
+            j = 0
+            while j < len(body):
+                if body[j] >> 4:
+                    raise ValueError("16-bit quantization table")
+                out["qtables"][body[j] & 15] = list(body[j + 1:j + 65])
+                j += 65
+        elif marker == 0xC4:
+            j = 0
+            while j < len(body):
+                bits = list(body[j + 1:j + 17])
+                vals = list(body[j + 17:j + 17 + sum(bits)])
+                out["htables"][(body[j] >> 4, body[j] & 15)] = (bits, vals)
+                j += 17 + sum(bits)
+        elif marker == 0xC0:
+            _, hh, ww, nc = struct.unpack(">BHHB", body[:6])
+            out["height"], out["width"] = hh, ww
+            out["components"] = [
+                (body[6 + 3 * c], body[7 + 3 * c] >> 4, body[7 + 3 * c] & 15,
+                 body[8 + 3 * c]) for c in range(nc)]
+        elif marker in (0xC1, 0xC2, 0xC3) or 0xC5 <= marker <= 0xCF and (
+                marker not in (0xC8, 0xCC)):
+            raise ValueError(f"not baseline: SOF{marker - 0xC0}")
+        elif marker == 0xDD:
+            (out["restart"],) = struct.unpack(">H", body[:2])
+        elif marker == 0xDA:
+            ns = body[0]
+            out["scan_components"] = [
+                (body[1 + 2 * c], body[2 + 2 * c] >> 4, body[2 + 2 * c] & 15)
+                for c in range(ns)]
+            start = i + 2 + n
+            # Inside the scan 0xFF is followed by 0x00 or a restart marker.
+            end = data.find(b"\xff\xd9", start)
+            if end == -1:
+                raise ValueError("no EOI")
+            out["scan"] = data[start:end]
+            return out
+        i += 2 + n
+    raise ValueError("no SOS")
+
+
+def decode_coefficients(data: bytes) -> tuple[dict, np.ndarray]:
+    """A plain serial Huffman decode of a baseline interleaved 4:2:0 stream
+    without restarts -> (parse(data), (n_mcu, 6, 64) int64 zig-zag
+    coefficients, DC absolute)."""
+    info = parse(data)
+    if info["restart"]:
+        raise ValueError("restart intervals are not decoded here")
+    comps = info["components"]
+    if [(h, v) for _, h, v, _ in comps] != [(2, 2), (1, 1), (1, 1)]:
+        raise ValueError("4:2:0 only")
+    raw = info["scan"]
+    unstuffed = bytearray()
+    j = 0
+    while j < len(raw):
+        unstuffed.append(raw[j])
+        j += 2 if raw[j] == 0xFF else 1
+    bits = np.unpackbits(np.frombuffer(bytes(unstuffed), dtype=np.uint8))
+    pos = 0
+
+    def table(cls, tid):
+        code, length = huffman_codes(info["htables"][(cls, tid)])
+        return {(int(length[s]), int(code[s])): s
+                for s in range(256) if length[s]}
+
+    tabs = {}
+    for cid, td, ta in info["scan_components"]:
+        tabs[cid] = (table(0, td), table(1, ta))
+
+    def symbol(t):
+        nonlocal pos
+        code = 0
+        for ln in range(1, 17):
+            code = (code << 1) | int(bits[pos])
+            pos += 1
+            if (ln, code) in t:
+                return t[(ln, code)]
+        raise ValueError("bad Huffman code")
+
+    def receive(s):
+        nonlocal pos
+        v = 0
+        for _ in range(s):
+            v = (v << 1) | int(bits[pos])
+            pos += 1
+        return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
+
+    hh, ww = info["height"], info["width"]
+    n_mcu = ((hh + 15) // 16) * ((ww + 15) // 16)
+    out = np.zeros((n_mcu, 6, 64), dtype=np.int64)
+    pred = {}
+    order = [comps[0][0]] * 4 + [comps[1][0], comps[2][0]]
+    for m in range(n_mcu):
+        for b, cid in enumerate(order):
+            dct, act = tabs[cid]
+            s = symbol(dct)
+            pred[cid] = pred.get(cid, 0) + receive(s)
+            out[m, b, 0] = pred[cid]
+            k = 1
+            while k < 64:
+                rs = symbol(act)
+                r, s = rs >> 4, rs & 15
+                if s == 0:
+                    if r != 15:
+                        break
+                    k += 16
+                    continue
+                k += r
+                out[m, b, k] = receive(s)
+                k += 1
+    return info, out
