@@ -34,14 +34,20 @@ def _add_encode_flags(p):
     p.add_argument("--progressive", action="store_true",
                    help="progressive (SOF2) stream: libjpeg's standard "
                         "scan script, per-scan optimal tables")
+    _add_trace_flag(p)
+
+
+def _add_trace_flag(p):
     p.add_argument("--trace-dir", default=None,
-                   help="write a torch.profiler trace of the encode here")
+                   help="write a torch.profiler trace (trace.json) of the "
+                        "command's work here, with the jt.* stage spans")
 
 
 def _tracer(trace_dir, device):
     """A torch.profiler context that writes a Chrome trace into trace_dir
     when it exits (the card's activity too when `device` is a card), or a
-    null context."""
+    null context. Every thread is recorded where torch can, so the stage
+    spans of decode_stream's worker threads are in the trace."""
     if not trace_dir:
         return contextlib.nullcontext()
     import torch
@@ -50,11 +56,17 @@ def _tracer(trace_dir, device):
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass  # this torch records the profiling thread only
     os.makedirs(trace_dir, exist_ok=True)
 
     @contextlib.contextmanager
     def run():
-        with profile(activities=acts) as prof:
+        with profile(activities=acts, **kw) as prof:
             yield
         prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
@@ -118,6 +130,7 @@ def _parser() -> argparse.ArgumentParser:
                      choices=[1, 2, 4, 8],
                      help="DCT-domain scaled decode: output is "
                           "ceil(H/d) x ceil(W/d)")
+    _add_trace_flag(dec)
 
     rt = sub.add_parser("roundtrip", help="encode+decode, report PSNR/bpp",
                         parents=[dev])
@@ -156,6 +169,7 @@ def _parser() -> argparse.ArgumentParser:
                      choices=SUBSAMPLINGS)
     bat.add_argument("--depth", type=int, default=2,
                      help="device dispatches kept in flight")
+    _add_trace_flag(bat)
     return ap
 
 
@@ -199,8 +213,9 @@ def _decode(args) -> int:
     with open(args.input, "rb") as f:
         data = f.read()
     t0 = time.time()
-    img = decode(data, entropy=args.entropy, scale_denom=args.scale_denom,
-                 device=args.device)
+    with _tracer(args.trace_dir, args.device):
+        img = decode(data, entropy=args.entropy,
+                     scale_denom=args.scale_denom, device=args.device)
     dt = time.time() - t0
     img = _rgb_out(img)
     bmp.write_bmp(args.output, img)
@@ -215,11 +230,12 @@ def _roundtrip(args) -> int:
     from jpeg_tpu_torch.utils import metrics
 
     img = bmp.read_bmp(args.input)
-    data = encode(
-        img, quality=args.quality, subsampling=args.subsampling,
-        restart_interval=args.restart_interval,
-        optimize_tables=args.optimize_tables, device=args.device)
-    out = decode(data, device=args.device)
+    with _tracer(args.trace_dir, args.device):
+        data = encode(
+            img, quality=args.quality, subsampling=args.subsampling,
+            restart_interval=args.restart_interval,
+            optimize_tables=args.optimize_tables, device=args.device)
+        out = decode(data, device=args.device)
     print(f"quality={args.quality} subsampling={args.subsampling}: "
           f"{len(data)} bytes, "
           f"bpp={metrics.bits_per_pixel(data, img.shape):.3f}, "
@@ -277,36 +293,37 @@ def _batch(args) -> int:
     os.makedirs(args.outdir, exist_ok=True)
     t0 = time.time()
     mpix = 0.0
-    if args.decode:
-        def read_jpegs():
-            for p in args.inputs:
-                with open(p, "rb") as f:
-                    yield f.read()
+    with _tracer(args.trace_dir, args.device):
+        if args.decode:
+            def read_jpegs():
+                for p in args.inputs:
+                    with open(p, "rb") as f:
+                        yield f.read()
 
-        stream = decode_stream(read_jpegs(), depth=args.depth,
-                               device=args.device)
-        for name, img in zip(_out_names(args.inputs, ".bmp"), stream):
-            img = _rgb_out(img)
-            mpix += img.shape[0] * img.shape[1] / 1e6
-            bmp.write_bmp(os.path.join(args.outdir, name), img)
-    else:
-        tally = [0.0]
+            stream = decode_stream(read_jpegs(), depth=args.depth,
+                                   device=args.device)
+            for name, img in zip(_out_names(args.inputs, ".bmp"), stream):
+                img = _rgb_out(img)
+                mpix += img.shape[0] * img.shape[1] / 1e6
+                bmp.write_bmp(os.path.join(args.outdir, name), img)
+        else:
+            tally = [0.0]
 
-        def read_all():
-            # A generator: the host holds about depth + 1 frames, not the
-            # whole batch, before the first encode.
-            for p in args.inputs:
-                img = bmp.read_bmp(p)
-                tally[0] += img.shape[0] * img.shape[1] / 1e6
-                yield img
+            def read_all():
+                # A generator: the host holds about depth + 1 frames, not the
+                # whole batch, before the first encode.
+                for p in args.inputs:
+                    img = bmp.read_bmp(p)
+                    tally[0] += img.shape[0] * img.shape[1] / 1e6
+                    yield img
 
-        stream = encode_stream(read_all(), quality=args.quality,
-                               subsampling=args.subsampling,
-                               depth=args.depth, device=args.device)
-        for name, data in zip(_out_names(args.inputs, ".jpg"), stream):
-            with open(os.path.join(args.outdir, name), "wb") as f:
-                f.write(data)
-        mpix = tally[0]
+            stream = encode_stream(read_all(), quality=args.quality,
+                                   subsampling=args.subsampling,
+                                   depth=args.depth, device=args.device)
+            for name, data in zip(_out_names(args.inputs, ".jpg"), stream):
+                with open(os.path.join(args.outdir, name), "wb") as f:
+                    f.write(data)
+            mpix = tally[0]
     dt = time.time() - t0
     verb = "decoded" if args.decode else "encoded"
     print(f"{verb} {len(args.inputs)} files ({mpix:.1f} MPix) in "

@@ -51,6 +51,7 @@ import torch
 from jpeg_tpu_torch.entropy import decode_np, native
 from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
 from jpeg_tpu_torch.ops import _cuda, entropy_decode
+from jpeg_tpu_torch.utils.trace import span
 
 _GUARD = 8  # zero guard bytes kept behind every uploaded bit stream
 # No block is longer: a DC code and its amplitude (16 + 16 bits), then at most
@@ -252,7 +253,9 @@ def payload_tensor(payload: np.ndarray, device) -> torch.Tensor:
 
 
 def _shifts(values, device) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.int64, device=device)
+    # A blocking upload: on a card the host waits for the stream first.
+    with span("jt.wait.upload"):
+        return torch.tensor(values, dtype=torch.int64, device=device)
 
 
 def _unpack6(words: torch.Tensor, n: int) -> torch.Tensor:
@@ -498,9 +501,10 @@ def decode_scan_indexed(
     segments); the scan's words, the AC offsets and the DCs go up as ONE
     int32 tensor; kernel D decodes every block's AC coefficients."""
     device = torch.device(device)
-    destuffed, ac_off, dc = native.index_scan(
-        scan, mcu_count, mcu_layout, htables, restart_interval
-    )
+    with span("jt.decode.walk"):
+        destuffed, ac_off, dc = native.index_scan(
+            scan, mcu_count, mcu_layout, htables, restart_interval
+        )
     slots, slot_of = _scan_slots(mcu_layout)
     tables = _device_luts(htables, slots, device)
     slot_dev = _cached_slot_array(
@@ -509,10 +513,13 @@ def decode_scan_indexed(
 
     words = _guarded_words(destuffed)
     nwords, nblocks = len(words), ac_off.shape[0]
-    dev = torch.from_numpy(np.concatenate([words, ac_off, dc])).to(device)
-    rows = entropy_decode.decode_ac_indexed(
-        dev[:nwords], dev[nwords:nwords + nblocks], dev[nwords + nblocks:],
-        slot_dev, tables)
+    host = np.concatenate([words, ac_off, dc])
+    with span("jt.wait.upload"):
+        dev = torch.from_numpy(host).to(device)
+    with span("jt.decode.entropy"):
+        rows = entropy_decode.decode_ac_indexed(
+            dev[:nwords], dev[nwords:nwords + nblocks], dev[nwords + nblocks:],
+            slot_dev, tables)
     return _split_components(rows, mcu_layout, mcu_count)
 
 
@@ -527,9 +534,11 @@ def decode_scan_prefix(
     offset and DC difference, a cumulative sum per component gives the DCs,
     kernel D decodes the blocks. Same output contract as
     decode_scan_indexed."""
-    unstuffed = decode_np.unstuff(scan)
-    return _decode_prefix(_guarded_words(unstuffed), len(unstuffed) * 8,
-                          mcu_count, mcu_layout, htables, torch.device(device))
+    with span("jt.decode.unstuff"):
+        unstuffed = decode_np.unstuff(scan)
+        words = _guarded_words(unstuffed)
+    return _decode_prefix(words, len(unstuffed) * 8, mcu_count, mcu_layout,
+                          htables, torch.device(device))
 
 
 def _decode_prefix(host_words: np.ndarray, true_bits: int, mcu_count: int,
@@ -557,22 +566,26 @@ def _decode_prefix(host_words: np.ndarray, true_bits: int, mcu_count: int,
         tuple((bpm, slot_of[(1, ac)]) for (_, bpm, _, ac) in mcu_layout),
         mcu_count, device)
 
-    words = torch.from_numpy(host_words).to(device)
-    ac_off, diff, status = entropy_decode.prefix_index(
-        words, mcu_count, seq, cls, tables)
-    # Component-major order (kernel D's and native.decode_scan's): all blocks
-    # of component 0 in scan order, then component 1, ...
-    off_parts, dc_parts, base = [], [], 0
-    for (_comp, bpm, _dc, _ac) in mcu_layout:
-        off_parts.append(ac_off[:, base:base + bpm].reshape(-1))
-        dc_parts.append(torch.cumsum(
-            diff[:, base:base + bpm].reshape(-1), dim=0).to(torch.int32))
-        base += bpm
-    # Kernel D is enqueued before the flags come back: on a corrupt stream it
-    # reads clamped garbage and its rows are dropped below.
-    rows = entropy_decode.decode_ac_indexed(
-        words, torch.cat(off_parts), torch.cat(dc_parts), slot_dev, tables)
-    end_pos, err = status.cpu().tolist()
+    with span("jt.wait.upload"):
+        words = torch.from_numpy(host_words).to(device)
+    with span("jt.decode.entropy"):
+        ac_off, diff, status = entropy_decode.prefix_index(
+            words, mcu_count, seq, cls, tables)
+        # Component-major order (kernel D's and native.decode_scan's): all
+        # blocks of component 0 in scan order, then component 1, ...
+        off_parts, dc_parts, base = [], [], 0
+        for (_comp, bpm, _dc, _ac) in mcu_layout:
+            off_parts.append(ac_off[:, base:base + bpm].reshape(-1))
+            dc_parts.append(torch.cumsum(
+                diff[:, base:base + bpm].reshape(-1), dim=0).to(torch.int32))
+            base += bpm
+        # Kernel D is enqueued before the flags come back: on a corrupt
+        # stream it reads clamped garbage and its rows are dropped below.
+        rows = entropy_decode.decode_ac_indexed(
+            words, torch.cat(off_parts), torch.cat(dc_parts), slot_dev,
+            tables)
+    with span("jt.wait.status"):
+        end_pos, err = status.cpu().tolist()
     if err:
         raise ScanDecodeError("invalid Huffman code (device prefix index)")
     if end_pos > true_bits:
@@ -598,7 +611,8 @@ def decode_scan(
     takes program F (decode_scan_prefix). Only the segments' end positions
     and error flags come back to the host."""
     device = torch.device(device)
-    host_words, seg_off, seg_bytes = unstuffed_segments(scan)
+    with span("jt.decode.unstuff"):
+        host_words, seg_off, seg_bytes = unstuffed_segments(scan)
     r = restart_interval if restart_interval else mcu_count
     expected = (mcu_count + r - 1) // r
     if len(seg_bytes) != expected:
@@ -632,10 +646,14 @@ def decode_scan(
 
     # The words and the segments' offsets go up as one tensor.
     nwords = len(host_words)
-    dev = torch.from_numpy(np.concatenate([host_words, seg_off])).to(device)
-    rows, status = entropy_decode.decode_segments(
-        dev[:nwords], dev[nwords:], r, mcu_count, seq, tables, nblocks)
-    end_pos, err = status.cpu().numpy()
+    host = np.concatenate([host_words, seg_off])
+    with span("jt.wait.upload"):
+        dev = torch.from_numpy(host).to(device)
+    with span("jt.decode.entropy"):
+        rows, status = entropy_decode.decode_segments(
+            dev[:nwords], dev[nwords:], r, mcu_count, seq, tables, nblocks)
+    with span("jt.wait.status"):
+        end_pos, err = status.cpu().numpy()
     if err.any():
         raise ScanDecodeError(
             f"invalid Huffman code in segment(s) {np.nonzero(err)[0].tolist()}"

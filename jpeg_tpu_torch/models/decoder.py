@@ -44,6 +44,7 @@ from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import layout
 from jpeg_tpu_torch.ops import (
     color, dct, finish, fused, mcu_conv, quant, tile, zigzag)
+from jpeg_tpu_torch.utils.trace import span
 
 ENTROPY_BACKENDS = ("auto", "native", "numpy", "device", "indexed", "sparse")
 
@@ -490,15 +491,17 @@ def _decode_scan_host(info: jfif.FrameInfo, n_mcu: int, mcu_layout: list,
         raise jfif.JpegFormatError(
             f"{entropy} entropy backend unavailable for this scan layout"
         )
-    if ok and entropy != "numpy":
-        return native.decode_scan(
-            info.scan_data, n_mcu, mcu_layout, info.htables,
-            info.restart_interval,
+    with span("jt.decode.walk"):
+        if ok and entropy != "numpy":
+            return native.decode_scan(
+                info.scan_data, n_mcu, mcu_layout, info.htables,
+                info.restart_interval,
+            )
+        luts = {k: decode_np.make_decode_lut(t)
+                for k, t in info.htables.items()}
+        return decode_np.decode_scan(
+            info.scan_data, n_mcu, mcu_layout, luts, info.restart_interval
         )
-    luts = {k: decode_np.make_decode_lut(t) for k, t in info.htables.items()}
-    return decode_np.decode_scan(
-        info.scan_data, n_mcu, mcu_layout, luts, info.restart_interval
-    )
 
 
 def _decode_noninterleaved(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
@@ -580,8 +583,9 @@ def _scan_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
         len(info.scans) <= 1 and len(info.scans[0].comp_ids) == len(comps)))
     payload = None
     if info.progressive:
-        host = progressive_np.decode_progressive(
-            info, backend=_progressive_backend(entropy))
+        with span("jt.decode.walk"):
+            host = progressive_np.decode_progressive(
+                info, backend=_progressive_backend(entropy))
     elif single_scan:
         # A one-component scan is one block per MCU in raster order already.
         if len(comps) == 1:
@@ -604,9 +608,10 @@ def _scan_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
                 raise jfif.JpegFormatError(
                     f"{entropy} entropy backend unavailable for this scan "
                     "layout")
-            payload = decode_device.sparse_payload(
-                info.scan_data, n_mcu, mcu_layout, info.htables,
-                info.restart_interval)
+            with span("jt.decode.walk"):
+                payload = decode_device.sparse_payload(
+                    info.scan_data, n_mcu, mcu_layout, info.htables,
+                    info.restart_interval)
         else:
             host = _decode_scan_host(info, n_mcu, mcu_layout, entropy)
     else:
@@ -615,15 +620,19 @@ def _scan_blocks(info: jfif.FrameInfo, mcu_rows: int, mcu_cols: int,
 
     if payload is not None:
         words, B, Sp, Ep, Edp = payload
-        rows = decode_device.densify_body(
-            decode_device.payload_tensor(words, device), B, Sp, Ep, Edp)
+        with span("jt.wait.upload"):
+            words = decode_device.payload_tensor(words, device)
+        # No entropy leaf: the densify waits on its own small uploads.
+        rows = decode_device.densify_body(words, B, Sp, Ep, Edp)
         sizes = [mcu_rows * c.v * mcu_cols * c.h for c in comps] if (
             len(comps) > 1) else [B]
         zz = list(torch.split(rows, sizes))
+    elif isinstance(host[0], torch.Tensor):
+        zz = list(host)
     else:
-        zz = [z if isinstance(z, torch.Tensor) else torch.as_tensor(
-            np.ascontiguousarray(z, dtype=np.int32), device=device)
-            for z in host]
+        with span("jt.wait.upload"):
+            zz = [torch.as_tensor(np.ascontiguousarray(z, dtype=np.int32),
+                                  device=device) for z in host]
     return zz, scan
 
 
@@ -698,7 +707,81 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         raise ValueError(f"scale_denom must be 1, 2, 4 or 8, got {scale_denom}")
     k = 8 // scale_denom
     device = torch.device(device)
-    info = jfif.parse_jpeg(data)
+    with span("jt.decode"):
+        with span("jt.decode.parse"):
+            info = jfif.parse_jpeg(data)
+            is_rgb = _check_frame(info, max_pixels, scale_denom, output)
+        comps = info.components
+        hlim = layout.ceil_div(info.height, scale_denom)
+        wlim = layout.ceil_div(info.width, scale_denom)
+
+        def qtabs():
+            with span("jt.wait.upload"):
+                return [torch.as_tensor(info.qtables[c.qtab_id],
+                                        dtype=torch.float32, device=device)
+                        for c in comps]
+
+        def deliver(out: torch.Tensor):
+            if device_output:
+                return out
+            with span("jt.wait.download"):
+                return out.cpu().numpy()
+
+        if len(comps) == 1:
+            # Non-interleaved single-component scan: MCU = one block (spec
+            # A.2.2), so scan order is raster order.
+            mcu_rows = layout.ceil_div(info.height, 8)
+            mcu_cols = layout.ceil_div(info.width, 8)
+            zz = _scan_blocks(info, mcu_rows, mcu_cols, entropy, device)[0][0]
+            qy, = qtabs()
+            with span("jt.decode.finish"):
+                out = _finish_gray(zz, qy, (mcu_rows, mcu_cols), k,
+                                   use_pallas, hlim, wlim)
+            return deliver(out)
+
+        hmax = max(c.h for c in comps)
+        vmax = max(c.v for c in comps)
+        mcu_rows = layout.ceil_div(info.height, 8 * vmax)
+        mcu_cols = layout.ceil_div(info.width, 8 * hmax)
+        zz, scan = _scan_blocks(info, mcu_rows, mcu_cols, entropy, device)
+        shapes = tuple((mcu_rows * c.v, mcu_cols * c.h) for c in comps)
+        factors = tuple((hmax // c.h, vmax // c.v) for c in comps)
+        qt = qtabs()
+        fancy = upsample_choices(info.width, comps, hmax, fancy_upsample)
+
+        if len(comps) == 4:
+            # Adobe CMYK (transform 0/absent) or YCCK (transform 2); returns
+            # (H, W, 4) samples matching PIL's CMYK mode (complemented when
+            # the Adobe APP14 marker is present: PIL rawmode "CMYK;I").
+            with span("jt.decode.finish"):
+                out = _finish_cmyk(
+                    _raster_blocks(zz, scan), qt, shapes, factors, fancy,
+                    info.adobe_transform == 2,
+                    info.adobe_transform is not None, use_pallas)[:hlim, :wlim]
+            return deliver(out)
+        if output == "ycbcr":
+            flat = not device_output  # one copy to the host
+            with span("jt.decode.finish"):
+                planes = _finish_planes(*zz, *qt, shapes, k, flat,
+                                        use_pallas, scan)
+            if flat:
+                with span("jt.wait.download"):
+                    planes = planes.cpu().numpy()
+                planes = _split_flat_planes(planes, shapes, k)
+            return YCbCrPlanes(tuple(planes), hlim, wlim, factors, fancy)
+        with span("jt.decode.finish"):
+            out = _finish_color(*zz, *qt, shapes, factors, fancy, is_rgb, k,
+                                use_pallas=use_pallas, hlim=hlim, wlim=wlim,
+                                scan=scan)
+        return deliver(out)
+
+
+def _check_frame(info: jfif.FrameInfo, max_pixels, scale_denom: int,
+                 output: str) -> bool:
+    """decode()'s checks of a parsed header, before any scan is read.
+    Returns whether a 3-component frame stores RGB (no colour transform):
+    Adobe APP14 with transform=0, or literal 'R','G','B' component ids
+    (libjpeg convention)."""
     if max_pixels is not None and info.width * info.height > max_pixels:
         raise jfif.JpegFormatError(
             f"frame {info.width}x{info.height} exceeds max_pixels={max_pixels}"
@@ -708,25 +791,8 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
     if output == "ycbcr" and len(comps) != 3:
         raise ValueError(
             f"output='ycbcr' needs a 3-component stream, got {len(comps)}")
-    hlim = layout.ceil_div(info.height, scale_denom)
-    wlim = layout.ceil_div(info.width, scale_denom)
-
-    def deliver(out: torch.Tensor):
-        return out if device_output else out.cpu().numpy()
-
-    def qtab(c):
-        return torch.as_tensor(info.qtables[c.qtab_id], dtype=torch.float32,
-                               device=device)
-
     if len(comps) == 1:
-        # Non-interleaved single-component scan: MCU = one block (spec
-        # A.2.2), so scan order is raster order.
-        mcu_rows = layout.ceil_div(info.height, 8)
-        mcu_cols = layout.ceil_div(info.width, 8)
-        zz = _scan_blocks(info, mcu_rows, mcu_cols, entropy, device)[0][0]
-        return deliver(_finish_gray(zz, qtab(comps[0]), (mcu_rows, mcu_cols),
-                                    k, use_pallas, hlim, wlim))
-
+        return False
     if len(comps) not in (3, 4):
         raise jfif.JpegFormatError(f"unsupported component count {len(comps)}")
     hmax = max(c.h for c in comps)
@@ -747,8 +813,6 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         raise jfif.JpegFormatError(
             "scaled decode of 4-component streams is not supported"
         )
-    # Components stored as RGB (no color transform): Adobe APP14 with
-    # transform=0, or literal 'R','G','B' component ids (libjpeg convention).
     is_rgb = len(comps) == 3 and (info.adobe_transform == 0 or (
         info.adobe_transform is None
         and tuple(c.comp_id for c in comps) == (0x52, 0x47, 0x42)
@@ -757,33 +821,7 @@ def decode(data: bytes, fancy_upsample: bool = True, device="cuda",
         raise ValueError(
             "output='ycbcr' requires a YCbCr-coded stream (this one "
             "stores RGB components)")
-
-    mcu_rows = layout.ceil_div(info.height, 8 * vmax)
-    mcu_cols = layout.ceil_div(info.width, 8 * hmax)
-    zz, scan = _scan_blocks(info, mcu_rows, mcu_cols, entropy, device)
-    shapes = tuple((mcu_rows * c.v, mcu_cols * c.h) for c in comps)
-    factors = tuple((hmax // c.h, vmax // c.v) for c in comps)
-    qtabs = [qtab(c) for c in comps]
-    fancy = upsample_choices(info.width, comps, hmax, fancy_upsample)
-
-    if len(comps) == 4:
-        # Adobe CMYK (transform 0/absent) or YCCK (transform 2); returns
-        # (H, W, 4) samples matching PIL's CMYK mode (complemented when the
-        # Adobe APP14 marker is present: PIL rawmode "CMYK;I").
-        return deliver(_finish_cmyk(
-            _raster_blocks(zz, scan), qtabs, shapes, factors, fancy,
-            info.adobe_transform == 2,
-            info.adobe_transform is not None, use_pallas)[:hlim, :wlim])
-    if output == "ycbcr":
-        flat = not device_output  # one copy to the host
-        planes = _finish_planes(*zz, *qtabs, shapes, k, flat, use_pallas,
-                                scan)
-        if flat:
-            planes = _split_flat_planes(planes.cpu().numpy(), shapes, k)
-        return YCbCrPlanes(tuple(planes), hlim, wlim, factors, fancy)
-    return deliver(_finish_color(*zz, *qtabs, shapes, factors, fancy, is_rgb,
-                                 k, use_pallas=use_pallas, hlim=hlim,
-                                 wlim=wlim, scan=scan))
+    return is_rgb
 
 
 BATCH_MODES = ("auto", "pipelined", "fused")

@@ -37,6 +37,7 @@ from jpeg_tpu_torch.ops import (
     _cuda, bitpack, color, dpcm as dpcm_ops, fused, mcu_conv, pack, quant,
     subsample, symbols, tile, zigzag,
 )
+from jpeg_tpu_torch.utils.trace import span
 
 # Device word-buffer capacity per segment: 8 words (256 bits) per block on
 # average, plus 2. Typical q75 blocks need ~30-100 bits.
@@ -56,12 +57,15 @@ def _interleaved_blocks(rgb, qy, qc, mode: Subsampling, restart_mcus: int):
     n_mcu = blocks.shape[0]
     hv = mode.h_factor * mode.v_factor
     r = int(restart_mcus)
-    blocks[:, :hv, 0] = dpcm_ops.dpcm(
-        blocks[:, :hv, 0].reshape(-1), r * hv).reshape(n_mcu, hv)
-    blocks[:, hv, 0] = dpcm_ops.dpcm(blocks[:, hv, 0], r)
-    blocks[:, hv + 1, 0] = dpcm_ops.dpcm(blocks[:, hv + 1, 0], r)
-    tbl_row = torch.tensor([0] * hv + [1, 1], dtype=torch.int32,
-                           device=blocks.device)
+    with span("jt.encode.transform"):
+        blocks[:, :hv, 0] = dpcm_ops.dpcm(
+            blocks[:, :hv, 0].reshape(-1), r * hv).reshape(n_mcu, hv)
+        blocks[:, hv, 0] = dpcm_ops.dpcm(blocks[:, hv, 0], r)
+        blocks[:, hv + 1, 0] = dpcm_ops.dpcm(blocks[:, hv + 1, 0], r)
+    # A blocking upload: on a card the host waits for the DPCM first.
+    with span("jt.wait.upload"):
+        tbl_row = torch.tensor([0] * hv + [1, 1], dtype=torch.int32,
+                               device=blocks.device)
     return blocks.reshape(-1, 64), tbl_row.repeat(n_mcu), n_mcu, hv
 
 
@@ -164,17 +168,21 @@ def _spill_scan(blocks, tbl, htables, restart_interval: int,
 
 
 def _finish_device_pack(words, status: np.ndarray, blocks, tbl, htables,
-                        restart_interval: int, bpm: int) -> bytes:
-    """Scan bytes of one image's device pack. `status` is _pack_status on
-    the host; the other arrays are still on the device. One sliced download
-    of the words and the native finalize, or, when level 2 reported an
-    overflow, _spill_scan."""
+                        restart_interval: int, bpm: int, write) -> bytes:
+    """One image's JFIF bytes from its device pack: write(scan bytes).
+    `status` is _pack_status on the host; the other arrays are still on the
+    device. One sliced download of the words and the native finalize, or,
+    when level 2 reported an overflow, _spill_scan."""
     totals_np, ok = status
     if not ok.all():
-        return _spill_scan(blocks, tbl, htables, restart_interval, bpm)
+        with span("jt.encode.spill"):
+            return write(_spill_scan(blocks, tbl, htables, restart_interval,
+                                     bpm))
     maxw = (int(totals_np.max()) + 31) // 32
-    w_host = words[:, :maxw].cpu().numpy().astype(np.uint32)
-    return bitpack.finalize_stream(w_host, totals_np)
+    with span("jt.wait.download"):
+        w_host = words[:, :maxw].cpu().numpy().astype(np.uint32)
+    with span("jt.encode.finalize"):
+        return write(bitpack.finalize_stream(w_host, totals_np))
 
 
 def _pallas_planes(rgb, mode: Subsampling):
@@ -314,40 +322,57 @@ def _encode_color(image: np.ndarray, cfg: EncodeConfig, comment,
                   use_pallas: bool) -> bytes:
     h0, w0 = image.shape[:2]
     mode = cfg.subsampling
-    img = tile.pad_to_multiple(
-        torch.as_tensor(np.ascontiguousarray(image), device=device),
-        mode.mcu_height, mode.mcu_width)
     qy_np, qc_np = _quant_tables(cfg, quant_tables)
     r = cfg.restart_interval
-    mcu_rows = img.shape[0] // mode.mcu_height
-    mcu_cols = img.shape[1] // mode.mcu_width
-    n_mcu = mcu_rows * mcu_cols
-    hv = mode.h_factor * mode.v_factor
-    bpm = hv + 2
 
-    if device_pack and not (r and r < n_mcu and n_mcu % r):
-        blocks, tbl, _, _ = _interleaved_blocks(img, qy_np, qc_np, mode, r)
-        if cfg.optimize_tables:
-            # Pass 1: device symbol histograms -> per-image optimal tables.
-            htables = _optimal_tables(_color_hists(blocks, n_mcu, hv))
+    def write(scan):
+        return jfif.write_jpeg(
+            w0, h0, _color_components(mode), {0: qy_np, 1: qc_np},
+            htables, scan, restart_interval=r, comment=comment,
+        )
+
+    with span("jt.encode.dispatch"):
+        with span("jt.wait.upload"):
+            img = torch.as_tensor(np.ascontiguousarray(image), device=device)
+        with span("jt.encode.transform"):
+            img = tile.pad_to_multiple(img, mode.mcu_height, mode.mcu_width)
+        mcu_rows = img.shape[0] // mode.mcu_height
+        mcu_cols = img.shape[1] // mode.mcu_width
+        n_mcu = mcu_rows * mcu_cols
+        hv = mode.h_factor * mode.v_factor
+        on_device = device_pack and not (r and r < n_mcu and n_mcu % r)
+        if on_device:
+            blocks, tbl, _, _ = _interleaved_blocks(img, qy_np, qc_np, mode,
+                                                    r)
+            if cfg.optimize_tables:
+                # Pass 1: device symbol histograms -> per-image optimal tables.
+                with span("jt.encode.pack"):
+                    hists = _color_hists(blocks, n_mcu, hv)
+                with span("jt.wait.status"):
+                    hists = [h.cpu() for h in hists]
+                htables = _optimal_tables(hists)
+            else:
+                htables = huffman.standard_tables()
+            with span("jt.encode.pack"):
+                words, totals, ok = _pack_device(
+                    blocks, tbl, _device_luts(htables, img.device), n_mcu, r)
         else:
-            htables = huffman.standard_tables()
-        words, totals, ok = _pack_device(
-            blocks, tbl, _device_luts(htables, img.device), n_mcu, r)
-        scan = _finish_device_pack(
-            words, _pack_status(totals, ok).cpu().numpy(), blocks, tbl,
-            htables, r, bpm)
-    else:
+            # The exact transform's spans are its own; use_pallas's kernel C
+            # wrappers upload their tables blocking, in the parent's glue.
+            planes = _transform_color(img, qy_np, qc_np, mode, use_pallas)
+    with span("jt.encode.finish"):
+        if on_device:
+            with span("jt.wait.status"):
+                status = _pack_status(totals, ok).cpu().numpy()
+            return _finish_device_pack(words, status, blocks, tbl, htables,
+                                       r, hv + 2, write)
         # Host pack: download the three coefficient planes and pack them on
         # the host.
-        scan, htables = _host_pack_color(
-            *(a.cpu().numpy() for a in _transform_color(img, qy_np, qc_np,
-                                                        mode, use_pallas)),
-            mcu_rows, mcu_cols, cfg)
-    return jfif.write_jpeg(
-        w0, h0, _color_components(mode), {0: qy_np, 1: qc_np},
-        htables, scan, restart_interval=r, comment=comment,
-    )
+        with span("jt.wait.download"):
+            planes = [a.cpu().numpy() for a in planes]
+        with span("jt.encode.finalize"):
+            scan, htables = _host_pack_color(*planes, mcu_rows, mcu_cols, cfg)
+            return write(scan)
 
 
 def _encode_gray(image: np.ndarray, cfg: EncodeConfig, comment,
@@ -357,34 +382,52 @@ def _encode_gray(image: np.ndarray, cfg: EncodeConfig, comment,
     pack is kernel A with every table id 0 and level 2 per segment, under
     the same 288-bit per-block budget as jpeg_tpu's gray pack."""
     h0, w0 = image.shape
-    img = tile.pad_to_multiple(
-        torch.as_tensor(np.ascontiguousarray(image), device=device), 8, 8)
     qy_np = _quant_tables(cfg, quant_tables)[0]
     r = cfg.restart_interval
-    zz = mcu_conv.gray_transform_int(img, qy_np)  # raster == scan order
-    nblocks = zz.shape[0]
-    if device_pack and not (r and r < nblocks and nblocks % r):
-        zz[:, 0] = dpcm_ops.dpcm(zz[:, 0], r)
-        tbl = torch.zeros(nblocks, dtype=torch.int32, device=zz.device)
-        if cfg.optimize_tables:
-            all_tables = _optimal_tables(symbols.symbol_histogram(zz))
-        else:
-            all_tables = huffman.standard_tables()
-        words, totals, ok = _pack_device(
-            zz, tbl, _device_luts(all_tables, zz.device), nblocks, r)
-        scan = _finish_device_pack(
-            words, _pack_status(totals, ok).cpu().numpy(), zz, tbl,
-            all_tables, r, 1)
-    else:
-        blocks = zz.cpu().numpy()
-        blocks[:, 0] = _dpcm_host(blocks[:, 0], r)
-        scan, all_tables = _pack_scan(
-            blocks, np.zeros(nblocks, dtype=np.uint8), cfg, 1)
-    htables = {(0, 0): all_tables[(0, 0)], (1, 0): all_tables[(1, 0)]}
-    return jfif.write_jpeg(
-        w0, h0, [jfif.ComponentSpec(1, 1, 1, 0, 0, 0)], {0: qy_np}, htables,
-        scan, restart_interval=r, comment=comment,
-    )
+
+    def write(scan):
+        tables = {(0, 0): all_tables[(0, 0)], (1, 0): all_tables[(1, 0)]}
+        return jfif.write_jpeg(
+            w0, h0, [jfif.ComponentSpec(1, 1, 1, 0, 0, 0)], {0: qy_np},
+            tables, scan, restart_interval=r, comment=comment,
+        )
+
+    with span("jt.encode.dispatch"):
+        with span("jt.wait.upload"):
+            img = torch.as_tensor(np.ascontiguousarray(image), device=device)
+        with span("jt.encode.transform"):
+            img = tile.pad_to_multiple(img, 8, 8)
+        zz = mcu_conv.gray_transform_int(img, qy_np)  # raster == scan order
+        nblocks = zz.shape[0]
+        on_device = device_pack and not (r and r < nblocks and nblocks % r)
+        if on_device:
+            with span("jt.encode.transform"):
+                zz[:, 0] = dpcm_ops.dpcm(zz[:, 0], r)
+            tbl = torch.zeros(nblocks, dtype=torch.int32, device=zz.device)
+            if cfg.optimize_tables:
+                with span("jt.encode.pack"):
+                    hists = symbols.symbol_histogram(zz)
+                with span("jt.wait.status"):
+                    hists = [h.cpu() for h in hists]
+                all_tables = _optimal_tables(hists)
+            else:
+                all_tables = huffman.standard_tables()
+            with span("jt.encode.pack"):
+                words, totals, ok = _pack_device(
+                    zz, tbl, _device_luts(all_tables, zz.device), nblocks, r)
+    with span("jt.encode.finish"):
+        if on_device:
+            with span("jt.wait.status"):
+                status = _pack_status(totals, ok).cpu().numpy()
+            return _finish_device_pack(words, status, zz, tbl, all_tables, r,
+                                       1, write)
+        with span("jt.wait.download"):
+            blocks = zz.cpu().numpy()
+        with span("jt.encode.finalize"):
+            blocks[:, 0] = _dpcm_host(blocks[:, 0], r)
+            scan, all_tables = _pack_scan(
+                blocks, np.zeros(nblocks, dtype=np.uint8), cfg, 1)
+            return write(scan)
 
 
 def encode(

@@ -27,6 +27,7 @@ import torch
 from jpeg_tpu_torch import tables
 from jpeg_tpu_torch.config import Subsampling
 from jpeg_tpu_torch.ops import _cuda, color, dct, tile
+from jpeg_tpu_torch.utils.trace import span
 
 
 @functools.cache
@@ -173,25 +174,29 @@ def _mcu_transform_int(rgb: torch.Tensor, qy, qc, mode: Subsampling):
     sign * ((2|c| + d) // (2d)) with d = q << S (all magnitudes < 2^28)."""
     _require_full_f32()
     device = rgb.device
-    kern, bias = _device_kernel(mode, device)
     hv = mode.h_factor * mode.v_factor
-    nco = (hv + 2) * 64
-    mh, mw = mode.mcu_height, mode.mcu_width
-    if rgb.ndim == 4:
-        rgb = rgb.reshape(-1, *rgb.shape[2:])
-    r, c = rgb.shape[0] // mh, rgb.shape[1] // mw
-    patches = rgb.reshape(r, mh, c, mw * 3).permute(0, 2, 1, 3).reshape(
-        r * c, mh * mw * 3)
-    out = torch.matmul(patches.to(torch.float32), kern)
-    acc = (
-        out[:, :nco].to(torch.int32) * (1 << _HI_SHIFT)
-        + out[:, nco:].to(torch.int32)
-        + bias
-    )
-    d = torch.as_tensor(zigzag_qdiv_int(qy, qc, hv), device=device) << (
-        _INT_SCALE_BITS)
-    q0 = (2 * torch.abs(acc) + d) // (2 * d)
-    q = torch.where(acc < 0, -q0, q0)
+    with span("jt.encode.transform"):
+        kern, bias = _device_kernel(mode, device)
+        nco = (hv + 2) * 64
+        mh, mw = mode.mcu_height, mode.mcu_width
+        if rgb.ndim == 4:
+            rgb = rgb.reshape(-1, *rgb.shape[2:])
+        r, c = rgb.shape[0] // mh, rgb.shape[1] // mw
+        patches = rgb.reshape(r, mh, c, mw * 3).permute(0, 2, 1, 3).reshape(
+            r * c, mh * mw * 3)
+        out = torch.matmul(patches.to(torch.float32), kern)
+        acc = (
+            out[:, :nco].to(torch.int32) * (1 << _HI_SHIFT)
+            + out[:, nco:].to(torch.int32)
+            + bias
+        )
+    # A blocking upload: on a card the host waits for the matmul first.
+    with span("jt.wait.upload"):
+        d = torch.as_tensor(zigzag_qdiv_int(qy, qc, hv), device=device)
+    with span("jt.encode.transform"):
+        d = d << _INT_SCALE_BITS
+        q0 = (2 * torch.abs(acc) + d) // (2 * d)
+        q = torch.where(acc < 0, -q0, q0)
     return q.reshape(-1, hv + 2, 64)
 
 
@@ -245,17 +250,21 @@ def gray_transform_int(plane: torch.Tensor, qy) -> torch.Tensor:
     bit-identical to jpeg_tpu's gray_transform_int on every device."""
     _require_full_f32()
     device = plane.device
-    kern, bias = _gray_device_kernel(device)
-    flat = tile.blockify(plane).reshape(-1, 64)
-    out = torch.matmul(flat.to(torch.float32), kern)
-    acc = (
-        out[:, :64].to(torch.int32) * (1 << _HI_SHIFT)
-        + out[:, 64:].to(torch.int32)
-        + bias
-    )
+    with span("jt.encode.transform"):
+        kern, bias = _gray_device_kernel(device)
+        flat = tile.blockify(plane).reshape(-1, 64)
+        out = torch.matmul(flat.to(torch.float32), kern)
+        acc = (
+            out[:, :64].to(torch.int32) * (1 << _HI_SHIFT)
+            + out[:, 64:].to(torch.int32)
+            + bias
+        )
     order = np.asarray(tables.ZIGZAG_ORDER)
-    d = torch.as_tensor(
-        np.asarray(qy).reshape(64)[order].astype(np.int32), device=device
-    ) << _INT_SCALE_BITS
-    q0 = (2 * torch.abs(acc) + d) // (2 * d)
-    return torch.where(acc < 0, -q0, q0)
+    # A blocking upload: on a card the host waits for the matmul first.
+    with span("jt.wait.upload"):
+        d = torch.as_tensor(
+            np.asarray(qy).reshape(64)[order].astype(np.int32), device=device)
+    with span("jt.encode.transform"):
+        d = d << _INT_SCALE_BITS
+        q0 = (2 * torch.abs(acc) + d) // (2 * d)
+        return torch.where(acc < 0, -q0, q0)

@@ -29,6 +29,7 @@ from jpeg_tpu_torch.entropy import huffman
 from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import encoder as E
 from jpeg_tpu_torch.ops import quant, tile
+from jpeg_tpu_torch.utils.trace import span
 
 
 # How encode_stream's dispatch uploads an image on a card. True: the image is
@@ -131,26 +132,31 @@ def encode_stream(
             return ("host", img)
         slot = slots[index % len(slots)] if slots else None
         img = np.ascontiguousarray(img)
-        with on_stream(slot):
+        with span("jt.encode.dispatch"), on_stream(slot):
             if slot is not None and PINNED_STAGING:
                 dev = slot.stage(img).to(device, non_blocking=True)
             else:
-                dev = torch.as_tensor(img, device=device)
-            padded = tile.pad_to_multiple(dev, mode.mcu_height, mode.mcu_width)
+                with span("jt.wait.upload"):
+                    dev = torch.as_tensor(img, device=device)
+            with span("jt.encode.transform"):
+                padded = tile.pad_to_multiple(dev, mode.mcu_height,
+                                              mode.mcu_width)
             blocks, tbl, n_mcu, _ = E._interleaved_blocks(
                 padded, qy_np, qc_np, mode, 0)
-            if optimize_tables:
-                packed = None
-                host = torch.stack(E._color_hists(blocks, n_mcu, hv))
-            else:
-                packed = E._pack_device(
-                    blocks, tbl, E._device_luts(htables, device), n_mcu, 0)
-                host = E._pack_status(*packed[1:])
-            done = None
-            if slot is not None:
-                host = slot.fetch(host)
-                done = torch.cuda.Event()
-                done.record()
+            with span("jt.encode.pack"):
+                if optimize_tables:
+                    packed = None
+                    host = torch.stack(E._color_hists(blocks, n_mcu, hv))
+                else:
+                    packed = E._pack_device(
+                        blocks, tbl, E._device_luts(htables, device), n_mcu,
+                        0)
+                    host = E._pack_status(*packed[1:])
+                done = None
+                if slot is not None:
+                    host = slot.fetch(host)
+                    done = torch.cuda.Event()
+                    done.record()
         return ("device", img.shape[:2], slot, done, blocks, tbl, n_mcu,
                 packed, host)
 
@@ -159,20 +165,25 @@ def encode_stream(
             return E._encode_color(item[1], cfg, None, None, device, False,
                                    False)
         _, (h0, w0), slot, done, blocks, tbl, n_mcu, packed, host = item
-        if done is not None:
-            done.synchronize()
-        with on_stream(slot):
-            tables = htables
-            if optimize_tables:
-                tables = E._optimal_tables(host)
-                packed = E._pack_device(
-                    blocks, tbl, E._device_luts(tables, device), n_mcu, 0)
-                host = E._pack_status(*packed[1:]).cpu()
-            scan = E._finish_device_pack(
-                packed[0], host.numpy(), blocks, tbl, tables, 0, hv + 2)
-        return jfif.write_jpeg(
-            w0, h0, E._color_components(mode), {0: qy_np, 1: qc_np}, tables,
-            scan)
+        with span("jt.encode.finish"):
+            if done is not None:
+                with span("jt.wait.slot"):
+                    done.synchronize()
+            with on_stream(slot):
+                tables = htables
+                if optimize_tables:
+                    tables = E._optimal_tables(host)
+                    with span("jt.encode.pack"):
+                        packed = E._pack_device(
+                            blocks, tbl, E._device_luts(tables, device),
+                            n_mcu, 0)
+                    with span("jt.wait.status"):
+                        host = E._pack_status(*packed[1:]).cpu()
+                return E._finish_device_pack(
+                    packed[0], host.numpy(), blocks, tbl, tables, 0, hv + 2,
+                    lambda scan: jfif.write_jpeg(
+                        w0, h0, E._color_components(mode),
+                        {0: qy_np, 1: qc_np}, tables, scan))
 
     pending: collections.deque = collections.deque()
     for index, img in enumerate(images):
@@ -227,9 +238,10 @@ def decode_stream(
             out = decode(data, fancy_upsample=fancy_upsample, device=device,
                          scale_denom=scale_denom, entropy=entropy,
                          device_output=True)
-            if not device_output:
-                return out.cpu().numpy()  # waits for this stream only
-            local.stream.synchronize()
+            with span("jt.wait.stream"):
+                if not device_output:
+                    return out.cpu().numpy()  # waits for this stream only
+                local.stream.synchronize()
             return out
 
     def result(future):

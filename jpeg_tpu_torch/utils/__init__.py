@@ -1,1 +1,1 @@
-"""Quality/rate metrics and stage timing."""
+"""Quality/rate metrics and the stages' trace spans."""

@@ -1,10 +1,7 @@
-"""Quality/rate metrics and stage timing (framework-free: a copy of
-jpeg_tpu/utils/metrics.py)."""
+"""Quality/rate metrics (framework-free: jpeg_tpu/utils/metrics.py's
+psnr and bits_per_pixel). Stage times come from the spans of utils/trace."""
 
 from __future__ import annotations
-
-import contextlib
-import time
 
 import numpy as np
 
@@ -20,28 +17,3 @@ def psnr(a, b, peak: float = 255.0) -> float:
 
 def bits_per_pixel(jpeg_bytes: bytes, shape) -> float:
     return len(jpeg_bytes) * 8.0 / (shape[0] * shape[1])
-
-
-class StageTimer:
-    """Accumulates wall-clock per pipeline stage."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name}: {total*1e3:.1f} ms ({n}x)")
-        return "\n".join(lines)

@@ -6,9 +6,11 @@ jpeg_tpu's exactly, ops.color.cmyk_to_rgb exactly, ops.color.rgb_to_ycbcr to
 f32 rounding (jpeg_tpu's XLA dot picks its own summation order per
 channel: within 2e-5 of samples up to 255.5, whose ulp is 1.5e-5)."""
 
+import json
 import os
 import subprocess
 import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -202,6 +204,41 @@ def test_batch_encode_and_decode(tmp_path):
         np.testing.assert_array_equal(g, w)
 
 
+def _trace_spans(trace_dir):
+    """{jt.* span name: set of thread ids} in the CLI's trace."""
+    with open(trace_dir / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("jt."):
+            out.setdefault(e["name"], set()).add(e.get("tid"))
+    return out
+
+
+@pytest.mark.parametrize("cmd", ["decode", "roundtrip", "batch"])
+def test_trace_dir_holds_the_stage_spans(bmp_file, tmp_path, cmd):
+    """--trace-dir writes the torch.profiler trace with the program's
+    spans; batch --decode's decodes run on decode_stream's worker threads,
+    whose spans are recorded too."""
+    src, img = bmp_file
+    jpg = tmp_path / "i.jpg"
+    jpg.write_bytes(_encode(img))
+    trace = tmp_path / "trace"
+    args = {"decode": ["decode", str(jpg), str(tmp_path / "o.bmp")],
+            "roundtrip": ["roundtrip", src],
+            "batch": ["batch", str(jpg), str(jpg), "--decode", "-o",
+                      str(tmp_path / "d")]}[cmd]
+    assert cli.main([*args, "--trace-dir", str(trace), *CPU]) == 0
+    spans = _trace_spans(trace)
+    main = threading.get_native_id()
+    for name in ("jt.decode", "jt.decode.parse", "jt.decode.walk",
+                 "jt.decode.finish", "jt.wait.download"):
+        assert name in spans, name
+        assert (main in spans[name]) == (cmd != "batch"), name
+    if cmd == "roundtrip":
+        assert {"jt.encode.dispatch", "jt.encode.finalize"} <= set(spans)
+
+
 def test_python_dash_m(bmp_file, tmp_path):
     """`python -m jpeg_tpu_torch` runs main() (and importing the package's
     __main__ module does not)."""
@@ -225,12 +262,6 @@ def test_metrics_equal_jpeg_tpu():
     assert PMet.psnr(a, a) == JMet.psnr(a, a) == float("inf")
     assert PMet.bits_per_pixel(b"x" * 1234, a.shape) == JMet.bits_per_pixel(
         b"x" * 1234, a.shape)
-    t = PMet.StageTimer()
-    for name in ("a", "b", "a"):
-        with t.stage(name):
-            pass
-    assert t.counts == {"a": 2, "b": 1} and set(t.totals) == {"a", "b"}
-    assert len(t.report().splitlines()) == 2
 
 
 def test_colour_helpers_equal_jpeg_tpu():

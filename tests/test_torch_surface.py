@@ -41,6 +41,8 @@ NOT_PORTED = {
         "Pallas interpret mode; a CPU tensor runs the plain twin",
     "jpeg_tpu.ops.fused.fused_dequant_idct(interpret=)":
         "Pallas interpret mode; a CPU tensor runs the plain twin",
+    "jpeg_tpu.utils.metrics.StageTimer":
+        "a host wall clock around enqueues; the port's stages are spans",
 }
 
 # jpeg_tpu name -> the port's name for the same function.
