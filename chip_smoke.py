@@ -167,8 +167,7 @@ Phases, each reported on its own line:
      of its scaled DCT alone (the rounding is further calls);
      encode_batched (K = 8, with its peak device memory), decode_batched (K = 4, fused and pipelined in
      turns), encode_stream (32 images) and decode_stream (16 streams) at
-     depth 1, 2 and 4 (encode_stream with and without its pinned staging
-     buffer, in turns), each in ms per image beside the single call's; the
+     depth 1, 2 and 4, each in ms per image beside the single call's; the
      host index pass beside the host sparse walk; decode by "sparse",
      "indexed" and "device" in turns, end to end and by stage, on the 4K
      stream, the restart-240 and the restart-960 one and the two flat
@@ -212,7 +211,7 @@ ROW_RESTART = 240  # one MCU row of the 4K 4:2:0 image: 135 restart segments
 TURN_RUNS = 5  # timed rounds of a comparison in turns (1 warm round before)
 BATCH_ENCODE, BATCH_DECODE = 8, 4  # images per encode_batched / decode_batched
 STREAM_ENCODE, STREAM_DECODE = 32, 16  # images per encode_stream / decode_stream
-STREAM_RUNS = 3  # timed runs of each encode_stream form (1 warm run before)
+STREAM_RUNS = 3  # timed runs of encode_stream at each depth (1 warm run before)
 ROLL = 97  # columns between two frames of a batch or a stream
 RANK_POSITIONS = 6  # phase 6p: positions of each mesh, spread over the ranks
 RANK_TIMEOUT_S = 180  # phase 6p: a rank's collectives, its init included
@@ -2409,8 +2408,6 @@ def run(card: str) -> dict:
         lambda: native.sparse_scan(*walk_args[0]), torch)
     ms_dec_batch_dev = median_ms_host(lambda: jpeg_tpu_torch.decode_batched(
         jpgs4, batch_mode="fused", device_output=True, device=dev), torch)
-    # encode_stream with its pinned staging buffer and with the pageable
-    # upload straight from the caller's array, in turns like the batch modes.
     # The mesh layer against the single-device batch entry points, and the
     # streamed mosaic against encode() of the whole image, in turns.
     lap("8, the mesh layer")
@@ -2464,27 +2461,19 @@ def run(card: str) -> dict:
             device=dev),
     }, torch, runs=3)
     lap("8, the streams")
-    staging_default = pipeline.PINNED_STAGING
-    enc_stream_ts = {(st, d): [] for st in (True, False) for d in (1, 2, 4)}
+    enc_stream_ts = {d: [] for d in (1, 2, 4)}
     for rnd in range(1 + STREAM_RUNS):
         for d in (1, 2, 4):
-            for st in ((True, False) if rnd % 2 == 0 else (False, True)):
-                pipeline.PINNED_STAGING = st
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                drain(jpeg_tpu_torch.encode_stream(
-                    pool_frames(STREAM_ENCODE), QUALITY, SUBSAMPLING, depth=d,
-                    device=dev))
-                torch.cuda.synchronize()
-                if rnd >= 1:
-                    enc_stream_ts[st, d].append(
-                        (time.perf_counter() - t0) * 1e3)
-    pipeline.PINNED_STAGING = staging_default
-    ms_enc_stream = {d: statistics.median(enc_stream_ts[staging_default, d])
-                     for d in (1, 2, 4)}
-    ms_enc_stream_other = {
-        d: statistics.median(enc_stream_ts[not staging_default, d])
-        for d in (1, 2, 4)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drain(jpeg_tpu_torch.encode_stream(
+                pool_frames(STREAM_ENCODE), QUALITY, SUBSAMPLING, depth=d,
+                device=dev))
+            torch.cuda.synchronize()
+            if rnd >= 1:
+                enc_stream_ts[d].append((time.perf_counter() - t0) * 1e3)
+    ms_enc_stream = {d: statistics.median(ts)
+                     for d, ts in enc_stream_ts.items()}
     ms_dec_stream = {d: median_ms_host(lambda: drain(
         jpeg_tpu_torch.decode_stream(iter(jpgs16), depth=d, device=dev)),
         torch) for d in (1, 2, 4)}
@@ -2973,19 +2962,14 @@ def run(card: str) -> dict:
     ):
         print(f"phase 8: {label}: {ms:.3f} ms median of {RUNS} [{card}]",
               flush=True)
-    staging_name = {True: "pinned staging", False: "pageable upload"}
     for label, ms, n, single, runs in (
         (f"encode_batched K={BATCH_ENCODE} 4K", ms_enc_batch, BATCH_ENCODE,
          ms_enc, RUNS),
         *((f"decode_batched K={BATCH_DECODE} 4K {bm!r}", v, BATCH_DECODE,
            ms_dec, RUNS) for bm, v in ms_dec_batch.items()),
-        *((f"encode_stream {STREAM_ENCODE} x 4K depth {d}, "
-           f"{staging_name[staging_default]} (the default)", v,
+        *((f"encode_stream {STREAM_ENCODE} x 4K depth {d}", v,
            STREAM_ENCODE, ms_enc, STREAM_RUNS)
           for d, v in ms_enc_stream.items()),
-        *((f"encode_stream {STREAM_ENCODE} x 4K depth {d}, "
-           f"{staging_name[not staging_default]}", v, STREAM_ENCODE, ms_enc,
-           STREAM_RUNS) for d, v in ms_enc_stream_other.items()),
         *((f"decode_stream {STREAM_DECODE} x 4K depth {d}", v, STREAM_DECODE,
            ms_dec, RUNS) for d, v in ms_dec_stream.items()),
     ):

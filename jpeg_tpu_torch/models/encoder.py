@@ -53,19 +53,17 @@ def _interleaved_blocks(rgb, qy, qc, mode: Subsampling, restart_mcus: int):
     """Pixels -> (n_mcu * bpm, 64) MCU-interleaved blocks with DC DPCM'd
     (restart resets every restart_mcus MCUs) plus the (B,) table-id array
     (0 luma / 1 chroma). The transform already emits MCU scan order."""
+    hv = mode.h_factor * mode.v_factor
+    tbl_row = mcu_conv.constant(np.array([0] * hv + [1, 1], np.int32),
+                                rgb.device)
     blocks = mcu_conv._mcu_transform_int(rgb, qy, qc, mode)  # (n_mcu, bpm, 64)
     n_mcu = blocks.shape[0]
-    hv = mode.h_factor * mode.v_factor
     r = int(restart_mcus)
     with span("jt.encode.transform"):
         blocks[:, :hv, 0] = dpcm_ops.dpcm(
             blocks[:, :hv, 0].reshape(-1), r * hv).reshape(n_mcu, hv)
         blocks[:, hv, 0] = dpcm_ops.dpcm(blocks[:, hv, 0], r)
         blocks[:, hv + 1, 0] = dpcm_ops.dpcm(blocks[:, hv + 1, 0], r)
-    # A blocking upload: on a card the host waits for the DPCM first.
-    with span("jt.wait.upload"):
-        tbl_row = torch.tensor([0] * hv + [1, 1], dtype=torch.int32,
-                               device=blocks.device)
     return blocks.reshape(-1, 64), tbl_row.repeat(n_mcu), n_mcu, hv
 
 

@@ -19,7 +19,9 @@ when PyTorch is set to allow it.
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -148,6 +150,44 @@ def _device_kernel(mode: Subsampling, device: torch.device):
     return _cuda.settled(kern), _cuda.settled(bias)
 
 
+# Small constants of the transform kept on their device once uploaded: the
+# quantizer's divisors, already shifted by _INT_SCALE_BITS, per quant-table
+# set and mode, and the encoder's table-id row per mode: uploaded per image,
+# each would be a blocking copy that waits for the card's queue. A fill
+# waits for its upload (_cuda.settled), since the next reader may be another
+# thread on another stream; a hit records the reader's stream, since an entry
+# may be evicted while that stream still reads it (least recently used goes
+# first). CONSTANT_UPLOADS counts the fills, under the cache's lock.
+CONSTANT_UPLOADS = 0
+_CONSTANTS_SIZE = 32
+_constants: collections.OrderedDict = collections.OrderedDict()
+_constants_lock = threading.Lock()
+
+
+def constant(values: np.ndarray, device) -> torch.Tensor:
+    """`values` as a tensor on `device`, uploaded once per (contents,
+    device) and kept: callers read it and never write it."""
+    global CONSTANT_UPLOADS
+    device = torch.device(device)
+    key = (str(device), values.dtype.str, values.shape, values.tobytes())
+    with _constants_lock:
+        hit = _constants.get(key)
+        if hit is not None:
+            _constants.move_to_end(key)
+    if hit is not None:
+        if device.type == "cuda":
+            hit.record_stream(torch.cuda.current_stream(device))
+        return hit
+    with span("jt.wait.upload"):
+        made = _cuda.settled(torch.tensor(values, device=device))
+    with _constants_lock:
+        CONSTANT_UPLOADS += 1
+        _constants[key] = made
+        if len(_constants) > _CONSTANTS_SIZE:
+            _constants.popitem(last=False)
+    return made
+
+
 def _require_full_f32() -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -175,6 +215,7 @@ def _mcu_transform_int(rgb: torch.Tensor, qy, qc, mode: Subsampling):
     _require_full_f32()
     device = rgb.device
     hv = mode.h_factor * mode.v_factor
+    d = constant(zigzag_qdiv_int(qy, qc, hv) << _INT_SCALE_BITS, device)
     with span("jt.encode.transform"):
         kern, bias = _device_kernel(mode, device)
         nco = (hv + 2) * 64
@@ -190,11 +231,6 @@ def _mcu_transform_int(rgb: torch.Tensor, qy, qc, mode: Subsampling):
             + out[:, nco:].to(torch.int32)
             + bias
         )
-    # A blocking upload: on a card the host waits for the matmul first.
-    with span("jt.wait.upload"):
-        d = torch.as_tensor(zigzag_qdiv_int(qy, qc, hv), device=device)
-    with span("jt.encode.transform"):
-        d = d << _INT_SCALE_BITS
         q0 = (2 * torch.abs(acc) + d) // (2 * d)
         q = torch.where(acc < 0, -q0, q0)
     return q.reshape(-1, hv + 2, 64)
@@ -250,6 +286,9 @@ def gray_transform_int(plane: torch.Tensor, qy) -> torch.Tensor:
     bit-identical to jpeg_tpu's gray_transform_int on every device."""
     _require_full_f32()
     device = plane.device
+    order = np.asarray(tables.ZIGZAG_ORDER)
+    d = constant(np.asarray(qy).reshape(64)[order].astype(np.int32)
+                 << _INT_SCALE_BITS, device)
     with span("jt.encode.transform"):
         kern, bias = _gray_device_kernel(device)
         flat = tile.blockify(plane).reshape(-1, 64)
@@ -259,12 +298,5 @@ def gray_transform_int(plane: torch.Tensor, qy) -> torch.Tensor:
             + out[:, 64:].to(torch.int32)
             + bias
         )
-    order = np.asarray(tables.ZIGZAG_ORDER)
-    # A blocking upload: on a card the host waits for the matmul first.
-    with span("jt.wait.upload"):
-        d = torch.as_tensor(
-            np.asarray(qy).reshape(64)[order].astype(np.int32), device=device)
-    with span("jt.encode.transform"):
-        d = d << _INT_SCALE_BITS
         q0 = (2 * torch.abs(acc) + d) // (2 * d)
         return torch.where(acc < 0, -q0, q0)

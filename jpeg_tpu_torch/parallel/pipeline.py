@@ -6,12 +6,12 @@ neighbours.
 Counterpart of jpeg_tpu/parallel/pipeline.py. Where the reference rides
 JAX's asynchronous dispatch, the port keeps each image's device work on one
 CUDA stream of a small ring, reads the pack's status back through a pinned
-buffer, and waits for one image's event only when that image is finished
-(a pinned staging buffer for the upload is there and off: PINNED_STAGING). The
-reference's three dispatch kinds and its retry ladder of larger pack budgets
-are not ported: the port has one packer (kernel A + level 2) and one spill
-rule (an image whose pack overflows is host-packed, counted in
-encoder.HOST_PACK_SPILLS).
+buffer, and waits for one image's event only when that image is finished;
+an image goes up from its slot's pinned staging buffer, which the host fills
+on several threads. The reference's three dispatch kinds and its retry
+ladder of larger pack budgets are not ported: the port has one packer
+(kernel A + level 2) and one spill rule (an image whose pack overflows is
+host-packed, counted in encoder.HOST_PACK_SPILLS).
 """
 
 from __future__ import annotations
@@ -32,25 +32,12 @@ from jpeg_tpu_torch.ops import quant, tile
 from jpeg_tpu_torch.utils.trace import span
 
 
-# How encode_stream's dispatch uploads an image on a card. True: the image is
-# copied into the slot's pinned staging buffer and goes up from there without
-# the host waiting. False: it goes up straight from the caller's array, a
-# pageable copy on the slot's stream that the host waits for. Both give the
-# same bytes. chip_smoke.py phase 8 times them in turns: on 64 frames of
-# 3840x2160 (NVIDIA H100 80GB HBM3 at 700 W, medians of 5) the pageable
-# upload took 9.255 / 8.686 / 9.139 ms per image at depth 1 / 2 / 4 against
-# 10.627 / 11.117 / 9.779 ms with staging, whose host copy sits on the same
-# one thread as the finalize. So staging is off.
-PINNED_STAGING = False
-
-
 class _Slot:
     """One place of encode_stream's ring: a CUDA stream, a pinned staging
-    buffer for the image (used and grown only with PINNED_STAGING) and a
-    pinned buffer for what the host reads back before the words (the pack's
-    bit totals and flags, or the symbol histograms). Both are allocated once
-    and reused by every image that takes the slot: the image before has
-    been finished by then."""
+    buffer for the image and a pinned buffer for what the host reads back
+    before the words (the pack's bit totals and flags, or the symbol
+    histograms). Both are allocated once and reused by every image that
+    takes the slot: the image before has been finished by then."""
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.Stream(device)
@@ -58,12 +45,21 @@ class _Slot:
         self.readback = None
 
     def stage(self, img: np.ndarray) -> torch.Tensor:
-        """`img` copied into the pinned buffer, as a tensor view of it."""
+        """`img` copied into the pinned buffer, as a tensor view of it.
+
+        The copy runs on torch's intra-op threads with the GIL released: on
+        one thread (np.copyto) a 4K frame's copy cost more host time than
+        the pageable upload it replaces. torch takes no array with a
+        negative stride, and warns on one that is not writable: those are
+        copied on this thread."""
         if self.staging.numel() < img.size:
             self.staging = torch.empty(img.size, dtype=torch.uint8,
                                        pin_memory=True)
         view = self.staging[:img.size].view(img.shape)
-        np.copyto(view.numpy(), img)
+        if img.flags.writeable and min(img.strides) >= 0:
+            view.copy_(torch.from_numpy(img))
+        else:
+            np.copyto(view.numpy(), img)
         return view
 
     def fetch(self, t: torch.Tensor) -> torch.Tensor:
@@ -91,14 +87,14 @@ def encode_stream(
     may vary in size.
 
     On a card every image has a place in a ring of depth + 1 slots, each
-    with a CUDA stream. Dispatch uploads the image on the slot's stream
-    (straight from the caller's array, which the host waits for; with
-    PINNED_STAGING through the slot's pinned buffer, without waiting) and
-    enqueues there, without waiting for any of it: edge pad, exact
-    transform, DC DPCM, kernel A, level 2, and a copy of the bit totals and
-    overflow flags to pinned memory; then it records an event. Finish waits
-    for that image's event only, downloads the used part of the words on the
-    same stream, finalizes on the host and writes the JFIF stream.
+    with a CUDA stream. Dispatch copies the image into the slot's pinned
+    buffer (the caller may reuse its array once dispatch returns), uploads
+    it from there on the slot's stream and enqueues there, without waiting
+    for any of it: edge pad, exact transform, DC DPCM, kernel A, level 2,
+    and a copy of the bit totals and overflow flags to pinned memory; then
+    it records an event. Finish waits for that image's event only,
+    downloads the used part of the words on the same stream, finalizes on
+    the host and writes the JFIF stream.
 
     optimize_tables: dispatch enqueues the symbol histograms instead of the
     pack; finish reads them, builds that image's optimal tables and runs the
@@ -131,13 +127,16 @@ def encode_stream(
         if not device_pack:
             return ("host", img)
         slot = slots[index % len(slots)] if slots else None
-        img = np.ascontiguousarray(img)
         with span("jt.encode.dispatch"), on_stream(slot):
-            if slot is not None and PINNED_STAGING:
-                dev = slot.stage(img).to(device, non_blocking=True)
+            if slot is not None:
+                # The slot's image before was finished (its event waited
+                # for), so its staging buffer is free.
+                with span("jt.encode.stage"):
+                    dev = slot.stage(img).to(device, non_blocking=True)
             else:
                 with span("jt.wait.upload"):
-                    dev = torch.as_tensor(img, device=device)
+                    dev = torch.as_tensor(np.ascontiguousarray(img),
+                                          device=device)
             with span("jt.encode.transform"):
                 padded = tile.pad_to_multiple(dev, mode.mcu_height,
                                               mode.mcu_width)

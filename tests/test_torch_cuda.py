@@ -521,26 +521,57 @@ def test_decode_batched_on_card(batch_mode, scale_denom):
     np.testing.assert_array_equal(out.cpu().numpy(), ref)
 
 
+def _overwritten(imgs):
+    """The images one after another in ONE caller buffer, each written over
+    the one before as soon as the stream asks for the next."""
+    flat = np.empty(max(im.size for im in imgs), dtype=np.uint8)
+    for im in imgs:
+        frame = flat[:im.size].reshape(im.shape)
+        frame[...] = im
+        yield frame
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("staging", [True, False])
+@pytest.mark.parametrize("source", ["distinct", "overwritten"])
 @pytest.mark.parametrize("optimize", [False, True])
 @pytest.mark.parametrize("depth", [0, 2])
-def test_encode_stream_on_card(optimize, depth, staging, monkeypatch):
+def test_encode_stream_on_card(optimize, depth, source):
     require_cuda()
-    from jpeg_tpu_torch.parallel import pipeline
-
-    monkeypatch.setattr(pipeline, "PINNED_STAGING", staging)
     imgs = [make_image(h, w, seed=h) for h, w in
             ((144, 256), (37, 53), (300, 200), (144, 256), (64, 64))]
     kw = dict(quality=80, subsampling="420", optimize_tables=optimize)
     before = _counts()
-    got = list(jpeg_tpu_torch.encode_stream(iter(imgs), depth=depth,
-                                            device="cuda", **kw))
+    got = list(jpeg_tpu_torch.encode_stream(
+        iter(imgs) if source == "distinct" else _overwritten(imgs),
+        depth=depth, device="cuda", **kw))
     torch.cuda.synchronize()
     assert _since(before) == (len(imgs), 0, 0, 0, 0)
     assert got == [jpeg_tpu_torch.encode(im, device="cuda", **kw)
                    for im in imgs]
     assert got == [jpeg_tpu_torch.encode(im, device="cpu", **kw)
+                   for im in imgs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["read_only", "view", "reversed"])
+def test_encode_stream_on_card_stages_any_array(kind):
+    """Arrays that the staging copy cannot take as a plain tensor (not
+    writable, a negative stride) or takes strided (a view into a wider
+    image) give encode()'s bytes."""
+    require_cuda()
+    wide = [make_image(96, 160, seed=s) for s in range(4)]
+    if kind == "read_only":
+        imgs = [im.copy() for im in wide]
+        for im in imgs:
+            im.setflags(write=False)
+    elif kind == "view":
+        imgs = [im[8:72, 16:136] for im in wide]
+    else:
+        imgs = [im[::-1, ::-1] for im in wide]
+    got = list(jpeg_tpu_torch.encode_stream(iter(imgs), 80, device="cuda"))
+    assert got == [jpeg_tpu_torch.encode(im, 80, device="cuda")
+                   for im in imgs]
+    assert got == [jpeg_tpu_torch.encode(im, 80, device="cpu")
                    for im in imgs]
 
 

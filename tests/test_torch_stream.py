@@ -12,6 +12,7 @@ Tolerances:
     samples of jpeg_tpu.decode_stream.
 Every emitted stream opens in PIL."""
 
+import collections
 import contextlib
 import io
 import sys
@@ -28,7 +29,7 @@ import jpeg_tpu_torch
 from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import encoder as PE
 from jpeg_tpu_torch.models.progressive_enc import encode_progressive
-from jpeg_tpu_torch.ops import _cuda, fused, pack
+from jpeg_tpu_torch.ops import _cuda, fused, mcu_conv, pack
 
 from torch_port_util import jax_exact_transform, make_image  # noqa: F401
 
@@ -235,6 +236,41 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
     n = per_thread * threads
     assert (pack.LAUNCHES, fused.LAUNCHES, fused.DCT_LAUNCHES) == tuple(
         b + n for b in before)
+
+
+def test_constant_cache_counts_every_fill_under_threads(monkeypatch):
+    """mcu_conv.constant from 16 threads over a cache of two entries, so
+    that it misses and evicts all the time: every call returns its values,
+    the cache stays within its bound, and CONSTANT_UPLOADS counts every fill
+    (a fill settles its tensor exactly once), which a non-atomic increment
+    without the lock would not."""
+    monkeypatch.setattr(mcu_conv, "_constants", collections.OrderedDict())
+    monkeypatch.setattr(mcu_conv, "_CONSTANTS_SIZE", 2)
+    fills, lock = [0], threading.Lock()
+    settled = _cuda.settled
+
+    def counted(t):
+        with lock:
+            fills[0] += 1
+        return settled(t)
+
+    monkeypatch.setattr(_cuda, "settled", counted)
+    before = mcu_conv.CONSTANT_UPLOADS
+    per_thread, threads = 400, 16
+
+    def work(t):
+        ok = True
+        for i in range(per_thread):
+            values = np.array([(t + i) % 5, 7], np.int32)
+            got = mcu_conv.constant(values, "cpu")
+            ok &= got.tolist() == values.tolist()
+        return ok
+
+    with _eager_thread_switches():
+        assert all(_hammer(work, threads))
+    assert len(mcu_conv._constants) <= 2
+    assert fills[0] > 5
+    assert mcu_conv.CONSTANT_UPLOADS - before == fills[0]
 
 
 def test_decode_and_encode_from_four_threads():

@@ -4,11 +4,17 @@ nested how, and that tracing changes no output.
 
 Leaves are the stages of one image and never nest in one another; each sits
 inside one of the three parents (jt.decode, jt.encode.dispatch,
-jt.encode.finish) on the same thread. jt.wait.slot exists only on a card (the
-CPU path has no ring of CUDA streams), and so does decode_stream's
-jt.wait.stream: the test marked `cuda` checks them there, and that every
-call that blocks the host on the card lies inside a jt.wait.* leaf
-(python -m pytest tests/test_torch_trace.py --noconftest -m cuda)."""
+jt.encode.finish) on the same thread. jt.wait.slot and encode_stream's
+jt.encode.stage exist only on a card (the CPU path has no ring of CUDA
+streams), and so does decode_stream's jt.wait.stream: the tests marked
+`cuda` check them there, that every call that blocks the host on the card
+lies inside a jt.wait.* leaf, and that encode_stream's dispatch waits for
+nothing once the transform's constants are on the card
+(python -m pytest tests/test_torch_trace.py --noconftest -m cuda).
+
+Every test that counts an encode's leaves encodes the same image first:
+that fills the transform's constant cache (ops/mcu_conv.constant), whose
+uploads are leaves only when they happen."""
 
 import collections
 import json
@@ -23,9 +29,11 @@ import torch
 import jpeg_tpu_torch
 from jpeg_tpu_torch.models import encoder as PE
 from jpeg_tpu_torch.models.progressive_enc import encode_progressive
+from jpeg_tpu_torch.ops import mcu_conv
 from jpeg_tpu_torch.utils import trace as PT
 
-from torch_port_util import make_image, require_cuda
+from torch_port_util import (  # noqa: F401
+    jax_exact_transform, make_image, require_cuda)
 
 PARENTS = {"jt.decode", "jt.encode.dispatch", "jt.encode.finish"}
 CPU = "cpu"
@@ -120,6 +128,7 @@ def _frames():
 
 
 ENCODE_STREAM_PARENT = {
+    "jt.encode.stage": "jt.encode.dispatch",
     "jt.wait.upload": "jt.encode.dispatch",
     "jt.encode.transform": "jt.encode.dispatch",
     "jt.encode.pack": "jt.encode.dispatch",
@@ -130,16 +139,22 @@ ENCODE_STREAM_PARENT = {
 }
 
 
-# The leaves of one colour frame's device-pack encode: the exact transform
-# stops twice for a small blocking upload (its divisors, then the table ids
-# after the DPCM), so it is four transform leaves around two upload waits
-# besides the frame's own upload.
-FRAME = {"jt.wait.upload": 3, "jt.encode.transform": 4, "jt.encode.pack": 1,
+# The leaves of one frame's device-pack encode, colour or gray, once the
+# transform's constants are cached: the frame's upload, then three transform
+# leaves (the pad, the transform itself, the DPCM) with no wait between.
+FRAME = {"jt.wait.upload": 1, "jt.encode.transform": 3, "jt.encode.pack": 1,
          "jt.wait.download": 1, "jt.encode.finalize": 1}
+# On a card encode_stream's dispatch stages the frame instead of waiting for
+# its upload.
+CARD_FRAME = {"jt.encode.stage": 1, "jt.encode.transform": 3,
+              "jt.encode.pack": 1, "jt.wait.download": 1,
+              "jt.encode.finalize": 1}
 
 
 def test_encode_stream_gives_every_leaf_for_every_frame():
     frames = _frames()
+    want = list(jpeg_tpu_torch.encode_stream(iter(frames), depth=2,
+                                             device=CPU))
     got, found = traced(lambda: list(jpeg_tpu_torch.encode_stream(
         iter(frames), depth=2, device=CPU)))
     assert counts(found) == {n: 3 * c for n, c in FRAME.items()}
@@ -147,8 +162,7 @@ def test_encode_stream_gives_every_leaf_for_every_frame():
         "jt.encode.dispatch": 3, "jt.encode.finish": 3}
     check_nesting(found, lambda n: {ENCODE_STREAM_PARENT[n]})
     assert len({s[3] for s in found}) == 1  # the consumer's own thread
-    assert got == list(jpeg_tpu_torch.encode_stream(iter(frames), depth=2,
-                                                    device=CPU))
+    assert got == want
 
 
 def test_a_spilled_frame_gives_one_spill_span():
@@ -156,6 +170,8 @@ def test_a_spilled_frame_gives_one_spill_span():
     yy, xx = np.mgrid[0:24, 0:32]
     smooth = np.stack([xx * 4, yy * 5, xx + yy], -1).astype(np.uint8)
     noise = rng.integers(0, 256, size=(24, 32, 3)).astype(np.uint8)
+    want = [jpeg_tpu_torch.encode(im, 100, "444", device=CPU)
+            for im in (smooth, noise, smooth)]
     spills = PE.HOST_PACK_SPILLS
     got, found = traced(lambda: list(jpeg_tpu_torch.encode_stream(
         [smooth, noise, smooth], 100, "444", device=CPU)))
@@ -164,11 +180,10 @@ def test_a_spilled_frame_gives_one_spill_span():
     assert n["jt.encode.spill"] == 1
     assert n["jt.encode.finalize"] == n["jt.wait.download"] == 2
     check_nesting(found, lambda n: {ENCODE_STREAM_PARENT[n]})
-    assert got == [jpeg_tpu_torch.encode(im, 100, "444", device=CPU)
-                   for im in (smooth, noise, smooth)]
+    assert got == want
 
 
-HOST_PACK = {"jt.wait.upload": 2, "jt.encode.transform": 3,
+HOST_PACK = {"jt.wait.upload": 1, "jt.encode.transform": 2,
              "jt.wait.download": 1, "jt.encode.finalize": 1}
 
 
@@ -177,18 +192,78 @@ HOST_PACK = {"jt.wait.upload": 2, "jt.encode.transform": 3,
     ("rgb", {"optimize_tables": True, "restart_interval": 2},
      dict(FRAME, **{"jt.encode.pack": 2, "jt.wait.status": 2})),
     ("rgb", {"device_pack": False}, HOST_PACK),
-    # Gray has one table, so no table-id upload.
-    ("gray", {}, dict(FRAME, **{"jt.wait.upload": 2, "jt.wait.status": 1})),
+    ("gray", {}, dict(FRAME, **{"jt.wait.status": 1})),
     ("gray", {"device_pack": False}, HOST_PACK),
 ])
 def test_encode_gives_its_leaves(image, kw, expect):
     img = make_image(40, 56, seed=9)
     if image == "gray":
         img = img[..., 0]
+    want = jpeg_tpu_torch.encode(img, device=CPU, **kw)
     got, found = traced(lambda: jpeg_tpu_torch.encode(img, device=CPU, **kw))
     assert counts(found) == expect
     check_nesting(found, lambda n: {"jt.encode.dispatch", "jt.encode.finish"})
-    assert got == jpeg_tpu_torch.encode(img, device=CPU, **kw)
+    assert got == want
+
+
+@pytest.fixture
+def fresh_constants(monkeypatch):
+    """An empty constant cache for the test, the process's own after it."""
+    monkeypatch.setattr(mcu_conv, "_constants", collections.OrderedDict())
+    return mcu_conv
+
+
+def _uploads_of(fn):
+    before = mcu_conv.CONSTANT_UPLOADS
+    out = fn()
+    return mcu_conv.CONSTANT_UPLOADS - before, out
+
+
+@pytest.mark.parametrize("image", ["rgb", "gray"])
+def test_the_transform_constants_go_up_once_per_table_set(
+        image, fresh_constants, jax_exact_transform):
+    import jpeg_tpu
+
+    img = make_image(24, 40, seed=3)
+    if image == "gray":
+        img = img[..., 0]
+    rng = np.random.default_rng(7)
+    own = [rng.integers(1, 256, size=(8, 8)) for _ in range(2)]
+    # The first encode of a mode uploads its divisors and, in colour, its
+    # table-id row; after it only a new table set uploads, once.
+    cases = [({"quality": 75}, 2 if image == "rgb" else 1),
+             ({"quality": 75}, 0), ({"quality": 31}, 1), ({"quality": 31}, 0),
+             ({"quant_tables": own}, 1), ({"quant_tables": own}, 0),
+             ({"quality": 75, "device_pack": False}, 0)]
+    for kw, uploads in cases:
+        n, got = _uploads_of(lambda: jpeg_tpu_torch.encode(img, device=CPU,
+                                                           **kw))
+        assert n == uploads, kw
+        assert got == jpeg_tpu.encode(img, **kw), kw
+    # A hit opens no span: the transform's leaves no longer split.
+    _, found = traced(lambda: jpeg_tpu_torch.encode(img, 31, device=CPU))
+    assert counts(found)["jt.wait.upload"] == 1  # the frame's
+
+
+def test_eviction_past_the_bound_keeps_the_bytes(
+        fresh_constants, monkeypatch, jax_exact_transform):
+    import jpeg_tpu
+
+    monkeypatch.setattr(mcu_conv, "_CONSTANTS_SIZE", 2)
+    img = make_image(16, 32, seed=4)
+    # Two entries hold the table-id row and one table set, so each new
+    # quality evicts the set before it, which goes up again when its
+    # quality comes back.
+    qualities, uploads = (40, 50, 60, 40, 50), (2, 1, 1, 1, 1)
+    want = {q: jpeg_tpu.encode(img, q) for q in set(qualities)}
+    for q, expect in zip(qualities, uploads):
+        n, got = _uploads_of(lambda: jpeg_tpu_torch.encode(img, q,
+                                                           device=CPU))
+        assert len(mcu_conv._constants) == 2
+        assert n == expect
+        assert got == want[q]
+    n, got = _uploads_of(lambda: jpeg_tpu_torch.encode(img, 50, device=CPU))
+    assert n == 0 and got == want[50]
 
 
 def _stream(kind):
@@ -281,7 +356,7 @@ def test_on_the_card_the_host_blocks_only_inside_wait_leaves():
     assert len(main) == 1
     enc_counts = collections.Counter(s[0] for s in leaves(found)
                                      if s[3] in main)
-    assert enc_counts == dict({n: 4 * c for n, c in FRAME.items()},
+    assert enc_counts == dict({n: 4 * c for n, c in CARD_FRAME.items()},
                               **{"jt.wait.slot": 4})
     workers = [s for s in leaves(found) if s[3] not in main]
     assert collections.Counter(s[0] for s in workers)["jt.wait.stream"] == 2
@@ -300,3 +375,34 @@ def test_on_the_card_the_host_blocks_only_inside_wait_leaves():
     for e in blocking:
         assert any(w[3] == e[3] and w[1] <= e[1] and e[2] <= w[2]
                    for w in waits), e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimize", [False, True])
+def test_on_the_card_encode_stream_dispatch_waits_for_nothing(optimize):
+    """Once the transform's constants are on the card, a frame's dispatch
+    stages it (one jt.encode.stage leaf) and blocks on no upload: no
+    jt.wait.* leaf under jt.encode.dispatch, and without optimize_tables
+    every host-to-card copy of the stream comes from pinned memory (with
+    it, finish uploads each frame's own Huffman tables)."""
+    dev = require_cuda()
+    frames = [make_image(120, 200, seed=s) for s in range(5)]
+    kw = dict(quality=85, optimize_tables=optimize, device=dev)
+    want = list(jpeg_tpu_torch.encode_stream(iter(frames), **kw))
+    events: list = []
+    uploads = mcu_conv.CONSTANT_UPLOADS
+    got, found = traced(lambda: list(jpeg_tpu_torch.encode_stream(
+        iter(frames), **kw)), events=events)
+    assert got == want
+    assert mcu_conv.CONSTANT_UPLOADS == uploads
+    dispatches = [s for s in found if s[0] == "jt.encode.dispatch"]
+    assert len(dispatches) == len(frames)
+    for d in dispatches:
+        under = collections.Counter(s[0] for s in leaves(found)
+                                    if inside(s, d))
+        assert under["jt.encode.stage"] == 1, under
+        assert not [n for n in under if n.startswith("jt.wait.")], under
+    h2d = [e for e in events if e[0].startswith("Memcpy HtoD")]
+    assert len(h2d) >= len(frames)
+    if not optimize:
+        assert all("Pageable" not in e[0] for e in h2d), h2d
