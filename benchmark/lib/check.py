@@ -26,28 +26,35 @@ def _tensor(frame, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(frame), device=device)[None]
 
 
-def reference_bounds(frame, quality: int, device) -> tuple:
+def reference_bounds(frame, quality: int, device,
+                     subsampling: str = "420") -> tuple:
     """The (lo, hi) bounds of a sound decode of the stream made from
     `frame`, on the host."""
     h, w = frame.shape[:2]
-    coefs = P.coefficients(_tensor(frame, device), quality)[0]
-    lo, hi = P.pixel_bounds(coefs, quality, h, w)
+    coefs = P.coefficients(_tensor(frame, device), quality,
+                           subsampling=subsampling)[0]
+    lo, hi = P.pixel_bounds(coefs, quality, h, w, subsampling=subsampling)
     return lo.cpu().numpy(), hi.cpu().numpy()
 
 
-def control_pixels(frame, quality: int, device) -> np.ndarray:
+def control_pixels(frame, quality: int, device,
+                   subsampling: str = "420") -> np.ndarray:
     """The control's decode: the reference with TF32 operands."""
     h, w = frame.shape[:2]
-    coefs = P.coefficients(_tensor(frame, device), quality)[0]
-    return P.pixels(coefs, quality, h, w, "tf32").cpu().numpy()
+    coefs = P.coefficients(_tensor(frame, device), quality,
+                           subsampling=subsampling)[0]
+    return P.pixels(coefs, quality, h, w, "tf32", subsampling).cpu().numpy()
 
 
-def reference_stream(frame, quality: int, device,
-                     precision: str = "exact") -> bytes:
+def reference_stream(frame, quality: int, device, precision: str = "exact",
+                     subsampling: str = "420",
+                     restart_interval: int = 0) -> bytes:
     """The reference encode of `frame` (a whole JFIF stream)."""
     h, w = frame.shape[:2]
-    coefs = P.coefficients(_tensor(frame, device), quality, precision)
-    return P.jfif_header(w, h, quality) + P.scans(coefs)[0] + b"\xff\xd9"
+    coefs = P.coefficients(_tensor(frame, device), quality, precision,
+                           subsampling)
+    return (P.jfif_header(w, h, quality, subsampling, restart_interval)
+            + P.scans(coefs, restart_interval)[0] + b"\xff\xd9")
 
 
 def _as_host(out) -> np.ndarray:
@@ -97,23 +104,24 @@ def compare(kept, inp, config: dict, device, control: bool = False) -> dict:
     in the program's place: the same inputs, answered by plainjpeg's "tf32"
     decode and "float32" encode."""
     q = config["quality"]
+    sub, rst = config["subsampling"], config.get("restart_interval", 0)
     refs: dict = {}
     numbers: dict = {}
     for kind, idx, out in kept:
         frame = inp.frames[idx]
         if (kind, idx) not in refs:
-            refs[(kind, idx)] = (reference_bounds(frame, q, device)
-                                 if kind == "decode" else
-                                 reference_stream(frame, q, device))
+            refs[(kind, idx)] = (
+                reference_bounds(frame, q, device, sub) if kind == "decode"
+                else reference_stream(frame, q, device, "exact", sub, rst))
         ref = refs[(kind, idx)]
         if kind == "decode":
             if control:
-                out = control_pixels(frame, q, device)
+                out = control_pixels(frame, q, device, sub)
             numbers["px_outside"] = numbers.get("px_outside", 0) + px_outside(
                 out, ref)
         else:
             if control:
-                out = reference_stream(frame, q, device, "float32")
+                out = reference_stream(frame, q, device, "float32", sub, rst)
             numbers["scan_mismatch"] = numbers.get("scan_mismatch", 0) + (
                 stream_faults(out, ref))
     return numbers

@@ -33,7 +33,7 @@ class Inputs:
     frames: list
     streams: list
     pixels: list  # width * height of each image
-    blocks: list  # 8x8 blocks of the 4:2:0 scan
+    blocks: list  # 8x8 blocks of the scan at the configuration's sampling
     scan_bytes: list  # entropy-coded bytes of each stream (0 without one)
 
 
@@ -85,13 +85,20 @@ def make_images(config: dict, n: int, seed: int, device) -> list:
             for w, h in image_shapes(config, n, seed)]
 
 
-# What the plain encoder and reference implement: a configuration that states
-# anything else, or a key not named here, is refused rather than run as
-# something it does not say.
-IMPLEMENTED = {"subsampling": ("420",), "restart_interval": (0,),
-               "optimize_tables": (False,),
-               "huffman_tables": ("ITU-T T.81 Annex K.3",),
-               "kind": ("frames", "mix")}
+# What the plain encoder and reference implement, and why nothing else: a
+# configuration that states anything else, or a key not named here, is
+# refused rather than run as something it does not say.
+IMPLEMENTED = {
+    "subsampling": (plainjpeg.SAMPLING, "the plain codec has 2x2, 2x1 and "
+                    "1x1 luma sampling with 1x1 chroma only"),
+    "restart_interval": (range(1 << 16), "DRI states it in 16 bits, in MCUs"),
+    "optimize_tables": ((False,), "the plain encoder writes the Annex K "
+                        "tables only"),
+    "huffman_tables": (("ITU-T T.81 Annex K.3",), "the plain encoder writes "
+                       "the Annex K tables only"),
+    "kind": (("frames", "mix"), "lib/inputs makes rolled frames or a mix of "
+             "shapes only"),
+}
 REQUIRED = {"frames": ("width", "height", "quality", "noise", "roll"),
             "mix": ("shapes", "quality", "noise")}
 DESCRIPTIVE = {"name", "source", "precision", "guarantees", "assumed",
@@ -102,8 +109,9 @@ def check_config(config: dict) -> None:
     """Raise ValueError where `config` states a key or a value that the
     benchmark's inputs and reference do not implement."""
     kind = config.get("kind")
-    if kind not in IMPLEMENTED["kind"]:
-        raise ValueError(f"configuration kind {kind!r} is not implemented")
+    if kind not in IMPLEMENTED["kind"][0]:
+        raise ValueError(f"configuration kind {kind!r} is not implemented: "
+                         f"{IMPLEMENTED['kind'][1]}")
     known = set(IMPLEMENTED) | set(REQUIRED[kind]) | DESCRIPTIVE
     unknown = sorted(set(config) - known)
     if unknown:
@@ -111,10 +119,13 @@ def check_config(config: dict) -> None:
     missing = [k for k in REQUIRED[kind] + ("subsampling",) if k not in config]
     if missing:
         raise ValueError(f"configuration lacks {missing}")
-    for key, allowed in IMPLEMENTED.items():
-        if key in config and config[key] not in allowed:
-            raise ValueError(f"configuration {key}={config[key]!r} is not "
-                             f"implemented (only {list(allowed)})")
+    for key, (allowed, why) in IMPLEMENTED.items():
+        value = config.get(key)
+        # The type check keeps True from passing for 1, and 240.0 for 240.
+        if key in config and (type(value) is not type(next(iter(allowed)))
+                              or value not in allowed):
+            raise ValueError(f"configuration {key}={value!r} is not "
+                             f"implemented: {why}")
 
 
 def build(config: dict, n_frames: int, n_streams: int, seed: int,
@@ -124,6 +135,7 @@ def build(config: dict, n_frames: int, n_streams: int, seed: int,
     check_config(config)
     imgs = make_images(config, max(n_frames, n_streams), seed, device)
     q = config["quality"]
+    sub, rst = config["subsampling"], config.get("restart_interval", 0)
     streams, scan_bytes = [], []
     by_shape: dict = {}
     for i in range(n_streams):
@@ -134,9 +146,9 @@ def build(config: dict, n_frames: int, n_streams: int, seed: int,
             part = idx[c:c + _CHUNK]
             batch = torch.stack([imgs[i] for i in part])
             hh, ww = batch.shape[1:3]
-            head = plainjpeg.jfif_header(ww, hh, q)
+            head = plainjpeg.jfif_header(ww, hh, q, sub, rst)
             for i, s in zip(part, plainjpeg.scans(
-                    plainjpeg.coefficients(batch, q))):
+                    plainjpeg.coefficients(batch, q, subsampling=sub), rst)):
                 out[i] = (head + s + b"\xff\xd9", len(s))
     for i in range(n_streams):
         streams.append(out[i][0])
@@ -146,5 +158,5 @@ def build(config: dict, n_frames: int, n_streams: int, seed: int,
     return Inputs(
         frames=frames, streams=streams,
         pixels=[w * h for w, h in shapes],
-        blocks=[work_bytes.blocks_420(w, h) for w, h in shapes],
+        blocks=[work_bytes.blocks(w, h, sub) for w, h in shapes],
         scan_bytes=scan_bytes + [0] * (len(frames) - n_streams))

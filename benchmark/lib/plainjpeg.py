@@ -6,9 +6,11 @@ ITU-T T.81 (Annex K: quantization and Huffman tables; Figure 5: zig-zag) and
 the JFIF colour map, and the transform is worked out here from its
 definition, so a change to the port cannot change what is compared.
 
-Encode: RGB uint8 -> the exact fixed-point transform (colour, 2x2 box
-chroma, DCT, quantize) -> DC DPCM -> Huffman coding with the Annex K tables
--> byte stuffing -> one baseline JFIF stream. The transform is the one that
+Encode: RGB uint8 -> the exact fixed-point transform (colour, chroma
+averaged over the luma sampling's box, DCT, quantize) -> DC DPCM, reset at
+every restart -> Huffman coding with the Annex K tables -> byte stuffing,
+each restart interval 1-padded and followed by RSTn -> one baseline JFIF
+stream at 4:2:0, 4:2:2 or 4:4:4 (SAMPLING). The transform is the one that
 the port states as its contract: the composed linear map of the float32
 DCT basis and JFIF matrix held in 2^15 fixed point, evaluated in exact
 integer arithmetic, quantized with round half away from zero. Every step
@@ -19,10 +21,11 @@ depend on the order of the sums.
 
 Decode (the reference of the decode cells): quantized coefficients ->
 dequantize -> 2-D IDCT in float64 -> +128, round, clip -> libjpeg's
-triangular ("fancy") chroma upsampling -> the JFIF colour map in float64 ->
-round, clip, crop; and the bounds within which every decode that keeps the
-float32 contract lies (pixel_bounds). The serial parser and Huffman decoder
-at the end of this file are for the tests (small images only).
+triangular ("fancy") chroma upsampling along each doubled axis -> the JFIF
+colour map in float64 -> round, clip, crop; and the bounds within which
+every decode that keeps the float32 contract lies (pixel_bounds). The
+serial parser and Huffman decoder at the end of this file are for the tests
+(small images only).
 """
 
 from __future__ import annotations
@@ -115,6 +118,10 @@ YCBCR_TO_RGB = np.array([
 # integers at 2^SCALE_BITS.
 SCALE_BITS = 15
 
+# Luma sampling factors (h, v) of each sampling; chroma is 1x1 in all. The
+# MCU is 8h x 8v pixels: h * v luma blocks in raster order, then Cb, Cr.
+SAMPLING = {"420": (2, 2), "422": (2, 1), "444": (1, 1)}
+
 
 def quality_table(base: np.ndarray, quality: int) -> np.ndarray:
     """IJG quality scaling (libjpeg jcparam.c): 50 keeps the base table,
@@ -201,11 +208,11 @@ def pad_edges(rgb: torch.Tensor, mult_h: int, mult_w: int) -> torch.Tensor:
     return rgb
 
 
-def coefficients(rgb: torch.Tensor, quality: int,
-                 precision: str = "exact") -> torch.Tensor:
-    """(K, H, W, 3) uint8 RGB -> (K, n_mcu, 6, 64) int64 quantized zig-zag
-    coefficients of the 4:2:0 scan, MCU by MCU (Y0..Y3, Cb, Cr), DC not yet
-    differenced.
+def coefficients(rgb: torch.Tensor, quality: int, precision: str = "exact",
+                 subsampling: str = "420") -> torch.Tensor:
+    """(K, H, W, 3) uint8 RGB -> (K, n_mcu, h * v + 2, 64) int64 quantized
+    zig-zag coefficients of the scan at `subsampling`, MCU by MCU (the luma
+    blocks, Cb, Cr), DC not yet differenced.
 
     precision "exact": the fixed-point kernel applied in float64 to integer
     pixels, so every partial sum is an integer below 2^53 and the sum is
@@ -215,15 +222,17 @@ def coefficients(rgb: torch.Tensor, quality: int,
     float32, the form a later change might be tempted to take."""
     k = rgb.shape[0]
     dev = rgb.device
-    x = pad_edges(rgb, 16, 16)
-    r, c = x.shape[1] // 16, x.shape[2] // 16
-    patches = x.reshape(k, r, 16, c, 48).permute(0, 1, 3, 2, 4).reshape(
-        k * r * c, 768)
+    h, v = SAMPLING[subsampling]
+    x = pad_edges(rgb, 8 * v, 8 * h)
+    r, c = x.shape[1] // (8 * v), x.shape[2] // (8 * h)
+    patches = x.reshape(k, r, 8 * v, c, 24 * h).permute(0, 1, 3, 2, 4).reshape(
+        k * r * c, 192 * h * v)
     order = ZIGZAG
-    qz = np.concatenate([np.tile(quality_table(QUANT_LUMA, quality)[order], 4),
-                         np.tile(quality_table(QUANT_CHROMA, quality)[order], 2)])
+    qz = np.concatenate([
+        np.tile(quality_table(QUANT_LUMA, quality)[order], h * v),
+        np.tile(quality_table(QUANT_CHROMA, quality)[order], 2)])
     if precision == "exact":
-        kern, bias = fixed_point_kernel()
+        kern, bias = fixed_point_kernel(h, v)
         acc = patches.to(torch.float64) @ torch.as_tensor(kern, device=dev)
         acc = acc.to(torch.int64) + torch.as_tensor(bias, device=dev).to(
             torch.int64)
@@ -231,7 +240,7 @@ def coefficients(rgb: torch.Tensor, quality: int,
         q0 = (2 * acc.abs() + d) // (2 * d)
         q = torch.where(acc < 0, -q0, q0)
     elif precision == "float32":
-        kern, bias = transform_kernel()
+        kern, bias = transform_kernel(h, v)
         acc = patches.to(torch.float32) @ torch.as_tensor(
             kern, dtype=torch.float32, device=dev)
         acc = acc + torch.as_tensor(bias, dtype=torch.float32, device=dev)
@@ -239,7 +248,7 @@ def coefficients(rgb: torch.Tensor, quality: int,
         q = (torch.sign(y) * torch.floor(y.abs() + 0.5)).to(torch.int64)
     else:
         raise ValueError(f"unknown precision {precision!r}")
-    return q.reshape(k, r * c, 6, 64)
+    return q.reshape(k, r * c, h * v + 2, 64)
 
 
 def _bit_length(v: torch.Tensor) -> torch.Tensor:
@@ -258,22 +267,38 @@ def _tables(dev):
     return code, length  # rows: DC Y, DC C, AC Y, AC C
 
 
-def scans(coefs: torch.Tensor) -> list[bytes]:
-    """(K, n_mcu, 6, 64) quantized coefficients -> the K entropy-coded scans
-    (byte-stuffed, 1-padded), one baseline interleaved 4:2:0 scan each."""
-    k, n_mcu = coefs.shape[:2]
+def _dc_differences(dc: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
+    """(K, n, ...) DC values of one component in scan order -> each minus
+    the one before it, or minus 0 where `resets` (broadcast over K) marks
+    the first of a restart interval."""
+    prev = torch.cat([torch.zeros_like(dc[:, :1]), dc[:, :-1]], dim=1)
+    return dc - prev.masked_fill(resets, 0)
+
+
+def scans(coefs: torch.Tensor, restart_interval: int = 0) -> list[bytes]:
+    """(K, n_mcu, h * v + 2, 64) quantized coefficients -> the K
+    entropy-coded scans, one baseline interleaved scan each. With a restart
+    interval of r MCUs every r MCUs start an interval: the DC predictors
+    restart at 0, and each interval's bits are 1-padded to the byte and
+    byte-stuffed, then followed by RSTn (n = interval number mod 8), but
+    for the last interval, which may be short."""
+    k, n_mcu, nbm = coefs.shape[:3]
+    hv = nbm - 2
     dev = coefs.device
     code, length = _tables(dev)
-    blocks = coefs.reshape(k * n_mcu * 6, 64).clone()
+    blocks = coefs.reshape(k * n_mcu * nbm, 64).clone()
     # DC differences per image and component, in scan order.
+    per_seg = restart_interval or n_mcu
+    n_seg = -(-n_mcu // per_seg)
+    mcu = torch.arange(n_mcu, device=dev)
+    starts = mcu % per_seg == 0
     dc = coefs[..., 0]
-    y = dc[:, :, :4].reshape(k, -1)
-    dy = y - torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], dim=1)
-    dch = dc[:, :, 4:]
-    dc_ = dch - torch.cat([torch.zeros_like(dch[:, :1]), dch[:, :-1]], dim=1)
-    blocks[:, 0] = torch.cat([dy.reshape(k, n_mcu, 4), dc_], dim=2).reshape(-1)
+    first_luma = (starts[:, None] & (torch.arange(hv, device=dev) == 0))
+    dy = _dc_differences(dc[:, :, :hv].reshape(k, -1), first_luma.reshape(-1))
+    dc_ = _dc_differences(dc[:, :, hv:], starts[:, None])
+    blocks[:, 0] = torch.cat([dy.reshape(k, n_mcu, hv), dc_], dim=2).reshape(-1)
     nb = blocks.shape[0]
-    chroma = (torch.arange(nb, device=dev) % 6 >= 4).to(torch.int64)
+    chroma = (torch.arange(nb, device=dev) % nbm >= hv).to(torch.int64)
 
     # DC field of every block.
     dsize = _bit_length(blocks[:, 0])
@@ -307,15 +332,19 @@ def scans(coefs: torch.Tensor) -> list[bytes]:
     eob_len = torch.where(has_eob, length[2 + chroma, 0], 0)
     eob_bits = code[2 + chroma, 0]
 
-    # Bit offsets: blocks in scan order; each image starts a new scan.
+    # Bit offsets: blocks in scan order; each interval of each image (the
+    # whole image without restarts) starts at a byte of its own.
     ac_sum = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(
         0, rows, group_len)
     blen = dc_len + ac_sum + eob_len
-    per_img = blen.reshape(k, -1)
-    img_bits = per_img.sum(dim=1)
-    img_bytes = (img_bits + 7) // 8
-    img_base = 8 * (torch.cumsum(img_bytes, 0) - img_bytes)  # bit offset
-    bstart = (torch.cumsum(per_img, 1) - per_img + img_base[:, None]).reshape(-1)
+    gm = torch.arange(nb, device=dev) // nbm  # MCU of each block, all images
+    seg = gm // n_mcu * n_seg + gm % n_mcu // per_seg
+    seg_bits = torch.zeros(k * n_seg, dtype=torch.int64,
+                           device=dev).index_add_(0, seg, blen)
+    seg_bytes = (seg_bits + 7) // 8
+    seg_base = 8 * (torch.cumsum(seg_bytes, 0) - seg_bytes)  # bit offset
+    bstart = (seg_base[seg] + torch.cumsum(blen, 0) - blen
+              - (torch.cumsum(seg_bits, 0) - seg_bits)[seg])
     gcum = torch.cumsum(group_len, 0) - group_len
     blk_first = torch.cumsum(ac_sum, 0) - ac_sum
     gstart = bstart[rows] + dc_len[rows] + gcum - blk_first[rows]
@@ -324,22 +353,22 @@ def scans(coefs: torch.Tensor) -> list[bytes]:
     zpos = torch.arange(zidx.numel(), device=dev) - torch.repeat_interleave(
         torch.cumsum(zrl, 0) - zrl, zrl)
     eob_at = torch.nonzero(has_eob, as_tuple=True)[0]
-    pad = (8 * img_bytes - img_bits)
-    pad_img = torch.nonzero(pad > 0, as_tuple=True)[0]
+    pad = (8 * seg_bytes - seg_bits)
+    pad_seg = torch.nonzero(pad > 0, as_tuple=True)[0]
     off = torch.cat([
         bstart, gstart + zrl * zrl_len, gstart[zidx] + zpos * zrl_len[zidx],
         bstart[eob_at] + blen[eob_at] - eob_len[eob_at],
-        img_base[pad_img] + img_bits[pad_img]])
+        seg_base[pad_seg] + seg_bits[pad_seg]])
     val = torch.cat([dc_bits, sym_bits, code[2 + chroma[rows[zidx]], 0xF0],
-                     eob_bits[eob_at], (1 << pad[pad_img]) - 1])
+                     eob_bits[eob_at], (1 << pad[pad_seg]) - 1])
     ln = torch.cat([dc_len, sym_len, zrl_len[zidx], eob_len[eob_at],
-                    pad[pad_img]])
+                    pad[pad_seg]])
     keep = ln > 0
     off, val, ln = off[keep], val[keep], ln[keep]
 
     # Merge the fields into 32-bit big-endian words (a field <= 27 bits
     # spans at most two words; fields never overlap, so adding is OR-ing).
-    total_bytes = int(img_bytes.sum())
+    total_bytes = int(seg_bytes.sum())
     words = torch.zeros(total_bytes // 4 + 2, dtype=torch.int64, device=dev)
     word = off >> 5
     end = (off & 31) + ln
@@ -359,39 +388,49 @@ def scans(coefs: torch.Tensor) -> list[bytes]:
     pos = torch.cumsum(step, 0) - step
     out = torch.zeros(int(step.sum()), dtype=torch.uint8, device=dev)
     out[pos] = raw.to(torch.uint8)
-    ends = torch.cumsum(img_bytes, 0)
+    ends = torch.cumsum(seg_bytes, 0)
     stuffed_ends = torch.cumsum(step, 0)[ends - 1]
     host = out.cpu().numpy().tobytes()
     cuts = [0] + stuffed_ends.cpu().tolist()
-    return [host[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    parts = [host[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    return [b"".join(p + bytes((0xFF, 0xD0 + j % 8))
+                     for j, p in enumerate(parts[i:i + n_seg - 1]))
+            + parts[i + n_seg - 1] for i in range(0, k * n_seg, n_seg)]
 
 
 def _segment(marker: int, payload: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
 
 
-def jfif_header(width: int, height: int, quality: int) -> bytes:
+def jfif_header(width: int, height: int, quality: int,
+                subsampling: str = "420", restart_interval: int = 0) -> bytes:
     """SOI, APP0 (JFIF 1.01), DQT (tables 0 and 1, zig-zag order), SOF0
-    (8-bit, 3 components, Y 2x2 and Cb, Cr 1x1), DHT (the four Annex K
-    tables) and SOS of the interleaved 4:2:0 scan."""
+    (8-bit, 3 components, Y at the sampling's h x v and Cb, Cr 1x1), DHT
+    (the four Annex K tables), DRI where the restart interval is above 0,
+    and SOS of the interleaved scan."""
+    h, v = SAMPLING[subsampling]
     out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
     for tid, base in ((0, QUANT_LUMA), (1, QUANT_CHROMA)):
         t = quality_table(base, quality)[ZIGZAG]
         out.append(_segment(0xDB, bytes([tid]) + bytes(int(v) for v in t)))
     out.append(_segment(0xC0, struct.pack(">BHHB", 8, height, width, 3)
-                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+                        + bytes([1, h << 4 | v, 0, 2, 0x11, 1, 3, 0x11, 1])))
     for tc_th, (bits, vals) in ((0x00, DC_LUMA), (0x10, AC_LUMA),
                                 (0x01, DC_CHROMA), (0x11, AC_CHROMA)):
         out.append(_segment(0xC4, bytes([tc_th]) + bytes(bits) + bytes(vals)))
+    if restart_interval:
+        out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
     out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
     return b"".join(out)
 
 
-def encode(rgb: torch.Tensor, quality: int) -> list[bytes]:
-    """(K, H, W, 3) uint8 RGB of one shape -> K baseline 4:2:0 JFIF streams."""
+def encode(rgb: torch.Tensor, quality: int, subsampling: str = "420",
+           restart_interval: int = 0) -> list[bytes]:
+    """(K, H, W, 3) uint8 RGB of one shape -> K baseline JFIF streams."""
     hh, ww = rgb.shape[1:3]
-    head = jfif_header(ww, hh, quality)
-    return [head + s + b"\xff\xd9" for s in scans(coefficients(rgb, quality))]
+    head = jfif_header(ww, hh, quality, subsampling, restart_interval)
+    coefs = coefficients(rgb, quality, subsampling=subsampling)
+    return [head + s + b"\xff\xd9" for s in scans(coefs, restart_interval)]
 
 
 # ---------------------------------------------------------------------------
@@ -408,14 +447,16 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _samples(coefs: torch.Tensor, quality: int, precision: str) -> torch.Tensor:
-    """(n_mcu, 6, 64) quantized zig-zag coefficients (DC absolute) ->
-    (n_mcu, 6, 8, 8) IDCT values + 128, before rounding, in float64.
+    """(n_mcu, h * v + 2, 64) quantized zig-zag coefficients (DC absolute)
+    -> (n_mcu, h * v + 2, 8, 8) IDCT values + 128, before rounding, in
+    float64.
 
     precision "float64": the reference. "tf32" (the control): float32
     matrix products whose operands are rounded to TF32, the step below the
     float32 that the configuration states for the IDCT."""
     dev = coefs.device
-    qz = np.stack([quality_table(QUANT_LUMA, quality)[ZIGZAG]] * 4
+    qz = np.stack([quality_table(QUANT_LUMA, quality)[ZIGZAG]]
+                  * (coefs.shape[1] - 2)
                   + [quality_table(QUANT_CHROMA, quality)[ZIGZAG]] * 2)
     deq = coefs.to(torch.float64) * torch.as_tensor(qz, dtype=torch.float64,
                                                     device=dev)
@@ -433,34 +474,46 @@ def _samples(coefs: torch.Tensor, quality: int, precision: str) -> torch.Tensor:
     raise ValueError(f"unknown precision {precision!r}")
 
 
-def _planes(s: torch.Tensor, mr: int, mc: int, fancy: bool):
-    """(n_mcu, 6, 8, 8) samples -> Y at full size, Cb and Cr upsampled."""
-    s = s.reshape(mr, mc, 6, 8, 8)
-    y = s[:, :, :4].reshape(mr, mc, 2, 2, 8, 8).permute(0, 2, 4, 1, 3, 5).reshape(
-        16 * mr, 16 * mc)
-    cb = s[:, :, 4].permute(0, 2, 1, 3).reshape(8 * mr, 8 * mc)
-    cr = s[:, :, 5].permute(0, 2, 1, 3).reshape(8 * mr, 8 * mc)
-    return y, _upsample2(cb, fancy), _upsample2(cr, fancy)
+def _planes(s: torch.Tensor, mr: int, mc: int, subsampling: str,
+            fancy: bool):
+    """(n_mcu, h * v + 2, 8, 8) samples of mr x mc MCUs -> Y at full size,
+    Cb and Cr upsampled to it."""
+    h, v = SAMPLING[subsampling]
+    s = s.reshape(mr, mc, h * v + 2, 8, 8)
+    y = s[:, :, :h * v].reshape(mr, mc, v, h, 8, 8).permute(
+        0, 2, 4, 1, 3, 5).reshape(8 * v * mr, 8 * h * mc)
+    cb = s[:, :, -2].permute(0, 2, 1, 3).reshape(8 * mr, 8 * mc)
+    cr = s[:, :, -1].permute(0, 2, 1, 3).reshape(8 * mr, 8 * mc)
+    return y, _upsample(cb, h, v, fancy), _upsample(cr, h, v, fancy)
 
 
 def _fancy(width: int) -> bool:
-    # libjpeg jdsample.c: triangular upsampling where the component's own
-    # width exceeds two samples, replication otherwise.
+    # libjpeg jdsample.c: triangular upsampling (h2v2, h2v1) where the
+    # chroma's own width, half the image's, exceeds two samples,
+    # replication otherwise.
     return (width + 1) // 2 > 2
 
 
+def _mcus(height: int, width: int, h: int, v: int) -> tuple[int, int]:
+    """MCU rows and columns of an image with luma sampling h x v, edges
+    padded."""
+    return -(-height // (8 * v)), -(-width // (8 * h))
+
+
 def pixels(coefs: torch.Tensor, quality: int, height: int, width: int,
-           precision: str = "float64") -> torch.Tensor:
-    """(n_mcu, 6, 64) quantized zig-zag coefficients of one 4:2:0 image
-    (DC absolute) -> (height, width, 3) uint8 RGB, as a baseline decoder
-    with fancy upsampling gives them: IDCT, round half to even, clip,
-    upsample, colour map, round, clip, crop. The colour map runs in the
-    IDCT's precision ("float64", or with TF32 operands for "tf32")."""
+           precision: str = "float64",
+           subsampling: str = "420") -> torch.Tensor:
+    """(n_mcu, h * v + 2, 64) quantized zig-zag coefficients of one image
+    at `subsampling` (DC absolute) -> (height, width, 3) uint8 RGB, as a
+    baseline decoder with fancy upsampling gives them: IDCT, round half to
+    even, clip, upsample, colour map, round, clip, crop. The colour map
+    runs in the IDCT's precision ("float64", or with TF32 operands for
+    "tf32")."""
     dev = coefs.device
-    mr, mc = (height + 15) // 16, (width + 15) // 16
+    mr, mc = _mcus(height, width, *SAMPLING[subsampling])
     samples = torch.clamp(torch.round(_samples(coefs, quality, precision)),
                           0.0, 255.0)
-    y, cb, cr = _planes(samples, mr, mc, _fancy(width))
+    y, cb, cr = _planes(samples, mr, mc, subsampling, _fancy(width))
     m = torch.as_tensor(YCBCR_TO_RGB, device=dev)
     ycc = torch.stack([y, cb - 128.0, cr - 128.0], dim=-1)
     if precision == "tf32":
@@ -479,7 +532,8 @@ TIE_BAND = 0.01
 
 
 def pixel_bounds(coefs: torch.Tensor, quality: int, height: int, width: int,
-                 band: float = TIE_BAND) -> tuple[torch.Tensor, torch.Tensor]:
+                 band: float = TIE_BAND, subsampling: str = "420"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The (lo, hi) uint8 RGB images that bound every decode of these
     coefficients that keeps the float32 contract: each sample rounds the
     exact IDCT value, either way only where that value lies within `band`
@@ -487,15 +541,14 @@ def pixel_bounds(coefs: torch.Tensor, quality: int, height: int, width: int,
     so chosen, either way only within `band` of a boundary. The colour map
     is monotone in every sample (and the triangular filter's weights are
     positive), so the bounds come from the lowest and highest samples."""
-    dev = coefs.device
-    mr, mc = (height + 15) // 16, (width + 15) // 16
+    mr, mc = _mcus(height, width, *SAMPLING[subsampling])
     x = _samples(coefs, quality, "float64")
     near = (x - torch.floor(x) - 0.5).abs() < band
     lo = torch.where(near, torch.floor(x), torch.round(x)).clamp(0.0, 255.0)
     hi = torch.where(near, torch.floor(x) + 1.0, torch.round(x)).clamp(0.0, 255.0)
     fancy = _fancy(width)
-    ylo, cblo, crlo = _planes(lo, mr, mc, fancy)
-    yhi, cbhi, crhi = _planes(hi, mr, mc, fancy)
+    ylo, cblo, crlo = _planes(lo, mr, mc, subsampling, fancy)
+    yhi, cbhi, crhi = _planes(hi, mr, mc, subsampling, fancy)
     m = YCBCR_TO_RGB
     vmin, vmax = [], []
     for row in m:
@@ -535,10 +588,17 @@ def _triangle(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out.reshape(2 * x.shape[0], *x.shape[1:]).movedim(0, dim)
 
 
-def _upsample2(p: torch.Tensor, fancy: bool) -> torch.Tensor:
+def _upsample(p: torch.Tensor, h: int, v: int, fancy: bool) -> torch.Tensor:
+    """A chroma plane to the luma grid, as libjpeg's jdsample.c does: h2v2
+    (4:2:0) and h2v1 (4:2:2) by the triangle along each doubled axis, or by
+    replication where not fancy; 1x1 (4:4:4) as it is."""
     if not fancy:
-        return p.repeat_interleave(2, 0).repeat_interleave(2, 1)
-    return _triangle(_triangle(p, 1), 0)
+        return p.repeat_interleave(v, 0).repeat_interleave(h, 1)
+    if h == 2:
+        p = _triangle(p, 1)
+    if v == 2:
+        p = _triangle(p, 0)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -605,24 +665,52 @@ def parse(data: bytes) -> dict:
     raise ValueError("no SOS")
 
 
-def decode_coefficients(data: bytes) -> tuple[dict, np.ndarray]:
-    """A plain serial Huffman decode of a baseline interleaved 4:2:0 stream
-    without restarts -> (parse(data), (n_mcu, 6, 64) int64 zig-zag
-    coefficients, DC absolute)."""
-    info = parse(data)
-    if info["restart"]:
-        raise ValueError("restart intervals are not decoded here")
-    comps = info["components"]
-    if [(h, v) for _, h, v, _ in comps] != [(2, 2), (1, 1), (1, 1)]:
-        raise ValueError("4:2:0 only")
-    raw = info["scan"]
-    unstuffed = bytearray()
-    j = 0
+def _scan_intervals(raw: bytes) -> list[bytes]:
+    """An entropy-coded scan -> its restart intervals, unstuffed. Raises
+    ValueError on a marker other than RSTn inside the scan, or an RSTn
+    whose n is not the interval's number mod 8."""
+    out, cur, j = [], bytearray(), 0
     while j < len(raw):
-        unstuffed.append(raw[j])
-        j += 2 if raw[j] == 0xFF else 1
-    bits = np.unpackbits(np.frombuffer(bytes(unstuffed), dtype=np.uint8))
-    pos = 0
+        if raw[j] != 0xFF:
+            cur.append(raw[j])
+            j += 1
+            continue
+        nxt = raw[j + 1] if j + 1 < len(raw) else -1
+        if nxt == 0x00:
+            cur.append(0xFF)
+        elif 0xD0 <= nxt <= 0xD7 and nxt - 0xD0 == len(out) % 8:
+            out.append(bytes(cur))
+            cur = bytearray()
+        else:
+            raise ValueError(f"0xFF {nxt:#04x} at byte {j} of the scan "
+                             f"(RST{len(out) % 8} or a stuffed 0 expected)")
+        j += 2
+    out.append(bytes(cur))
+    return out
+
+
+def decode_coefficients(data: bytes) -> tuple[dict, np.ndarray]:
+    """A plain serial Huffman decode of a baseline interleaved stream at
+    4:2:0, 4:2:2 or 4:4:4, with or without restart intervals -> (parse(data),
+    (n_mcu, h * v + 2, 64) int64 zig-zag coefficients, DC absolute). Checks
+    that every interval holds its MCUs and only 1-bits of padding after
+    them, that RSTn counts n = 0..7 in turn, and resets the DC predictors
+    at each. Raises ValueError on any other stream."""
+    info = parse(data)
+    comps = info["components"]
+    factors = [(h, v) for _, h, v, _ in comps]
+    if len(comps) != 3 or factors[1:] != [(1, 1), (1, 1)] or (
+            factors[0] not in SAMPLING.values()):
+        raise ValueError(f"sampling {factors} is not decoded here")
+    h, v = factors[0]
+    hh, ww = info["height"], info["width"]
+    mr, mc = _mcus(hh, ww, h, v)
+    n_mcu = mr * mc
+    per = info["restart"] or n_mcu
+    intervals = _scan_intervals(info["scan"])
+    if len(intervals) != -(-n_mcu // per):
+        raise ValueError(f"{len(intervals)} restart intervals where "
+                         f"{-(-n_mcu // per)} are due")
 
     def table(cls, tid):
         code, length = huffman_codes(info["htables"][(cls, tid)])
@@ -632,6 +720,8 @@ def decode_coefficients(data: bytes) -> tuple[dict, np.ndarray]:
     tabs = {}
     for cid, td, ta in info["scan_components"]:
         tabs[cid] = (table(0, td), table(1, ta))
+
+    bits, pos = np.zeros(0, dtype=np.uint8), 0
 
     def symbol(t):
         nonlocal pos
@@ -651,27 +741,31 @@ def decode_coefficients(data: bytes) -> tuple[dict, np.ndarray]:
             pos += 1
         return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
 
-    hh, ww = info["height"], info["width"]
-    n_mcu = ((hh + 15) // 16) * ((ww + 15) // 16)
-    out = np.zeros((n_mcu, 6, 64), dtype=np.int64)
-    pred = {}
-    order = [comps[0][0]] * 4 + [comps[1][0], comps[2][0]]
-    for m in range(n_mcu):
-        for b, cid in enumerate(order):
-            dct, act = tabs[cid]
-            s = symbol(dct)
-            pred[cid] = pred.get(cid, 0) + receive(s)
-            out[m, b, 0] = pred[cid]
-            k = 1
-            while k < 64:
-                rs = symbol(act)
-                r, s = rs >> 4, rs & 15
-                if s == 0:
-                    if r != 15:
-                        break
-                    k += 16
-                    continue
-                k += r
-                out[m, b, k] = receive(s)
-                k += 1
+    out = np.zeros((n_mcu, h * v + 2, 64), dtype=np.int64)
+    order = [comps[0][0]] * (h * v) + [comps[1][0], comps[2][0]]
+    for n, seg in enumerate(intervals):
+        bits = np.unpackbits(np.frombuffer(seg, dtype=np.uint8))
+        pos = 0
+        pred = {}
+        for m in range(n * per, min((n + 1) * per, n_mcu)):
+            for b, cid in enumerate(order):
+                dct, act = tabs[cid]
+                s = symbol(dct)
+                pred[cid] = pred.get(cid, 0) + receive(s)
+                out[m, b, 0] = pred[cid]
+                k = 1
+                while k < 64:
+                    rs = symbol(act)
+                    r, s = rs >> 4, rs & 15
+                    if s == 0:
+                        if r != 15:
+                            break
+                        k += 16
+                        continue
+                    k += r
+                    out[m, b, k] = receive(s)
+                    k += 1
+        if len(bits) - pos >= 8 or not bits[pos:].all():
+            raise ValueError(f"interval {n}: {len(bits) - pos} bits after "
+                             "its last MCU that are not 1-padding")
     return info, out

@@ -3,6 +3,8 @@ and scans alone, and the card's peak bandwidth: the yardstick of the
 roofline shares. A later kernel that fuses or renames work is judged on the
 same bytes."""
 
+from lib.plainjpeg import SAMPLING
+
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3 bandwidth (at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 # One 8x8 block of coefficients as int16.
@@ -11,9 +13,16 @@ COEF_BYTES_PER_BLOCK = 128
 RGB_BYTES_PER_PIXEL = 3
 
 
+def blocks(width: int, height: int, subsampling: str) -> int:
+    """8x8 blocks of a scan at `subsampling`: h * v + 2 per 8h x 8v MCU,
+    edges padded."""
+    h, v = SAMPLING[subsampling]
+    return -(-width // (8 * h)) * -(-height // (8 * v)) * (h * v + 2)
+
+
 def blocks_420(width: int, height: int) -> int:
     """8x8 blocks of a 4:2:0 scan: six per 16x16 MCU, edges padded."""
-    return ((width + 15) // 16) * ((height + 15) // 16) * 6
+    return blocks(width, height, "420")
 
 
 def entropy_bytes(scan_bytes: int, blocks: int) -> int:

@@ -2,8 +2,9 @@
 precision below the one the configuration states (decode: the IDCT and
 colour map with TF32 operands instead of float32; encode: the transform in
 float32 instead of exact integers), must come out not correct, where the
-program comes out correct. On the CPU at small sizes here; the cuda-marked
-case repeats it on the card at the cells' own sizes."""
+program comes out correct. On the CPU at small sizes here, also at 4:2:2
+and 4:4:4 and with restart intervals; the cuda-marked case repeats it on
+the card at the cells' own sizes."""
 
 import pytest
 import torch
@@ -14,6 +15,14 @@ from test_bench_faults import small_cells
 SMALL = {"width": 256, "height": 160}
 MIX = {"shapes": [[250, 187, 40], [250, 166, 25], [187, 250, 15],
                   [166, 250, 10], [250, 250, 10]]}
+# The cells' configurations at other samplings and with restart intervals
+# (16 MCUs: one MCU row of the 250-pixel widths at 4:2:2).
+FORMS = [("ilsvrc-decode-stream", dict(MIX, subsampling="422",
+                                       restart_interval=16)),
+         ("ilsvrc-decode-stream", dict(MIX, subsampling="444",
+                                       restart_interval=7)),
+         ("uhd-encode-stream", dict(SMALL, subsampling="444")),
+         ("uhd-encode-stream", dict(SMALL, subsampling="422"))]
 
 
 def readings(cell, seed, device, override=None, seconds=0.5):
@@ -25,7 +34,7 @@ def readings(cell, seed, device, override=None, seconds=0.5):
 
 
 @pytest.mark.parametrize("seed", [3, 2**31 + 17, 99991])
-@pytest.mark.parametrize("cell,override", small_cells(SMALL, MIX))
+@pytest.mark.parametrize("cell,override", small_cells(SMALL, MIX) + FORMS)
 def test_control_fails_where_the_program_passes(cell, override, seed):
     r, control, limits = readings(cell, seed, "cpu", override)
     assert r["correct"], r["checks"]

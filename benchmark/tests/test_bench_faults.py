@@ -29,7 +29,13 @@ def small_cells(frames, mix):
     return out
 
 
-CELLS = small_cells(SMALL, MIX)
+# Every cell, and a cell's configuration at another sampling with restart
+# intervals.
+CELLS = small_cells(SMALL, MIX) + [
+    ("ilsvrc-decode-stream", dict(MIX, subsampling="422", restart_interval=4))]
+IDS = [c + ("" if "subsampling" not in o else
+            f"-{o['subsampling']}-rst{o['restart_interval']}")
+       for c, o in CELLS]
 
 
 def altered(out):
@@ -71,7 +77,7 @@ def run(cell, override, port=None, seed=2**31 + 5):
                             config_override=override, port=port)
 
 
-@pytest.mark.parametrize("cell,override", CELLS, ids=[c for c, _ in CELLS])
+@pytest.mark.parametrize("cell,override", CELLS, ids=IDS)
 def test_sound_program_is_correct(cell, override):
     r = run(cell, override)
     assert r["correct"], r["checks"]
@@ -79,14 +85,14 @@ def test_sound_program_is_correct(cell, override):
 
 
 @pytest.mark.parametrize("kind", ["altered", "stale"])
-@pytest.mark.parametrize("cell,override", CELLS, ids=[c for c, _ in CELLS])
+@pytest.mark.parametrize("cell,override", CELLS, ids=IDS)
 def test_broken_path_is_not_correct(cell, override, kind):
     r = run(cell, override, faulty_port(kind))
     assert not r["correct"], r["checks"]
 
 
 @pytest.mark.parametrize("key,value", [
-    ("subsampling", "444"), ("restart_interval", 240),
+    ("subsampling", "411"), ("restart_interval", 240),
     ("optimize_tables", True), ("progressive", True)])
 def test_a_configuration_the_reference_does_not_implement_is_refused(
         key, value):

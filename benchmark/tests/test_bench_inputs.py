@@ -1,10 +1,17 @@
 """The benchmark's inputs and its plain codec, on the CPU at small sizes."""
 
+import hashlib
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
-from lib import inputs, plainjpeg as P
+from lib import check, inputs, plainjpeg as P
+from metrics import work_bytes
+
+CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 
 SMALL = {"kind": "frames", "width": 72, "height": 40, "quality": 75,
          "noise": 10, "roll": 97, "subsampling": "420"}
@@ -126,3 +133,75 @@ def test_scans_of_a_batch_equal_one_by_one():
     together = P.scans(coefs)
     alone = [P.scans(coefs[i:i + 1])[0] for i in range(3)]
     assert together == alone
+
+
+def _sha(*parts) -> str:
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p if isinstance(p, bytes) else np.ascontiguousarray(p).tobytes())
+    return h.hexdigest()
+
+
+# SHA-256 of what the benchmark made of each configuration before the plain
+# codec took other samplings and restart intervals: the streams of the first
+# 4 images (build(config, 0, 4, seed)) at seeds 0 and 1, their block and
+# scan-byte counts, and for image 0 of seed 0 the reference bounds, the
+# control's decode and the reference and control encodes. uhd-q75-420 runs
+# at a stated crop, 3840x72 (its 4K frames are too slow for a test; 72 rows
+# leave a part MCU row); ilsvrc-q90-420 at its own shapes.
+IDENTITY = {
+    "uhd-q75-420": ({"height": 72}, {
+        "streams/0": "d2f8a2f39abb6db06a42e0cfcd1147c6719626b72d307b3be02d9311064112bc",
+        "blocks/0": [7200, 7200, 7200, 7200],
+        "scan_bytes/0": [31243, 31409, 31322, 31332],
+        "streams/1": "55da76f5265857e42ae5abf64823cf975c291436db6d4f2676c084659f57cd3e",
+        "blocks/1": [7200, 7200, 7200, 7200],
+        "scan_bytes/1": [31340, 31518, 31480, 31562],
+        "bounds": "627940f9c543335bb1cd97d2feec05c45dabbbf2aab06ccc0e4ca0bf08fe53a8",
+        "control": "26f298e1bc291763e3c2801cfa2e8169758ff189179fc166c9937cb3f88f9ea0",
+        "stream": "59e2e51d7ea392f5b1b9fa4e5ee32e4eef8b3ceb447b8bdc0615acc9240cc5cf",
+        "stream_f32": "d5c540b83cebaa834f2b8028dd11551fd0b2f3aea4fe6cde2eab4694c99040af",
+    }),
+    "ilsvrc-q90-420": ({}, {
+        "streams/0": "915477884c0a39fba565e8e1ecba40c4505dc8eba5d841d565c7be3e294ef81b",
+        "blocks/0": [4032, 4608, 4608, 4608],
+        "scan_bytes/0": [37092, 41784, 41842, 41676],
+        "streams/1": "aaff9bc9a4f91a2b47f245887cf8574f3bfeab4333c64f040fe671e1597cbebb",
+        "blocks/1": [4608, 4608, 4032, 4608],
+        "scan_bytes/1": [41890, 41953, 37074, 41578],
+        "bounds": "c07582c0b4748fedd19c001a3fad233232d3d4c5c71734e8b4feabcac57066ce",
+        "control": "2ac056047b38abeb169572256f7b82559d34ec847f8888b4b78ad8724dd70fde",
+        "stream": "dc9841446e941044e41e8e1dcf17be75b8dd919ddb913a53f7c2ed9eb8949dec",
+        "stream_f32": "8b26af847c56fc4e1e636d4bb738eaee3babf3320bf6412a401e56d93a119288",
+    }),
+}
+
+
+@pytest.mark.parametrize("name", sorted(IDENTITY))
+def test_existing_configurations_make_the_same_bytes(name):
+    override, want = IDENTITY[name]
+    config = dict(json.loads((CONFIGS / f"{name}.json").read_text()), **override)
+    got = {}
+    for seed in (0, 1):
+        inp = inputs.build(config, 0, 4, seed, "cpu")
+        got[f"streams/{seed}"] = _sha(*inp.streams)
+        got[f"blocks/{seed}"] = inp.blocks
+        got[f"scan_bytes/{seed}"] = inp.scan_bytes
+        if seed == 0:
+            frame, q = inp.frames[0], config["quality"]
+            got["bounds"] = _sha(*check.reference_bounds(frame, q, "cpu"))
+            got["control"] = _sha(check.control_pixels(frame, q, "cpu"))
+            got["stream"] = _sha(check.reference_stream(frame, q, "cpu"))
+            got["stream_f32"] = _sha(check.reference_stream(frame, q, "cpu",
+                                                            "float32"))
+    assert got == want
+
+
+def test_block_counts_of_the_existing_configurations():
+    shapes = [(3840, 2160)]
+    shapes += [(w, h) for w, h, _ in json.loads(
+        (CONFIGS / "ilsvrc-q90-420.json").read_text())["shapes"]]
+    for w, h in shapes:
+        assert work_bytes.blocks(w, h, "420") == work_bytes.blocks_420(w, h)
+    assert work_bytes.blocks(3840, 2160, "422") == 240 * 270 * 4
+    assert work_bytes.blocks(500, 375, "444") == 63 * 47 * 3

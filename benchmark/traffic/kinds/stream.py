@@ -2,7 +2,8 @@
 encode_stream by the traffic file's "direction", fed an endless cycle of the
 cell's "distinct" inputs. The file's "args" are passed to the entry as they
 are (depth, entropy, device_output, ...); an encode stream also gets the
-configuration's quality and subsampling. One client takes each answer as it
+configuration's quality and subsampling, and refuses a configuration with
+restart intervals, which encode_stream cannot write. One client takes each answer as it
 comes and stops at the first answer after the window's end."""
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ def _open(port, traffic: dict, config: dict, device):
     args = dict(traffic["args"], device=device)
     if traffic["direction"] == "decode":
         return "streams", lambda it: port.decode_stream(it, **args)
+    if config.get("restart_interval", 0):
+        raise ValueError(
+            f"configuration restart_interval={config['restart_interval']!r} "
+            "cannot be encoded as stated: encode_stream takes no restart "
+            "interval")
     args.update(quality=config["quality"], subsampling=config["subsampling"])
     return "frames", lambda it: port.encode_stream(it, **args)
 
