@@ -38,10 +38,13 @@ from jpeg_tpu_torch.ops import _cuda
 # kernel, nowhere else). The block-start program counts once per
 # prefix_index call (PREFIX_LAUNCHES) or decode_segments call
 # (SEGMENT_LAUNCHES, which launches kernel D too); its five launches add up
-# in PREFIX_STAGE_LAUNCHES either way. SYNC_PASSES (a module attribute read
-# through __getattr__ below) is the resolve rounds of the last call.
+# in PREFIX_STAGE_LAUNCHES either way. RESTART_SEGMENTS sums the restart
+# segments that decode_segments walked, on either device. SYNC_PASSES (a
+# module attribute read through __getattr__ below) is the resolve rounds of
+# the last call.
 AC_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
+RESTART_SEGMENTS = 0
 PREFIX_LAUNCHES = 0
 PREFIX_STAGE_LAUNCHES = 0
 _last_passes = None
@@ -305,9 +308,9 @@ def _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
     PyTorch's current stream, into the prepared `rows` and `status`. No
     checks; allocates the program's scratch and its per-block outputs.
     `lib` and `ac_lib` are the two programs' builds (the CUDA ones unless
-    given). Counts one segment call, the program's launches and kernel
-    D's."""
-    global SEGMENT_LAUNCHES, PREFIX_STAGE_LAUNCHES
+    given). Counts one segment call, its segments, the program's launches
+    and kernel D's."""
+    global SEGMENT_LAUNCHES, RESTART_SEGMENTS, PREFIX_STAGE_LAUNCHES
     lib = lib or _cuda.load("prefix_index")
     dev, nblocks = words.device, rows.shape[0]
     per_block = torch.empty((4, nblocks), dtype=torch.int32, device=dev)
@@ -321,6 +324,7 @@ def _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
     _note_passes(scratch)
     with _COUNT_LOCK:
         SEGMENT_LAUNCHES += 1
+        RESTART_SEGMENTS += seg_off.numel()
         PREFIX_STAGE_LAUNCHES += len(steps)
     # Absolute DCs: a running sum of the differences, less its value just
     # before the first row of the block's component in its segment. A
@@ -345,9 +349,13 @@ def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
     flagged segment are unspecified (decoders raise on any flag).
 
     CUDA tensors run the anchored mode of the chunked block-start program
-    (csrc/prefix_index.cu) and kernel D; CPU tensors run the plain twin."""
+    (csrc/prefix_index.cu) and kernel D; CPU tensors run the plain twin.
+    Either adds S to RESTART_SEGMENTS."""
+    global RESTART_SEGMENTS
     dev = words.device
     if dev.type == "cpu":
+        with _COUNT_LOCK:
+            RESTART_SEGMENTS += seg_off.numel()
         return decode_segments_reference(words, seg_off, interval, mcu_count,
                                          seq, tables, nblocks)
     if dev.type != "cuda":

@@ -53,8 +53,9 @@ import torch_port_fixtures as fixtures
 
 from torch_port_util import (
     LEVEL1_SIZES, ac_indexed_inputs, adversarial_idct_planes,
-    adversarial_level1_case, make_image, prefix_inputs, random_blocks,
-    regroup_prefix, require_cuda, scan_args, segment_inputs)
+    adversarial_level1_case, make_image, outside_bounds, plain_streams,
+    prefix_inputs, random_blocks, regroup_prefix, require_cuda, scan_args,
+    segment_inputs)
 
 BUDGET = bitpack.BLOCK_WORDS * 32
 
@@ -851,6 +852,24 @@ def test_device_entropy_on_fixtures_and_streams_on_card(entropy):
     assert fused.ZZ_LAUNCHES - before == len(ref)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_camera_frames_take_the_anchored_route_on_card():
+    """Three 1080p RFC 2435 type-64 frames (4:2:2, a restart every MCU row:
+    135 segments) from the benchmark's plain encoder through decode_stream
+    as the camera cell runs it: every segment walked by the anchored route,
+    no launch of program F, the pixels inside the reference's bounds."""
+    dev = require_cuda()
+    imgs = [make_image(1080, 1920, seed=k) for k in range(3)]
+    jpgs, coefs = plain_streams(imgs, "422", 120, device=dev)
+    before = (entropy_decode.RESTART_SEGMENTS, entropy_decode.PREFIX_LAUNCHES)
+    got = list(jpeg_tpu_torch.decode_stream(
+        iter(jpgs), depth=2, entropy="auto", device_output=True, device=dev))
+    assert (entropy_decode.RESTART_SEGMENTS - before[0],
+            entropy_decode.PREFIX_LAUNCHES - before[1]) == (3 * 135, 0)
+    for out, c in zip(got, coefs):
+        assert outside_bounds(out, c, 1080, 1920, "422") == 0
 
 
 @pytest.mark.cuda

@@ -560,11 +560,14 @@ def run_segments_standin(lib, words, seg_off, interval, n_mcu, seq, tables,
                          nblocks):
     rows = torch.full((nblocks, 64), -7, dtype=torch.int32)
     status = torch.full((2, seg_off.shape[0]), -1, dtype=torch.int32)
-    before = (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES)
+    before = (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES,
+              ED.RESTART_SEGMENTS)
     ED._launch_segments(words, seg_off, interval, n_mcu, seq, tables, rows,
                         status, lib=lib, ac_lib=lib)
-    assert (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES) == (
-        before[0] + 1, before[1] + 5, before[2] + 1)
+    assert (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES,
+            ED.RESTART_SEGMENTS) == (before[0] + 1, before[1] + 5,
+                                     before[2] + 1,
+                                     before[3] + seg_off.shape[0])
     return rows, status
 
 

@@ -5,6 +5,10 @@ the tests run anywhere the repository does."""
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -18,6 +22,48 @@ def make_image(h, w, seed=0):
     )
     noise = rng.integers(-10, 11, size=(h, w, 3))
     return np.clip(grad + noise, 0, 255).astype(np.uint8)
+
+
+@functools.cache
+def plainjpeg():
+    """The benchmark's plain codec and reference (benchmark/lib/plainjpeg.py),
+    loaded by its path: it imports numpy and torch only, never jax."""
+    path = (pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+            / "lib" / "plainjpeg.py")
+    spec = importlib.util.spec_from_file_location("bench_plainjpeg", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def plain_streams(images, subsampling: str, restart: int, quality=75,
+                  device="cpu"):
+    """(streams, coefficients) of uint8 (H, W, 3) images of one shape, as
+    the plain encoder writes them: one JFIF stream and one (MCUs, blocks,
+    64) coefficient tensor per image."""
+    import torch
+
+    P = plainjpeg()
+    rgb = torch.as_tensor(np.stack(images), device=device)
+    coefs = P.coefficients(rgb, quality, subsampling=subsampling)
+    head = P.jfif_header(rgb.shape[2], rgb.shape[1], quality, subsampling,
+                         restart)
+    return ([head + s + b"\xff\xd9" for s in P.scans(coefs, restart)],
+            list(coefs))
+
+
+def outside_bounds(out, coefs, height: int, width: int, subsampling: str,
+                   quality=75) -> int:
+    """RGB bytes of a decode outside the reference's pixel_bounds (all of
+    them where its shape differs)."""
+    import torch
+
+    lo, hi = plainjpeg().pixel_bounds(coefs, quality, height, width,
+                                      subsampling=subsampling)
+    out = torch.as_tensor(out).cpu()
+    if out.shape != lo.shape:
+        return lo.numel()
+    return int(((out < lo.cpu()) | (out > hi.cpu())).sum())
 
 
 def random_blocks(rng, n, density):
