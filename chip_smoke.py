@@ -202,7 +202,7 @@ QUALITY, SUBSAMPLING = 75, "420"
 WARM, RUNS = 2, 7
 DIFF_SHARE = 0.005  # decoded samples allowed to differ by 1 from the CPU path
 KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "prefix_index",
-           "finish_color")
+           "finish_color", "pack_scan")
 KERNEL_LAUNCHES = 20  # launches per timed replay of kernel_only_us
 COLD_BYTES = 200_000_000  # moved between two uses of a buffer; the L2 holds 50 MB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -773,6 +773,37 @@ def run(card: str) -> dict:
               f"max |err| {e}", flush=True)
         err_a = max(err_a, e)
     check(err_a == 0, f"kernel A disagrees with its plain twin (max {err_a})")
+
+    lap("4c")
+    # Phase 4c: the scan pass against its twin (pack_level2 + the native
+    # finalize) on the 4K frame's kernel A output, in one segment and at
+    # restart ROW_RESTART (135 segments): bytes and status; its launches
+    # per encode() and per encode_stream image.
+    scan_sets, err_scan = {}, 0
+    for r in (0, ROW_RESTART):
+        blk_r, tbl_r, n_mcu_r, _ = encoder._interleaved_blocks(
+            dimg, quant.luma_table(QUALITY), quant.chroma_table(QUALITY),
+            mode, r)
+        scan_sets[r] = encoder._level1_segments(
+            blk_r, tbl_r, encoder._device_luts(htables, dev), n_mcu_r, r)
+        got_scan, got_status = pack.pack_scan(*scan_sets[r])
+        ref_scan, ref_status = pack.pack_scan_reference(*scan_sets[r])
+        count = int(ref_status[-1])
+        same = (got_status.cpu().tolist() == ref_status.tolist()
+                and torch.equal(got_scan[:count].cpu(), ref_scan))
+        err_scan += not same
+        print(f"phase 4c: scan pass vs twin, 4K q{QUALITY} restart {r}: "
+              f"{scan_sets[r][1].shape[0]} segments, {count} bytes, equal "
+              f"{same}", flush=True)
+    check(err_scan == 0, "the scan pass disagrees with its twin")
+    before = pack.SCAN_LAUNCHES
+    jpeg_tpu_torch.encode(img, QUALITY, SUBSAMPLING, device=dev)
+    scan_per_encode = pack.SCAN_LAUNCHES - before
+    list(jpeg_tpu_torch.encode_stream(iter([img] * 4), QUALITY, SUBSAMPLING,
+                                      device=dev))
+    scan_per_stream_image = (pack.SCAN_LAUNCHES - before - scan_per_encode) / 4
+    print(f"phase 4c: scan pass launches: {scan_per_encode} per encode(), "
+          f"{scan_per_stream_image} per encode_stream image", flush=True)
 
     lap("4b")
     # Phase 4b: kernel A with optimal tables whose codes reach 16 bits.
@@ -2482,6 +2513,8 @@ def run(card: str) -> dict:
     # used words, the native finalize.
     slot = pipeline._Slot(dev)
     ms_stage_copy = median_ms_host(lambda: slot.stage(img), torch)
+    # The tail before the scan pass, for comparison: the used words' int64
+    # download and the native finalize.
     words4k, totals4k, ok4k = encoder._pack_device(
         blocks4k, tbl4k, encoder._device_luts(htables, dev), n_mcu, 0)
     status4k = encoder._pack_status(totals4k, ok4k).cpu().numpy()
@@ -2494,6 +2527,12 @@ def run(card: str) -> dict:
     w_host = fetch_words()
     ms_finalize = median_ms_host(
         lambda: bitpack.finalize_stream(w_host, status4k[0]), torch)
+    scan4k, scan_status4k = encoder._scan_device(
+        blocks4k, tbl4k, encoder._device_luts(htables, dev), n_mcu, 0)
+    count4k = int(scan_status4k[-1])
+    torch.cuda.synchronize()
+    ms_scan_download = median_ms_host(
+        lambda: slot.download(scan4k, count4k).tobytes(), torch)
 
     n_mcu_4k = mcu_rows * mcu_cols
     lay_4k = [(i, c.h * c.v, c.dc_id, c.ac_id) for i, c in enumerate(comps)]
@@ -2719,6 +2758,29 @@ def run(card: str) -> dict:
         outs = [tuple(torch.empty_like(t) for t in out_like)
                 for _ in range(nbuf)]
         return kernel_only_us(lambda i: launch(*ins[i], *outs[i]), nbuf, torch)
+
+    # The scan pass on the 4K frame's kernel A output, one segment: the
+    # wrapper, the twin (level 2 on the card, the words' download, the
+    # native finalize) and its four launches alone. Its bytes: each total
+    # read, each word that holds bits read, each scan byte written.
+    buf_s, tb_s, nw_s = scan_sets[0]
+    ms_scan = median_ms_device(lambda: pack.pack_scan(buf_s, tb_s, nw_s), torch)
+    ms_scan_plain = median_ms_device(
+        lambda: pack.pack_scan_reference(buf_s, tb_s, nw_s), torch)
+    bytes_scan = int(tb_s.numel() * 4 + ((tb_s.to(torch.int64) + 31) // 32
+                                         ).sum() * 4) + count4k
+    nseg_s, nblk_s = tb_s.shape
+    scan_out_like = (
+        torch.empty(pack.scan_scratch_bytes(nseg_s, nblk_s, nw_s),
+                    dtype=torch.uint8, device=dev),
+        torch.empty(pack.scan_capacity(nseg_s, nw_s), dtype=torch.uint8,
+                    device=dev),
+        torch.empty(2 * nseg_s + 1, dtype=torch.int64, device=dev))
+    us_scan = alone(
+        (buf_s.contiguous(), tb_s.contiguous()), scan_out_like,
+        lambda b, t, sc, o, st: pack._launch_scan(b, t, sc, o, st, nw_s, 0),
+        sum(t.numel() * t.element_size() for t in (buf_s, tb_s))
+        + nw_s * 4 + count4k)
 
     nblk = blocks4k.shape[0]
     bytes_a = level1_bytes(nblk)
@@ -2999,7 +3061,9 @@ def run(card: str) -> dict:
           f"ms); 'fused' with device_output (no download) "
           f"{ms_dec_batch_dev:.3f} ms [{card}]", flush=True)
     print(f"phase 8: encode_stream host pieces per 4K image: copy into the "
-          f"pinned staging buffer {ms_stage_copy:.3f} ms, download of "
+          f"pinned staging buffer {ms_stage_copy:.3f} ms, pinned download of "
+          f"the {count4k} scan bytes and their copy out "
+          f"{ms_scan_download:.3f} ms; before the scan pass: download of "
           f"{maxw * 4} bytes of words {ms_word_download:.3f} ms, native "
           f"finalize {ms_finalize:.3f} ms [{card}]", flush=True)
     print(f"phase 8: decode_batched batch_mode='auto' takes "
@@ -3041,6 +3105,9 @@ def run(card: str) -> dict:
          f"walk on the host)", ms_e, secs_e_plain * 1e3),
         (f"program F prefix_index, {f_nbits} bit positions", ms_f,
          ms_f_plain),
+        (f"scan pass pack_scan, {nblk_s} blocks, {count4k} scan bytes (twin: "
+         f"level 2, the words' download, the native finalize)", ms_scan,
+         ms_scan_plain),
     ):
         print(f"phase 8: {label}: {ms:.4f} ms; plain twin on the card "
               f"{plain:.4f} ms; median of {RUNS} [{card}]", flush=True)
@@ -3154,6 +3221,17 @@ def run(card: str) -> dict:
               finish_ms_in_turns=ms_finish_turns,
               decode_ms_in_turns=ms_decode_turns,
               finish_kernels_by_profiler=len(finish_kernels)),
+        {"name": "pack_scan", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/pack_scan.cu",
+         "replaces": None, "launches": scan_per_encode, "max_abs_err": err_scan,
+         "ms": ms_scan, "plain_ms": ms_scan_plain,
+         "bound_ms": bound_us(bytes_scan) / 1e3, "bound_by": "bytes",
+         "library_ms": None, "kernel_us": us_scan, "bytes": bytes_scan,
+         "bound_us": bound_us(bytes_scan),
+         "bound_share": bound_us(bytes_scan) / us_scan,
+         "launches_per": {"default_encode": scan_per_encode,
+                          "encode_stream_per_image": scan_per_stream_image},
+         "covers": "the memset and the three kernels, one launch each"},
     ]}
 
 

@@ -36,6 +36,13 @@ def _seg(marker: int, payload: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
 
 
+def _byte_values(values) -> bytes:
+    """An integer array's values, each in range(0, 256), as one byte each
+    (bytes() of a list of Python ints: a C loop, where a generator of numpy
+    scalars is a Python one)."""
+    return bytes(np.asarray(values).reshape(-1).tolist())
+
+
 @dataclasses.dataclass
 class ComponentSpec:
     comp_id: int
@@ -104,7 +111,8 @@ def write_jpeg(
     comment: str | None = None,
     adobe_transform: int | None = None,
 ) -> bytes:
-    """Assemble a baseline JFIF stream.
+    """Assemble a baseline JFIF stream. scan_data may be any bytes-like
+    object (a numpy uint8 array too); it is copied once, into the result.
 
     qtables: id -> (8, 8) raster-order table; stored zig-zagged per spec.
     htables: (is_ac, id) -> HuffTable.
@@ -112,12 +120,12 @@ def write_jpeg(
     (0 = untransformed, 1 = YCbCr, 2 = YCCK — needed for 4-component
     CMYK/YCCK streams, which decoders key off the marker).
     """
-    return (
+    return b"".join((
         write_header(width, height, components, qtables, htables,
-                     restart_interval, comment, adobe_transform)
-        + scan_data
-        + struct.pack(">BB", 0xFF, EOI)
-    )
+                     restart_interval, comment, adobe_transform),
+        scan_data,
+        struct.pack(">BB", 0xFF, EOI),
+    ))
 
 
 def write_header(
@@ -145,7 +153,7 @@ def write_header(
     for qid in sorted(qtables):
         q = np.asarray(qtables[qid], dtype=np.int32).reshape(64)
         zz = q[T.ZIGZAG_ORDER]
-        out.append(_seg(DQT, bytes([qid]) + bytes(int(x) for x in zz)))
+        out.append(_seg(DQT, bytes([qid]) + _byte_values(zz)))
 
     ncomp = len(components)
     sof = struct.pack(">BHHB", 8, height, width, ncomp)
@@ -156,8 +164,8 @@ def write_header(
     for (is_ac, hid) in sorted(htables):
         t: HuffTable = htables[(is_ac, hid)]
         payload = bytes([(is_ac << 4) | hid])
-        payload += bytes(int(x) for x in t.bits)
-        payload += bytes(int(x) for x in t.vals)
+        payload += _byte_values(t.bits)
+        payload += _byte_values(t.vals)
         out.append(_seg(DHT, payload))
 
     if restart_interval:

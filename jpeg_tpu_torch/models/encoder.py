@@ -4,8 +4,9 @@ bytes.
 Device pack (the default):
   device: edge pad -> exact integer transform (ops/mcu_conv) -> DC DPCM ->
   [symbol histograms -> optimal tables, for optimize_tables] -> packer
-  level 1 (kernel A, ops/pack) -> level-2 placement per restart segment;
-  host: native finalize (trim, 1-pad, 0xFF stuffing, RSTn) -> JFIF.
+  level 1 (kernel A, ops/pack) -> the scan pass (ops/pack.pack_scan:
+  level-2 placement per restart segment, trim, 1-pad, 0xFF stuffing,
+  RSTn); host: the scan's bytes -> JFIF.
 Host pack (device_pack=False, use_pallas=True, or a restart interval that
 does not divide the MCU count):
   device: edge pad -> exact integer transform, or colour + downsample +
@@ -67,13 +68,13 @@ def _interleaved_blocks(rgb, qy, qc, mode: Subsampling, restart_mcus: int):
     return blocks.reshape(-1, 64), tbl_row.repeat(n_mcu), n_mcu, hv
 
 
-def _pack_device(blocks, tbl, luts, n_units: int, restart_units: int):
-    """Device pack of (B, 64) DPCM'd blocks: kernel A (level 1), then level
-    2 per restart segment -> (words (nseg, nwords) int64 holding uint32,
-    totals (nseg,), ok (nseg,)). Segments are restart_units of the n_units
-    MCUs each; an interval of 0, or of at least n_units, is one segment. A
-    last segment that is shorter is filled out with blocks of zero bits,
-    which level 2 places nowhere."""
+def _level1_segments(blocks, tbl, luts, n_units: int, restart_units: int):
+    """Kernel A (level 1) over (B, 64) DPCM'd blocks, cut into restart
+    segments -> (buf (nseg, seg_blocks, BLOCK_WORDS+1), bit totals (nseg,
+    seg_blocks), nwords). Segments are restart_units of the n_units MCUs
+    each; an interval of 0, or of at least n_units, is one segment. A last
+    segment that is shorter is filled out with blocks of zero bits, which
+    level 2 places nowhere."""
     r = int(restart_units)
     buf, t_b = pack.pack_level1(blocks, tbl, *luts[:4], packed=luts[4])
     seg_units = n_units if r == 0 or r >= n_units else r
@@ -84,8 +85,25 @@ def _pack_device(blocks, tbl, luts, n_units: int, restart_units: int):
         buf = torch.cat([buf, buf.new_zeros((fill, buf.shape[1]))])
         t_b = torch.cat([t_b, t_b.new_zeros(fill)])
     nwords = seg_blocks * WORDS_PER_BLOCK + 2
+    return (buf.reshape(nseg, seg_blocks, -1), t_b.reshape(nseg, seg_blocks),
+            nwords)
+
+
+def _pack_device(blocks, tbl, luts, n_units: int, restart_units: int):
+    """Device pack to words, for the paths that hand words on
+    (encode_batched, parallel/shard): kernel A, then level 2 per restart
+    segment -> (words (nseg, nwords) int64 holding uint32, totals (nseg,),
+    ok (nseg,))."""
     return pack.pack_level2(
-        buf.reshape(nseg, seg_blocks, -1), t_b.reshape(nseg, seg_blocks), nwords)
+        *_level1_segments(blocks, tbl, luts, n_units, restart_units))
+
+
+def _scan_device(blocks, tbl, luts, n_units: int, restart_units: int):
+    """Device pack to the finished scan, for the paths that want an image's
+    scan: kernel A, then the scan pass -> (scan uint8, status (2 nseg + 1,)
+    int64), as pack.pack_scan returns them (RSTn from 0)."""
+    return pack.pack_scan(
+        *_level1_segments(blocks, tbl, luts, n_units, restart_units))
 
 
 def _optimal_tables(hists) -> dict:
@@ -165,22 +183,25 @@ def _spill_scan(blocks, tbl, htables, restart_interval: int,
         restart_interval=restart_interval, blocks_per_mcu=bpm)
 
 
-def _finish_device_pack(words, status: np.ndarray, blocks, tbl, htables,
-                        restart_interval: int, bpm: int, write) -> bytes:
-    """One image's JFIF bytes from its device pack: write(scan bytes).
-    `status` is _pack_status on the host; the other arrays are still on the
-    device. One sliced download of the words and the native finalize, or,
-    when level 2 reported an overflow, _spill_scan."""
-    totals_np, ok = status
-    if not ok.all():
+def _finish_device_pack(scan, status: np.ndarray, blocks, tbl, htables,
+                        restart_interval: int, bpm: int, write,
+                        fetch=None) -> bytes:
+    """One image's JFIF bytes from its scan pass: write(scan), the scan a
+    bytes-like object. `status` is the pass's status on the host; the other
+    arrays are still on the device. The download of the scan's bytes
+    (fetch(scan, count), a numpy array; by default a plain copy), or, when a
+    segment was not ok, _spill_scan."""
+    nseg = status.shape[0] // 2
+    if not status[nseg:2 * nseg].all():
         with span("jt.encode.spill"):
             return write(_spill_scan(blocks, tbl, htables, restart_interval,
                                      bpm))
-    maxw = (int(totals_np.max()) + 31) // 32
+    count = int(status[-1])
     with span("jt.wait.download"):
-        w_host = words[:, :maxw].cpu().numpy().astype(np.uint32)
+        host = (fetch(scan, count) if fetch is not None
+                else scan[:count].cpu().numpy())
     with span("jt.encode.finalize"):
-        return write(bitpack.finalize_stream(w_host, totals_np))
+        return write(host)
 
 
 def _pallas_planes(rgb, mode: Subsampling):
@@ -352,7 +373,7 @@ def _encode_color(image: np.ndarray, cfg: EncodeConfig, comment,
             else:
                 htables = huffman.standard_tables()
             with span("jt.encode.pack"):
-                words, totals, ok = _pack_device(
+                scan, status = _scan_device(
                     blocks, tbl, _device_luts(htables, img.device), n_mcu, r)
         else:
             # The exact transform's spans are its own; use_pallas's kernel C
@@ -361,8 +382,8 @@ def _encode_color(image: np.ndarray, cfg: EncodeConfig, comment,
     with span("jt.encode.finish"):
         if on_device:
             with span("jt.wait.status"):
-                status = _pack_status(totals, ok).cpu().numpy()
-            return _finish_device_pack(words, status, blocks, tbl, htables,
+                status = status.cpu().numpy()
+            return _finish_device_pack(scan, status, blocks, tbl, htables,
                                        r, hv + 2, write)
         # Host pack: download the three coefficient planes and pack them on
         # the host.
@@ -377,8 +398,8 @@ def _encode_gray(image: np.ndarray, cfg: EncodeConfig, comment,
                  quant_tables, device, device_pack: bool) -> bytes:
     """One component, one block per MCU. The transform is the exact integer
     one on every device (the port has no staged float CPU path); the device
-    pack is kernel A with every table id 0 and level 2 per segment, under
-    the same 288-bit per-block budget as jpeg_tpu's gray pack."""
+    pack is kernel A with every table id 0 and the scan pass, under the
+    same 288-bit per-block budget as jpeg_tpu's gray pack."""
     h0, w0 = image.shape
     qy_np = _quant_tables(cfg, quant_tables)[0]
     r = cfg.restart_interval
@@ -411,13 +432,13 @@ def _encode_gray(image: np.ndarray, cfg: EncodeConfig, comment,
             else:
                 all_tables = huffman.standard_tables()
             with span("jt.encode.pack"):
-                words, totals, ok = _pack_device(
+                scan, status = _scan_device(
                     zz, tbl, _device_luts(all_tables, zz.device), nblocks, r)
     with span("jt.encode.finish"):
         if on_device:
             with span("jt.wait.status"):
-                status = _pack_status(totals, ok).cpu().numpy()
-            return _finish_device_pack(words, status, zz, tbl, all_tables, r,
+                status = status.cpu().numpy()
+            return _finish_device_pack(scan, status, zz, tbl, all_tables, r,
                                        1, write)
         with span("jt.wait.download"):
             blocks = zz.cpu().numpy()
@@ -446,10 +467,10 @@ def encode(
     the bit packer on `device` ("cuda" by default; "cpu" runs the plain
     twins).
 
-    device_pack: pack the scan on the device (kernel A + level 2); None means
-    True. False, or a restart interval that does not divide the MCU count,
-    downloads the coefficients and packs on the host (native C++). Both emit
-    the same bytes.
+    device_pack: pack the scan on the device (kernel A + the scan pass);
+    None means True. False, or a restart interval that does not divide the
+    MCU count, downloads the coefficients and packs on the host (native
+    C++). Both emit the same bytes.
     use_pallas: run level shift + DCT + quantize through fused_dct_quantize
     (kernel C) instead of the exact integer transform; forces the host pack.
     Colour only, as in jpeg_tpu.

@@ -1,6 +1,7 @@
 """Device Huffman bit packer: coefficient blocks -> per-block word buffers
 (level 1, kernel A) -> one big-endian word stream per restart segment
-(level 2, plain torch).
+(level 2, plain torch), or straight to the finished scan (pack_scan: level
+2, trim, 1-padding, 0xFF stuffing and RSTn markers in csrc/pack_scan.cu).
 
 Counterpart of jpeg_tpu/ops/pack_pallas.py. Level 1 on a CUDA tensor
 launches the hand-written kernel csrc/pack_level1.cu, which replaces the
@@ -18,15 +19,20 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
-from jpeg_tpu_torch.ops import _cuda
+from jpeg_tpu_torch.ops import _cuda, bitpack
 from jpeg_tpu_torch.ops.bitpack import BLOCK_WORDS
 
 # Kernel launches since the last reset (plus one per launch, nowhere else).
 # Worker threads launch too (parallel/pipeline), so the increment holds a lock.
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
+# Launches of the scan pass (csrc/pack_scan.cu) since the last reset: its
+# memset and its three kernels, _SCAN_STEPS a call, under the same lock.
+SCAN_LAUNCHES = 0
+_SCAN_STEPS = 4
 
 _M32 = 0xFFFFFFFF
 # Blocks per slice of the plain twin: bounds its (blocks, 191) int64
@@ -240,3 +246,108 @@ def pack_level2(buf, t_b, nwords: int):
     words = (words & _M32).reshape(nseg, nwords)
     ok = (t.amax(dim=1) <= BLOCK_WORDS * 32) & (total <= nwords * 32)
     return words, total, ok
+
+
+def pack_scan_reference(buf, t_b, nwords: int, rst_base: int = 0):
+    """Plain twin of pack_scan (any device): pack_level2, then the native
+    finalize of its words on the host (bitpack.finalize_stream). The scan is exactly its bytes."""
+    words, total, ok = pack_level2(buf, t_b, nwords)
+    status = torch.cat([total, ok.to(total.dtype), total.new_zeros(1)]).cpu()
+    if not bool(ok.all()):
+        return torch.zeros(0, dtype=torch.uint8), status
+    maxw = (int(status[:total.shape[0]].max()) + 31) // 32
+    scan = bitpack.finalize_stream(
+        words[:, :maxw].cpu().numpy().astype(np.uint32),
+        status[:total.shape[0]].numpy(), rst_base)
+    status[-1] = len(scan)
+    return torch.tensor(np.frombuffer(scan, dtype=np.uint8)), status
+
+
+def _launch_scan(buf, t_b, scratch, out, status, nwords: int,
+                 rst_base: int, lib=None) -> None:
+    """Enqueue the scan pass on PyTorch's current stream: contiguous (S, B,
+    BLOCK_WORDS+1) int32 words and (S, B) int32 totals in, scratch of
+    scan_scratch_bytes, the scan and the (2S+1,) int64 status out; no checks
+    and no allocation. A CPU device takes the host build of the kernels'
+    bodies that the tests pass as `lib`. Counts the launches."""
+    global SCAN_LAUNCHES
+    lib = lib or _cuda.load("pack_scan")
+    nseg, nblocks = t_b.shape
+    args = [ctypes.c_void_p(t.data_ptr()) for t in
+            (buf, t_b, scratch, out, status)]
+    args += [ctypes.c_long(nseg), ctypes.c_long(nblocks),
+             ctypes.c_long(nwords), ctypes.c_long(rst_base)]
+    dev = buf.device
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            err = lib.jt_pack_scan(*args, _cuda.stream_handle(dev))
+    else:
+        err = lib.jt_pack_scan(*args, None)
+    _cuda.check("pack_scan", err)
+    with _COUNT_LOCK:
+        SCAN_LAUNCHES += _SCAN_STEPS
+
+
+def scan_scratch_bytes(nseg: int, nblocks: int, nwords: int,
+                       lib=None) -> int:
+    """Bytes of scratch the scan pass takes for S segments of B blocks."""
+    lib = lib or _cuda.load("pack_scan")
+    lib.jt_pack_scan_scratch.restype = ctypes.c_long
+    return int(lib.jt_pack_scan_scratch(
+        ctypes.c_long(nseg), ctypes.c_long(nblocks), ctypes.c_long(nwords)))
+
+
+def scan_capacity(nseg: int, nwords: int) -> int:
+    """Bytes the scan can take at most: every byte of every segment's room
+    stuffed, and a marker between segments."""
+    return nseg * 8 * nwords + 2 * nseg
+
+
+def _pack_scan_cuda(buf, t_b, nwords: int, rst_base: int, lib=None):
+    if buf.ndim != 3 or buf.shape[2] != BLOCK_WORDS + 1:
+        raise ValueError(
+            f"buf must be (S, B, {BLOCK_WORDS + 1}), got {tuple(buf.shape)}")
+    if t_b.shape != buf.shape[:2]:
+        raise ValueError(
+            f"t_b must be {tuple(buf.shape[:2])}, got {tuple(t_b.shape)}")
+    if t_b.device != buf.device:
+        raise ValueError(f"all pack_scan inputs must be on {buf.device}")
+    nseg, nblocks = t_b.shape
+    if nseg == 0 or nblocks == 0 or nwords < 1:
+        raise ValueError(f"pack_scan: {nseg} segments of {nblocks} blocks, "
+                         f"{nwords} words each")
+    dev = buf.device
+    buf, t_b = (t.to(torch.int32).contiguous() for t in (buf, t_b))
+    scratch = torch.empty(scan_scratch_bytes(nseg, nblocks, nwords, lib),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty(scan_capacity(nseg, nwords), dtype=torch.uint8,
+                      device=dev)
+    status = torch.empty(2 * nseg + 1, dtype=torch.int64, device=dev)
+    _launch_scan(buf, t_b, scratch, out, status, nwords, rst_base, lib)
+    return out, status
+
+
+def pack_scan(buf, t_b, nwords: int, rst_base: int = 0):
+    """Level 2 and the finalize in one: kernel A's word buffers, one row per
+    restart segment, to the finished entropy-coded scan.
+
+    buf (S, B, BLOCK_WORDS+1) int32 bit patterns (a block's bits past its
+    total zero, as kernel A writes them) and t_b (S, B) bit totals, each
+    segment with room for nwords words -> (scan uint8, status (2S+1,) int64
+    = [S bit totals, S ok flags, the scan's byte count]). The scan is the
+    first `count` bytes of `scan`: each segment's bits trimmed to whole
+    bytes, its last byte 1-padded, a 0x00 after every 0xFF, and FF D0+n
+    between segments, n counting from rst_base mod 8: byte for byte
+    native.finalize_scan of pack_level2's words. ok is pack_level2's; when a
+    segment is not ok the count is 0 and `scan` holds no scan.
+
+    CUDA tensors launch csrc/pack_scan.cu (a memset and three kernels;
+    `scan` is sized for the worst case, scan_capacity, and stays on the
+    card, the status with it). CPU tensors run the plain twin,
+    pack_scan_reference. Any other device raises."""
+    kind = buf.device.type
+    if kind == "cpu":
+        return pack_scan_reference(buf, t_b, nwords, rst_base)
+    if kind == "cuda":
+        return _pack_scan_cuda(buf, t_b, nwords, rst_base)
+    raise ValueError(f"pack_scan: unsupported device {buf.device}")

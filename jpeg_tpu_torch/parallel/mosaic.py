@@ -20,7 +20,7 @@ from jpeg_tpu_torch.config import EncodeConfig
 from jpeg_tpu_torch.entropy import huffman, native
 from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import encoder as E
-from jpeg_tpu_torch.ops import bitpack, quant, tile
+from jpeg_tpu_torch.ops import pack, quant, tile
 from jpeg_tpu_torch.parallel.batch import _count_fallback, encode_batch
 from jpeg_tpu_torch.parallel.mesh import make_mesh
 
@@ -85,9 +85,10 @@ def encode_mosaic_stream(
     device: where each stripe's transform and pack run ("cuda" by default).
 
     Each stripe is whole restart groups (the last one may end in a shorter
-    group), so it is packed on the device (kernel A + level 2 + the native
-    finalize with the stripe's first RSTn index); a stripe whose pack overflows the per-block budget takes the
-    native host packer instead (counted in batch.DEVICE_PACK_FALLBACKS).
+    group), so it is packed on the device (kernel A + the scan pass, its
+    RSTn numbered from the stripe's first segment); a stripe whose pack
+    overflows the per-block budget takes the native host packer instead
+    (counted in batch.DEVICE_PACK_FALLBACKS).
     The stream is byte-identical to encode(image, quality, subsampling,
     restart_interval=rst_rows*mcu_cols, optimize_tables=...) on the whole
     image."""
@@ -163,19 +164,18 @@ def encode_mosaic_stream(
     seg = 0  # global restart-segment counter across stripes
     total_segs = -(-mcu_rows_total // rst_rows)
     for blocks, tbl, n_mcu in stripes():
-        words, totals, ok = E._pack_device(blocks, tbl, luts, n_mcu, r)
-        status = E._pack_status(totals, ok).cpu().numpy()
-        if status[1].all():
-            maxw = (int(status[0].max()) + 31) // 32
-            chunk = bitpack.finalize_stream(
-                words[:, :maxw].cpu().numpy().astype(np.uint32), status[0],
-                rst_base=seg)
+        scan, status = pack.pack_scan(
+            *E._level1_segments(blocks, tbl, luts, n_mcu, r), rst_base=seg)
+        status = status.cpu().numpy()
+        nseg = status.shape[0] // 2
+        if status[nseg:2 * nseg].all():
+            chunk = scan[:int(status[-1])].cpu().numpy().tobytes()
         else:
             _count_fallback()
             chunk = native.encode_scan(
                 blocks.cpu().numpy(), tbl.cpu().numpy(), htables,
                 restart_interval=r, blocks_per_mcu=bpm, rst_base=seg)
-        seg += status.shape[1]
+        seg += nseg
         emit(chunk)
         if seg < total_segs:  # splice marker between stripes
             emit(bytes([0xFF, 0xD0 + ((seg - 1) & 7)]))

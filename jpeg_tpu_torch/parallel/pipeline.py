@@ -10,8 +10,8 @@ buffer, and waits for one image's event only when that image is finished;
 an image goes up from its slot's pinned staging buffer, which the host fills
 on several threads. The reference's three dispatch kinds and its retry
 ladder of larger pack budgets are not ported: the port has one packer
-(kernel A + level 2) and one spill rule (an image whose pack overflows is
-host-packed, counted in encoder.HOST_PACK_SPILLS).
+(kernel A + the scan pass) and one spill rule (an image whose pack
+overflows is host-packed, counted in encoder.HOST_PACK_SPILLS).
 """
 
 from __future__ import annotations
@@ -34,15 +34,17 @@ from jpeg_tpu_torch.utils.trace import span
 
 class _Slot:
     """One place of encode_stream's ring: a CUDA stream, a pinned staging
-    buffer for the image and a pinned buffer for what the host reads back
-    before the words (the pack's bit totals and flags, or the symbol
-    histograms). Both are allocated once and reused by every image that
-    takes the slot: the image before has been finished by then."""
+    buffer for the image, a pinned buffer for what the host reads back
+    before the scan (the pass's status, or the symbol histograms) and a
+    pinned buffer for the scan's bytes. Each is allocated once (grown when
+    an image needs more) and reused by every image that takes the slot: the
+    image before has been finished by then."""
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.Stream(device)
         self.staging = torch.empty(0, dtype=torch.uint8, pin_memory=True)
         self.readback = None
+        self.scan = torch.empty(0, dtype=torch.uint8, pin_memory=True)
 
     def stage(self, img: np.ndarray) -> torch.Tensor:
         """`img` copied into the pinned buffer, as a tensor view of it.
@@ -71,6 +73,19 @@ class _Slot:
         self.readback.copy_(t, non_blocking=True)
         return self.readback
 
+    def download(self, scan: torch.Tensor, count: int) -> np.ndarray:
+        """The first `count` bytes of the device scan, copied on the slot's
+        stream into the slot's pinned buffer once the stream gets there; a
+        numpy view of them, valid until the slot's next image."""
+        if self.scan.numel() < count:
+            self.scan = torch.empty(count, dtype=torch.uint8,
+                                    pin_memory=True)
+        view = self.scan[:count]
+        with torch.cuda.stream(self.stream):
+            view.copy_(scan[:count], non_blocking=True)
+        self.stream.synchronize()
+        return view.numpy()
+
 
 def encode_stream(
     images: Iterable[np.ndarray],
@@ -90,11 +105,11 @@ def encode_stream(
     with a CUDA stream. Dispatch copies the image into the slot's pinned
     buffer (the caller may reuse its array once dispatch returns), uploads
     it from there on the slot's stream and enqueues there, without waiting
-    for any of it: edge pad, exact transform, DC DPCM, kernel A, level 2,
-    and a copy of the bit totals and overflow flags to pinned memory; then
-    it records an event. Finish waits for that image's event only,
-    downloads the used part of the words on the same stream, finalizes on
-    the host and writes the JFIF stream.
+    for any of it: edge pad, exact transform, DC DPCM, kernel A, the scan
+    pass (placement, padding, stuffing), and a copy of its status to pinned
+    memory; then it records an event. Finish waits for that image's event
+    only, downloads the scan's bytes on the same stream into the slot's
+    pinned buffer and writes the JFIF stream.
 
     optimize_tables: dispatch enqueues the symbol histograms instead of the
     pack; finish reads them, builds that image's optimal tables and runs the
@@ -147,10 +162,10 @@ def encode_stream(
                     packed = None
                     host = torch.stack(E._color_hists(blocks, n_mcu, hv))
                 else:
-                    packed = E._pack_device(
+                    packed = E._scan_device(
                         blocks, tbl, E._device_luts(htables, device), n_mcu,
                         0)
-                    host = E._pack_status(*packed[1:])
+                    host = packed[1]
                 done = None
                 if slot is not None:
                     host = slot.fetch(host)
@@ -173,16 +188,17 @@ def encode_stream(
                 if optimize_tables:
                     tables = E._optimal_tables(host)
                     with span("jt.encode.pack"):
-                        packed = E._pack_device(
+                        packed = E._scan_device(
                             blocks, tbl, E._device_luts(tables, device),
                             n_mcu, 0)
                     with span("jt.wait.status"):
-                        host = E._pack_status(*packed[1:]).cpu()
+                        host = packed[1].cpu()
                 return E._finish_device_pack(
                     packed[0], host.numpy(), blocks, tbl, tables, 0, hv + 2,
                     lambda scan: jfif.write_jpeg(
                         w0, h0, E._color_components(mode),
-                        {0: qy_np, 1: qc_np}, tables, scan))
+                        {0: qy_np, 1: qc_np}, tables, scan),
+                    fetch=slot.download if slot is not None else None)
 
     pending: collections.deque = collections.deque()
     for index, img in enumerate(images):

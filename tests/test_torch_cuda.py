@@ -34,7 +34,9 @@ and images are independent); a colour decode launches B2 once and H
 once, kernel B never. The device Huffman
 decoders are integers throughout: kernels D and E and program F equal their
 twins run on the same tensors, native.decode_scan and native.index_scan, with
-0 apart, and entropy="indexed" / "device" give the pixels of "sparse"."""
+0 apart, and entropy="indexed" / "device" give the pixels of "sparse". The
+scan pass (csrc/pack_scan.cu) equals its twin, pack_level2 + the native
+finalize, byte for byte and status for status."""
 
 import threading
 
@@ -47,7 +49,9 @@ from jpeg_tpu_torch.entropy import decode_device, huffman, native
 from jpeg_tpu_torch.entropy.decode_np import ScanDecodeError
 from jpeg_tpu_torch.models import encoder
 from jpeg_tpu_torch.ops import (
-    bitpack, entropy_decode, finish, fused, pack, quant, tile, zigzag)
+    bitpack, dpcm, entropy_decode, finish, fused, mcu_conv, pack, quant, tile,
+    zigzag)
+from jpeg_tpu_torch.parallel import mosaic
 
 import torch_port_fixtures as fixtures
 
@@ -55,7 +59,7 @@ from torch_port_util import (
     LEVEL1_SIZES, ac_indexed_inputs, adversarial_idct_planes,
     adversarial_level1_case, make_image, outside_bounds, plain_streams,
     prefix_inputs, random_blocks, regroup_prefix, require_cuda, scan_args,
-    segment_inputs)
+    scan_block_words, segment_inputs)
 
 BUDGET = bitpack.BLOCK_WORDS * 32
 
@@ -574,6 +578,107 @@ def test_encode_stream_on_card_stages_any_array(kind):
                    for im in imgs]
     assert got == [jpeg_tpu_torch.encode(im, 80, device="cpu")
                    for im in imgs]
+
+
+def _scan_pass_inputs(case, dev):
+    """(buf, t_b, nwords, rst_base) on the card: the seed-0 4K q75 frame's
+    kernel A output (colour 4:2:0 in one segment, at restart 240, 135
+    segments, or at restart 1, 32,400 segments; or its first channel,
+    gray), or a 0xFF-dense synthetic set."""
+    if case == "ff_dense":
+        rng = np.random.default_rng(17)
+        t = rng.integers(0, 257, size=(4, 3000))
+        buf = np.concatenate([scan_block_words(rng, t[:2].reshape(-1), "ones"),
+                              scan_block_words(rng, t[2:].reshape(-1))])
+        return (torch.as_tensor(buf, device=dev).reshape(4, 3000, -1),
+                torch.as_tensor(t.astype(np.int32), device=dev),
+                3000 * encoder.WORDS_PER_BLOCK + 2, 6)
+    img = make_image(2160, 3840)
+    qy, qc = quant.luma_table(75), quant.chroma_table(75)
+    luts = encoder._device_luts(huffman.standard_tables(), dev)
+    if case == "gray":
+        zz = mcu_conv.gray_transform_int(torch.as_tensor(
+            np.ascontiguousarray(img[..., 0]), device=dev), qy)
+        zz[:, 0] = dpcm.dpcm(zz[:, 0], 0)
+        tbl = torch.zeros(zz.shape[0], dtype=torch.int32, device=dev)
+        return encoder._level1_segments(zz, tbl, luts, zz.shape[0], 0) + (0,)
+    r = {"4k_rst240": 240, "4k_rst1": 1}.get(case, 0)
+    mode = encoder.Subsampling("420")
+    blocks, tbl, n_mcu, _ = encoder._interleaved_blocks(
+        torch.as_tensor(img, device=dev), qy, qc, mode, r)
+    return encoder._level1_segments(blocks, tbl, luts, n_mcu, r) + (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["4k", "ff_dense", "4k_rst240", "4k_rst1",
+                                  "gray"])
+def test_scan_pass_matches_twin(case):
+    dev = require_cuda()
+    buf, t_b, nwords, rst_base = _scan_pass_inputs(case, dev)
+    before = pack.SCAN_LAUNCHES
+    scan, status = pack.pack_scan(buf, t_b, nwords, rst_base)
+    torch.cuda.synchronize()
+    assert pack.SCAN_LAUNCHES == before + 4
+    assert scan.device.type == status.device.type == "cuda"
+    ref_scan, ref_status = pack.pack_scan_reference(buf, t_b, nwords,
+                                                    rst_base)
+    assert status.cpu().tolist() == ref_status.tolist()
+    nseg = t_b.shape[0]
+    assert ref_status[nseg:2 * nseg].tolist() == [1] * nseg
+    assert nseg == {"4k_rst240": 135, "4k_rst1": 32400,
+                    "ff_dense": 4}.get(case, 1)
+    count = int(ref_status[-1])
+    assert count == ref_scan.numel() > 0
+    assert torch.equal(scan[:count].cpu(), ref_scan)
+
+
+@pytest.mark.cuda
+def test_encode_stream_through_the_scan_pass_on_card():
+    """encode_stream's bytes equal encode()'s and the host pack's on the 4K
+    frame and smaller ones; the pass runs once per image (its four
+    launches), a spilled image's included: its status is how the spill is
+    known, and its bytes are then not used."""
+    require_cuda()
+    imgs = [make_image(2160, 3840), make_image(144, 256, seed=3),
+            make_image(37, 53, seed=4)]
+    scans, spills = pack.SCAN_LAUNCHES, encoder.HOST_PACK_SPILLS
+    got = list(jpeg_tpu_torch.encode_stream(iter(imgs), device="cuda"))
+    assert pack.SCAN_LAUNCHES == scans + 4 * len(imgs)
+    assert got == [jpeg_tpu_torch.encode(im, device="cuda") for im in imgs]
+    assert got == [jpeg_tpu_torch.encode(im, device="cuda", device_pack=False)
+                   for im in imgs]
+    assert encoder.HOST_PACK_SPILLS == spills
+    # At q100 4:4:4 noise overflows the 288-bit budget and a smooth ramp
+    # does not.
+    noise = np.random.default_rng(5).integers(0, 256, size=(24, 32, 3))
+    yy, xx = np.mgrid[0:24, 0:32]
+    smooth = np.stack([xx * 4, yy * 5, xx + yy], -1)
+    pair = [noise.astype(np.uint8), smooth.astype(np.uint8)]
+    scans = pack.SCAN_LAUNCHES
+    got = list(jpeg_tpu_torch.encode_stream(pair, 100, "444", device="cuda"))
+    assert encoder.HOST_PACK_SPILLS == spills + 1
+    assert pack.SCAN_LAUNCHES == scans + 8
+    assert got == [jpeg_tpu_torch.encode(im, 100, "444", device="cpu")
+                   for im in pair]
+
+
+@pytest.mark.cuda
+def test_mosaic_stream_through_the_scan_pass_on_card():
+    """encode_mosaic_stream on the card: each stripe's scan from one scan
+    pass, its RSTn numbered from the stripe's first segment (past 7 from
+    the third stripe on), spliced into the bytes of the CPU's stream and of
+    encode() of the whole image."""
+    require_cuda()
+    img = make_image(720, 1280, seed=6)
+    kw = dict(quality=80, subsampling="420", stripe_rows=64, rst_rows=1)
+    scans = pack.SCAN_LAUNCHES
+    got = mosaic.encode_mosaic_stream(lambda a, b: img[a:b], 720, 1280,
+                                      device="cuda", **kw)
+    assert pack.SCAN_LAUNCHES == scans + pack._SCAN_STEPS * -(-720 // 64)
+    assert got == mosaic.encode_mosaic_stream(lambda a, b: img[a:b], 720,
+                                              1280, device="cpu", **kw)
+    assert got == jpeg_tpu_torch.encode(img, 80, "420", device="cuda",
+                                        restart_interval=1280 // 16)
 
 
 @pytest.mark.cuda

@@ -4,22 +4,22 @@ interval, and against jpeg_tpu's encode_mosaic_stream run on the exact
 integer transform (the jax_exact_transform fixture). Tolerance 0: the same
 bytes. The cases of tests/test_mosaic_stream.py but the gigapixel one.
 
-Every stripe is packed on the device path (kernel A's plain twin here, level
-2, the native finalize); forcing every stripe to report an overflow sends it
-to the native host packer instead, and the bytes stay the same."""
+Every stripe is packed on the device path (kernel A and the scan pass, their
+plain twins here: level 2 and the native finalize); forcing every stripe's
+scan pass to report an overflow sends it to the native host packer instead,
+and the bytes stay the same."""
 
 import io
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from jpeg_tpu.parallel.mosaic import encode_mosaic_stream as jax_stream
 
 import jpeg_tpu_torch
 from jpeg_tpu_torch.config import Subsampling
-from jpeg_tpu_torch.models import encoder as PE
+from jpeg_tpu_torch.ops import pack as PP
 from jpeg_tpu_torch.parallel import batch as PB, mosaic as PMo
 
 from torch_port_util import jax_exact_transform  # noqa: F401
@@ -32,13 +32,15 @@ def _stream(img, **kw):
 
 
 def _all_stripes_spill(monkeypatch):
-    orig = PE._pack_device
+    orig = PP.pack_scan
 
     def overflow(*a, **k):
-        words, totals, ok = orig(*a, **k)
-        return words, totals, torch.zeros_like(ok)
+        scan, status = orig(*a, **k)
+        status = status.clone()
+        status[status.shape[0] // 2:] = 0  # every ok flag, and the count
+        return scan, status
 
-    monkeypatch.setattr(PE, "_pack_device", overflow)
+    monkeypatch.setattr(PP, "pack_scan", overflow)
 
 
 @pytest.mark.parametrize("sub,rst_rows", [("420", 1), ("444", 2), ("422", 1)])

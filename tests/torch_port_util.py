@@ -76,6 +76,23 @@ def random_blocks(rng, n, density):
     return blocks
 
 
+def scan_block_words(rng, totals, fill="random"):
+    """(n, 10) int32 word buffers for blocks of these bit totals, as kernel A
+    leaves them: random (or, with fill="ones", all-ones) bits up to each
+    total, zero past it."""
+    totals = np.asarray(totals, dtype=np.int64)
+    ncols = 10  # bitpack.BLOCK_WORDS + 1
+    words = (np.full((totals.shape[0], ncols), 0xFFFFFFFF, dtype=np.uint64)
+             if fill == "ones" else
+             rng.integers(0, 1 << 32, size=(totals.shape[0], ncols),
+                          dtype=np.uint64))
+    keep = np.clip(totals[:, None] - np.arange(ncols)[None, :] * 32, 0, 32)
+    keep = keep.astype(np.uint64)
+    mask = ((np.uint64(1) << keep) - np.uint64(1)) << (np.uint64(32) - keep)
+    mask[keep == 0] = 0
+    return (words & mask).astype(np.uint32).view(np.int32)
+
+
 def require_cuda():
     """Skip the calling test unless a CUDA device is present (decided when
     the test runs, never at import or collection)."""
