@@ -94,7 +94,8 @@ Phases, each reported on its own line:
      non-interleaved one also with "indexed" and "device";
      6h: encode_batched, K = 8 distinct 4K images (the image rolled by
      k * 97 columns): every stream equals encode() of its image on the card,
-     kernel A launched once for the batch, kernel C never, no spill; K = 3
+     kernel A launched once for the batch and the scan pass once per
+     image, kernel C never, no spill; K = 3
      at 1001x777 4:4:4 with a restart interval of one MCU row; K = 2 with
      device_pack=False; kernel A against its plain twin on the blocks those
      two device-packed batches give it (1,555,200 for K = 8);
@@ -1747,16 +1748,22 @@ def run(card: str) -> dict:
     check(jpgs8[0] == jpg and len(set(jpgs8)) == BATCH_ENCODE,
           "the batch's frames are not distinct images")
     encoder.HOST_PACK_SPILLS = 0
+    scans_before = pack.SCAN_LAUNCHES
     got8, per_batch_enc = counted(lambda: jpeg_tpu_torch.encode_batched(
         batch8, QUALITY, SUBSAMPLING, device=dev), path="encode_batched_k8")
     spills = encoder.HOST_PACK_SPILLS
+    scans_batch = pack.SCAN_LAUNCHES - scans_before
     print(f"phase 6h: encode_batched K={BATCH_ENCODE} 4K q{QUALITY} "
           f"{SUBSAMPLING}: {[len(j) for j in got8]} bytes; equal to "
           f"encode() per image: {got8 == jpgs8}; launches (A, B, C, B2, H) "
-          f"{per_batch_enc}; host-pack spills {spills}", flush=True)
+          f"{per_batch_enc}, scan pass {scans_batch}; host-pack spills "
+          f"{spills}", flush=True)
     check(got8 == jpgs8, "encode_batched bytes differ from encode()'s")
     check(per_batch_enc == ENCODE_N,
           f"encode_batched launched {per_batch_enc}, not one kernel A")
+    check(scans_batch == BATCH_ENCODE * scan_per_encode,
+          f"encode_batched launched {scans_batch} scan-pass kernels, not "
+          f"one pass per image")
     check(spills == 0, f"{spills} host-pack spills in encode_batched")
     small = np.stack([make_image(777, 1001, seed=s) for s in range(3)])
     row_mcus = layout.ceil_div(1001, 8)
@@ -2509,26 +2516,11 @@ def run(card: str) -> dict:
         jpeg_tpu_torch.decode_stream(iter(jpgs16), depth=d, device=dev)),
         torch) for d in (1, 2, 4)}
     # The host work that encode_stream's one thread does per image, piece by
-    # piece: the copy into the pinned staging buffer, the download of the
-    # used words, the native finalize.
+    # piece: the copy into the pinned staging buffer and the download of the
+    # scan's bytes.
     slot = pipeline._Slot(dev)
     ms_stage_copy = median_ms_host(lambda: slot.stage(img), torch)
-    # The tail before the scan pass, for comparison: the used words' int64
-    # download and the native finalize.
-    words4k, totals4k, ok4k = encoder._pack_device(
-        blocks4k, tbl4k, encoder._device_luts(htables, dev), n_mcu, 0)
-    status4k = encoder._pack_status(totals4k, ok4k).cpu().numpy()
-    maxw = (int(status4k[0].max()) + 31) // 32
-
-    def fetch_words():
-        return words4k[:, :maxw].cpu().numpy().astype(np.uint32)
-
-    ms_word_download = median_ms_host(fetch_words, torch)
-    w_host = fetch_words()
-    ms_finalize = median_ms_host(
-        lambda: bitpack.finalize_stream(w_host, status4k[0]), torch)
-    scan4k, scan_status4k = encoder._scan_device(
-        blocks4k, tbl4k, encoder._device_luts(htables, dev), n_mcu, 0)
+    scan4k, scan_status4k = pack.pack_scan(*scan_sets[0])
     count4k = int(scan_status4k[-1])
     torch.cuda.synchronize()
     ms_scan_download = median_ms_host(
@@ -3063,9 +3055,7 @@ def run(card: str) -> dict:
     print(f"phase 8: encode_stream host pieces per 4K image: copy into the "
           f"pinned staging buffer {ms_stage_copy:.3f} ms, pinned download of "
           f"the {count4k} scan bytes and their copy out "
-          f"{ms_scan_download:.3f} ms; before the scan pass: download of "
-          f"{maxw * 4} bytes of words {ms_word_download:.3f} ms, native "
-          f"finalize {ms_finalize:.3f} ms [{card}]", flush=True)
+          f"{ms_scan_download:.3f} ms [{card}]", flush=True)
     print(f"phase 8: decode_batched batch_mode='auto' takes "
           f"{auto_mode!r} at K={BATCH_DECODE}", flush=True)
     for label, ms in ms_walks.items():

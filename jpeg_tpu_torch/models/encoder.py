@@ -20,12 +20,20 @@ packer (`use_pallas_pack=True`); both paths emit the same bytes as the JAX
 package's exact transform chains. A block over the packer's 288-bit budget
 (or a segment over its word capacity) spills the whole scan to the native
 host packer, counted in HOST_PACK_SPILLS.
+
+Every device-pack entry point is built from the same pieces: encode() and
+parallel.pipeline.encode_stream from _enqueue (everything up to the first
+readback) and _finish (the rest); encode_batched and
+parallel.mosaic.encode_mosaic_stream from _level1_segments and
+pack.pack_scan. All of them end in _scan_or_spill, the one place where a
+scan is downloaded or spilled.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,6 +56,8 @@ WORDS_PER_BLOCK = 8
 # Counted under a lock: encode_stream's callers may encode from threads.
 HOST_PACK_SPILLS = 0
 _COUNT_LOCK = threading.Lock()
+
+_STANDARD_TABLES = huffman.standard_tables()
 
 
 def _interleaved_blocks(rgb, qy, qc, mode: Subsampling, restart_mcus: int):
@@ -87,23 +97,6 @@ def _level1_segments(blocks, tbl, luts, n_units: int, restart_units: int):
     nwords = seg_blocks * WORDS_PER_BLOCK + 2
     return (buf.reshape(nseg, seg_blocks, -1), t_b.reshape(nseg, seg_blocks),
             nwords)
-
-
-def _pack_device(blocks, tbl, luts, n_units: int, restart_units: int):
-    """Device pack to words, for the paths that hand words on
-    (encode_batched, parallel/shard): kernel A, then level 2 per restart
-    segment -> (words (nseg, nwords) int64 holding uint32, totals (nseg,),
-    ok (nseg,))."""
-    return pack.pack_level2(
-        *_level1_segments(blocks, tbl, luts, n_units, restart_units))
-
-
-def _scan_device(blocks, tbl, luts, n_units: int, restart_units: int):
-    """Device pack to the finished scan, for the paths that want an image's
-    scan: kernel A, then the scan pass -> (scan uint8, status (2 nseg + 1,)
-    int64), as pack.pack_scan returns them (RSTn from 0)."""
-    return pack.pack_scan(
-        *_level1_segments(blocks, tbl, luts, n_units, restart_units))
 
 
 def _optimal_tables(hists) -> dict:
@@ -163,45 +156,6 @@ def _device_luts(htables: dict, device) -> tuple:
         if len(_lut_cache) > _LUT_CACHE_SIZE:
             _lut_cache.popitem(last=False)
     return luts
-
-
-def _pack_status(totals, ok) -> torch.Tensor:
-    """Level 2's (nseg,) bit totals and ok flags as ONE (2, nseg) int64
-    tensor on their device, so that the host learns both from one copy."""
-    return torch.stack([totals, ok.to(totals.dtype)])
-
-
-def _spill_scan(blocks, tbl, htables, restart_interval: int,
-                bpm: int) -> bytes:
-    """Scan bytes of one image whose device pack overflowed: the native host
-    packer over the same DPCM'd device blocks, counted in HOST_PACK_SPILLS."""
-    global HOST_PACK_SPILLS
-    with _COUNT_LOCK:
-        HOST_PACK_SPILLS += 1
-    return native.encode_scan(
-        blocks.cpu().numpy(), tbl.cpu().numpy(), htables,
-        restart_interval=restart_interval, blocks_per_mcu=bpm)
-
-
-def _finish_device_pack(scan, status: np.ndarray, blocks, tbl, htables,
-                        restart_interval: int, bpm: int, write,
-                        fetch=None) -> bytes:
-    """One image's JFIF bytes from its scan pass: write(scan), the scan a
-    bytes-like object. `status` is the pass's status on the host; the other
-    arrays are still on the device. The download of the scan's bytes
-    (fetch(scan, count), a numpy array; by default a plain copy), or, when a
-    segment was not ok, _spill_scan."""
-    nseg = status.shape[0] // 2
-    if not status[nseg:2 * nseg].all():
-        with span("jt.encode.spill"):
-            return write(_spill_scan(blocks, tbl, htables, restart_interval,
-                                     bpm))
-    count = int(status[-1])
-    with span("jt.wait.download"):
-        host = (fetch(scan, count) if fetch is not None
-                else scan[:count].cpu().numpy())
-    with span("jt.encode.finalize"):
-        return write(host)
 
 
 def _pallas_planes(rgb, mode: Subsampling):
@@ -294,14 +248,6 @@ def _normalize_image(image) -> np.ndarray:
     return image
 
 
-def _normalize_quant_tables(quant_tables):
-    if quant_tables is None:
-        return None
-    qt_y = np.clip(np.asarray(quant_tables[0], np.int32).reshape(8, 8), 1, 255)
-    qt_c = np.clip(np.asarray(quant_tables[1], np.int32).reshape(8, 8), 1, 255)
-    return (qt_y, qt_c)
-
-
 def _color_components(mode: Subsampling):
     """The 3-component SOF spec every color writer shares."""
     return [
@@ -312,9 +258,12 @@ def _color_components(mode: Subsampling):
 
 
 def _quant_tables(cfg: EncodeConfig, quant_tables):
-    if quant_tables is not None:
-        return quant_tables
-    return quant.luma_table(cfg.quality), quant.chroma_table(cfg.quality)
+    """(luma, chroma) (8, 8) quant tables: the caller's, clipped to 1-255,
+    or the quality's."""
+    if quant_tables is None:
+        return quant.luma_table(cfg.quality), quant.chroma_table(cfg.quality)
+    return tuple(np.clip(np.asarray(t, np.int32).reshape(8, 8), 1, 255)
+                 for t in quant_tables[:2])
 
 
 def _host_pack_color(y_zz, cb_scan, cr_scan, mcu_rows: int, mcu_cols: int,
@@ -336,117 +285,131 @@ def _host_pack_color(y_zz, cb_scan, cr_scan, mcu_rows: int, mcu_cols: int,
     return _pack_scan(blocks, tbl, cfg, hv + 2)
 
 
-def _encode_color(image: np.ndarray, cfg: EncodeConfig, comment,
-                  quant_tables, device, device_pack: bool,
-                  use_pallas: bool) -> bytes:
-    h0, w0 = image.shape[:2]
-    mode = cfg.subsampling
-    qy_np, qc_np = _quant_tables(cfg, quant_tables)
+def _host_pack_gray(zz, cfg: EncodeConfig):
+    """Host half of the gray encode: the downloaded (B, 64) zig-zag blocks
+    (modified in place) -> (scan bytes, tables). DC DPCM, native packer."""
+    zz[:, 0] = _dpcm_host(zz[:, 0], cfg.restart_interval)
+    return _pack_scan(zz, np.zeros(zz.shape[0], dtype=np.uint8), cfg, 1)
+
+
+def _header(shape, cfg: EncodeConfig, qy, qc) -> tuple:
+    """The frame of an (H, W) gray or (H, W, 3) colour image: (width,
+    height, components, quant tables), as write_jpeg takes them."""
+    h, w = shape[:2]
+    if len(shape) == 2:
+        return w, h, [jfif.ComponentSpec(1, 1, 1, 0, 0, 0)], {0: qy}
+    return w, h, _color_components(cfg.subsampling), {0: qy, 1: qc}
+
+
+def _jfif(header, htables, scan, restart_interval: int, comment=None):
+    """One image's JFIF bytes; a gray frame carries its luma tables only."""
+    if len(header[2]) == 1:
+        htables = {k: t for k, t in htables.items() if k[1] == 0}
+    return jfif.write_jpeg(*header, htables, scan,
+                           restart_interval=restart_interval, comment=comment)
+
+
+def _scan_or_spill(scan, status: np.ndarray, blocks, tbl, htables,
+                   restart_interval: int, bpm: int, write, fetch=None,
+                   rst_base: int = 0):
+    """write(the scan's bytes) of one image or stripe whose scan pass has
+    run. `status` is the pass's status on the host; `scan`, `blocks` and
+    `tbl` are still on the device. The scan's first count bytes come down
+    (fetch(scan, count), a numpy array; by default a plain copy). When a
+    segment was not ok, the native host packer packs the same DPCM'd blocks
+    instead, RSTn numbered from rst_base: the device pack's one spill rule,
+    counted in HOST_PACK_SPILLS."""
+    global HOST_PACK_SPILLS
+    nseg = status.shape[0] // 2
+    if not status[nseg:2 * nseg].all():
+        with span("jt.encode.spill"):
+            with _COUNT_LOCK:
+                HOST_PACK_SPILLS += 1
+            return write(native.encode_scan(
+                blocks.cpu().numpy(), tbl.cpu().numpy(), htables,
+                restart_interval=restart_interval, blocks_per_mcu=bpm,
+                rst_base=rst_base))
+    count = int(status[-1])
+    with span("jt.wait.download"):
+        host = (fetch(scan, count) if fetch is not None
+                else scan[:count].cpu().numpy())
+    with span("jt.encode.finalize"):
+        return write(host)
+
+
+class _Enqueued(NamedTuple):
+    """One image's device pack as _enqueue leaves it: its frame (_header),
+    its DPCM'd MCU-interleaved (B, 64) blocks and (B,) table ids on the
+    device, its MCUs, blocks per MCU and restart interval, the scan pass's
+    output (None under optimize_tables: the pass waits for the tables) and
+    what the host reads next: the pass's status, or the stacked symbol
+    histograms."""
+    header: tuple
+    blocks: torch.Tensor
+    tbl: torch.Tensor
+    n_units: int
+    bpm: int
+    restart_interval: int
+    scan: torch.Tensor | None
+    readback: torch.Tensor
+
+
+def _enqueue(img, cfg: EncodeConfig, qy, qc) -> _Enqueued:
+    """Enqueue one image's device pack on the current stream, up to what
+    the host must read back: an (H, W) gray or (H, W, 3) colour uint8
+    tensor on its device -> edge pad, exact integer transform, DC DPCM,
+    then kernel A and the scan pass with the standard tables, or, for
+    optimize_tables, the symbol histograms. Nothing here waits for the
+    device."""
     r = cfg.restart_interval
-
-    def write(scan):
-        return jfif.write_jpeg(
-            w0, h0, _color_components(mode), {0: qy_np, 1: qc_np},
-            htables, scan, restart_interval=r, comment=comment,
-        )
-
-    with span("jt.encode.dispatch"):
-        with span("jt.wait.upload"):
-            img = torch.as_tensor(np.ascontiguousarray(image), device=device)
-        with span("jt.encode.transform"):
-            img = tile.pad_to_multiple(img, mode.mcu_height, mode.mcu_width)
-        mcu_rows = img.shape[0] // mode.mcu_height
-        mcu_cols = img.shape[1] // mode.mcu_width
-        n_mcu = mcu_rows * mcu_cols
-        hv = mode.h_factor * mode.v_factor
-        on_device = device_pack and not (r and r < n_mcu and n_mcu % r)
-        if on_device:
-            blocks, tbl, _, _ = _interleaved_blocks(img, qy_np, qc_np, mode,
-                                                    r)
-            if cfg.optimize_tables:
-                # Pass 1: device symbol histograms -> per-image optimal tables.
-                with span("jt.encode.pack"):
-                    hists = _color_hists(blocks, n_mcu, hv)
-                with span("jt.wait.status"):
-                    hists = [h.cpu() for h in hists]
-                htables = _optimal_tables(hists)
-            else:
-                htables = huffman.standard_tables()
-            with span("jt.encode.pack"):
-                scan, status = _scan_device(
-                    blocks, tbl, _device_luts(htables, img.device), n_mcu, r)
-        else:
-            # The exact transform's spans are its own; use_pallas's kernel C
-            # wrappers upload their tables blocking, in the parent's glue.
-            planes = _transform_color(img, qy_np, qc_np, mode, use_pallas)
-    with span("jt.encode.finish"):
-        if on_device:
-            with span("jt.wait.status"):
-                status = status.cpu().numpy()
-            return _finish_device_pack(scan, status, blocks, tbl, htables,
-                                       r, hv + 2, write)
-        # Host pack: download the three coefficient planes and pack them on
-        # the host.
-        with span("jt.wait.download"):
-            planes = [a.cpu().numpy() for a in planes]
-        with span("jt.encode.finalize"):
-            scan, htables = _host_pack_color(*planes, mcu_rows, mcu_cols, cfg)
-            return write(scan)
-
-
-def _encode_gray(image: np.ndarray, cfg: EncodeConfig, comment,
-                 quant_tables, device, device_pack: bool) -> bytes:
-    """One component, one block per MCU. The transform is the exact integer
-    one on every device (the port has no staged float CPU path); the device
-    pack is kernel A with every table id 0 and the scan pass, under the
-    same 288-bit per-block budget as jpeg_tpu's gray pack."""
-    h0, w0 = image.shape
-    qy_np = _quant_tables(cfg, quant_tables)[0]
-    r = cfg.restart_interval
-
-    def write(scan):
-        tables = {(0, 0): all_tables[(0, 0)], (1, 0): all_tables[(1, 0)]}
-        return jfif.write_jpeg(
-            w0, h0, [jfif.ComponentSpec(1, 1, 1, 0, 0, 0)], {0: qy_np},
-            tables, scan, restart_interval=r, comment=comment,
-        )
-
-    with span("jt.encode.dispatch"):
-        with span("jt.wait.upload"):
-            img = torch.as_tensor(np.ascontiguousarray(image), device=device)
+    header = _header(tuple(img.shape), cfg, qy, qc)
+    if img.ndim == 2:
         with span("jt.encode.transform"):
             img = tile.pad_to_multiple(img, 8, 8)
-        zz = mcu_conv.gray_transform_int(img, qy_np)  # raster == scan order
-        nblocks = zz.shape[0]
-        on_device = device_pack and not (r and r < nblocks and nblocks % r)
-        if on_device:
-            with span("jt.encode.transform"):
-                zz[:, 0] = dpcm_ops.dpcm(zz[:, 0], r)
-            tbl = torch.zeros(nblocks, dtype=torch.int32, device=zz.device)
-            if cfg.optimize_tables:
-                with span("jt.encode.pack"):
-                    hists = symbols.symbol_histogram(zz)
-                with span("jt.wait.status"):
-                    hists = [h.cpu() for h in hists]
-                all_tables = _optimal_tables(hists)
-            else:
-                all_tables = huffman.standard_tables()
-            with span("jt.encode.pack"):
-                scan, status = _scan_device(
-                    zz, tbl, _device_luts(all_tables, zz.device), nblocks, r)
-    with span("jt.encode.finish"):
-        if on_device:
-            with span("jt.wait.status"):
-                status = status.cpu().numpy()
-            return _finish_device_pack(scan, status, zz, tbl, all_tables, r,
-                                       1, write)
-        with span("jt.wait.download"):
-            blocks = zz.cpu().numpy()
-        with span("jt.encode.finalize"):
-            blocks[:, 0] = _dpcm_host(blocks[:, 0], r)
-            scan, all_tables = _pack_scan(
-                blocks, np.zeros(nblocks, dtype=np.uint8), cfg, 1)
-            return write(scan)
+        blocks = mcu_conv.gray_transform_int(img, qy)  # raster == scan order
+        with span("jt.encode.transform"):
+            blocks[:, 0] = dpcm_ops.dpcm(blocks[:, 0], r)
+        tbl = torch.zeros(blocks.shape[0], dtype=torch.int32,
+                          device=blocks.device)
+        n_units, bpm = blocks.shape[0], 1
+    else:
+        mode = cfg.subsampling
+        with span("jt.encode.transform"):
+            img = tile.pad_to_multiple(img, mode.mcu_height, mode.mcu_width)
+        blocks, tbl, n_units, hv = _interleaved_blocks(img, qy, qc, mode, r)
+        bpm = hv + 2
+    with span("jt.encode.pack"):
+        if cfg.optimize_tables:
+            hists = (symbols.symbol_histogram(blocks) if bpm == 1
+                     else _color_hists(blocks, n_units, bpm - 2))
+            scan, readback = None, torch.stack(hists)
+        else:
+            scan, readback = pack.pack_scan(*_level1_segments(
+                blocks, tbl, _device_luts(_STANDARD_TABLES, blocks.device),
+                n_units, r))
+    return _Enqueued(header, blocks, tbl, n_units, bpm, r, scan, readback)
+
+
+def _finish(rec: _Enqueued, host: torch.Tensor, comment=None,
+            fetch=None) -> bytes:
+    """The JFIF bytes of an _enqueue'd image, once `host` holds its
+    readback on the host. Under optimize_tables: the image's optimal tables
+    from its histograms, the scan pass with them on the current stream,
+    and the pass's status read back. Then _scan_or_spill, with `fetch` as
+    its download."""
+    tables, scan = _STANDARD_TABLES, rec.scan
+    if scan is None:
+        tables = _optimal_tables(host)
+        with span("jt.encode.pack"):
+            scan, status = pack.pack_scan(*_level1_segments(
+                rec.blocks, rec.tbl, _device_luts(tables, rec.blocks.device),
+                rec.n_units, rec.restart_interval))
+        with span("jt.wait.status"):
+            host = status.cpu()
+    return _scan_or_spill(
+        scan, host.numpy(), rec.blocks, rec.tbl, tables, rec.restart_interval,
+        rec.bpm, lambda s: _jfif(rec.header, tables, s, rec.restart_interval,
+                                 comment), fetch)
 
 
 def encode(
@@ -486,19 +449,46 @@ def encode(
     if isinstance(image, (str, bytes)):
         image = bmp.read_bmp(image) if isinstance(image, str) else bmp.decode_bmp(image)
     image = _normalize_image(image)
-    quant_tables = _normalize_quant_tables(quant_tables)
-    device = torch.device(device)
-    if device_pack is None:
-        device_pack = True
-    if image.ndim == 2:
-        return _encode_gray(image, cfg, comment, quant_tables, device,
-                            device_pack)
-    if image.ndim == 3 and image.shape[2] == 3:
-        if use_pallas:
-            device_pack = False  # the fused DCT path feeds the host packer
-        return _encode_color(image, cfg, comment, quant_tables, device,
-                             device_pack, use_pallas)
-    raise ValueError(f"expected (H, W, 3) or (H, W) image, got {image.shape}")
+    gray = image.ndim == 2
+    if not gray and (image.ndim != 3 or image.shape[2] != 3):
+        raise ValueError(
+            f"expected (H, W, 3) or (H, W) image, got {image.shape}")
+    qy, qc = _quant_tables(cfg, quant_tables)
+    mode = cfg.subsampling
+    mcu_h, mcu_w = (8, 8) if gray else (mode.mcu_height, mode.mcu_width)
+    n_mcu = (layout.ceil_div(image.shape[0], mcu_h)
+             * layout.ceil_div(image.shape[1], mcu_w))
+    r = cfg.restart_interval
+    # The fused DCT path (colour only) feeds the host packer.
+    on_device = ((device_pack is None or device_pack)
+                 and (gray or not use_pallas)
+                 and not (r and r < n_mcu and n_mcu % r))
+    with span("jt.encode.dispatch"):
+        with span("jt.wait.upload"):
+            img = torch.as_tensor(np.ascontiguousarray(image),
+                                  device=torch.device(device))
+        if on_device:
+            rec = _enqueue(img, cfg, qy, qc)
+        else:
+            with span("jt.encode.transform"):
+                img = tile.pad_to_multiple(img, mcu_h, mcu_w)
+            # The exact transform's spans are its own; use_pallas's kernel C
+            # wrappers upload their tables blocking, in the parent's glue.
+            planes = ([mcu_conv.gray_transform_int(img, qy)] if gray
+                      else _transform_color(img, qy, qc, mode, use_pallas))
+    with span("jt.encode.finish"):
+        if on_device:
+            with span("jt.wait.status"):
+                host = rec.readback.cpu()
+            return _finish(rec, host, comment)
+        with span("jt.wait.download"):
+            planes = [a.cpu().numpy() for a in planes]
+        with span("jt.encode.finalize"):
+            scan, htables = (_host_pack_gray(*planes, cfg) if gray else
+                             _host_pack_color(*planes, img.shape[0] // mcu_h,
+                                              img.shape[1] // mcu_w, cfg))
+            return _jfif(_header(image.shape, cfg, qy, qc), htables, scan, r,
+                         comment)
 
 
 def encode_batched(
@@ -514,9 +504,10 @@ def encode_batched(
     """Encode K same-shape RGB images, (K, H, W, 3), as one batch on
     `device`: one upload, one edge pad, one exact transform (one matmul over
     the K * n_mcu MCU rows), DC DPCM that restarts at every image, ONE launch
-    of kernel A over all K * B blocks, level 2 with K * nseg segments, one
-    sliced download of the words, then K host finalizes. Returns one JFIF
-    stream per image, byte-identical to K calls of encode().
+    of kernel A over all K * B blocks, then the scan pass once per image
+    over its segments (RSTn from 0), one download of the K statuses and
+    encode()'s scan-or-spill per image. Returns one JFIF stream per image,
+    byte-identical to K calls of encode().
 
     All device work runs on PyTorch's current stream.
 
@@ -547,7 +538,7 @@ def encode_batched(
                        device_pack=device_pack, quant_tables=quant_tables,
                        device=device)
                 for im in imgs]
-    qy_np, qc_np = _quant_tables(cfg, _normalize_quant_tables(quant_tables))
+    qy_np, qc_np = _quant_tables(cfg, quant_tables)
     batch = tile.pad_batch_to_multiple(
         torch.as_tensor(np.ascontiguousarray(imgs), device=device),
         mode.mcu_height, mode.mcu_width)
@@ -556,30 +547,22 @@ def encode_batched(
     seg_mcus = r if 0 < r < n_mcu else n_mcu
     blocks, tbl, _, hv = _interleaved_blocks(batch, qy_np, qc_np, mode,
                                              seg_mcus)
-    htables = huffman.standard_tables()
-    words, totals, ok = _pack_device(
+    htables = _STANDARD_TABLES
+    buf, t_b, nwords = _level1_segments(
         blocks, tbl, _device_luts(htables, device), n_img * n_mcu, seg_mcus)
     nseg = n_mcu // seg_mcus
-    status = _pack_status(totals, ok).cpu().numpy().reshape(2, n_img, nseg)
-    fits = status[1].all(axis=1)
-    w_host = None
-    if fits.any():
-        maxw = (int(status[0][fits].max()) + 31) // 32
-        w_host = words[:, :maxw].cpu().numpy().astype(np.uint32).reshape(
-            n_img, nseg, -1)
+    passes = [pack.pack_scan(buf[k * nseg:(k + 1) * nseg],
+                             t_b[k * nseg:(k + 1) * nseg], nwords)
+              for k in range(n_img)]
+    status = torch.stack([s for _, s in passes]).cpu().numpy()
+    header = _header(imgs.shape[1:], cfg, qy_np, qc_np)
     bpm = hv + 2
     per_img = n_mcu * bpm
-    out = []
-    for k in range(n_img):
-        if fits[k]:
-            scan = bitpack.finalize_stream(w_host[k], status[0, k])
-        else:
-            sl = slice(k * per_img, (k + 1) * per_img)
-            scan = _spill_scan(blocks[sl], tbl[sl], htables, r, bpm)
-        out.append(jfif.write_jpeg(
-            w0, h0, _color_components(mode), {0: qy_np, 1: qc_np}, htables,
-            scan, restart_interval=r, comment=comment))
-    return out
+    return [_scan_or_spill(
+        scan, status[k], blocks[k * per_img:(k + 1) * per_img],
+        tbl[k * per_img:(k + 1) * per_img], htables, r, bpm,
+        lambda s: _jfif(header, htables, s, r, comment))
+        for k, (scan, _) in enumerate(passes)]
 
 
 def encode_bmp_to_jpeg(input_path: str, output_path: str, quality: int = 75,

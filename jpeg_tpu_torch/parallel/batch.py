@@ -29,17 +29,11 @@ from jpeg_tpu_torch.ops import bitpack, quant
 from jpeg_tpu_torch.parallel import shard
 from jpeg_tpu_torch.parallel.mesh import grid_map, make_mesh, to_host
 
-# Batches (and encode_mosaic_stream stripes) whose device pack overflowed
-# the 288-bit per-block budget (bitpack.BLOCK_WORDS) and were packed on the
-# host instead. Counted under a lock: callers may encode from threads.
+# Mesh batches whose device pack overflowed the 288-bit per-block budget
+# (bitpack.BLOCK_WORDS) and were packed whole on the host instead. Counted
+# under a lock: callers may encode from threads.
 DEVICE_PACK_FALLBACKS = 0
 _COUNT_LOCK = threading.Lock()
-
-
-def _count_fallback() -> None:
-    global DEVICE_PACK_FALLBACKS
-    with _COUNT_LOCK:
-        DEVICE_PACK_FALLBACKS += 1
 
 
 def tables_from_histograms(hists: np.ndarray) -> dict:
@@ -123,6 +117,7 @@ def encode_batch(
     counted in DEVICE_PACK_FALLBACKS. With optimize_tables, one set of
     optimal tables is derived from the psum'd global histograms and shared
     by the whole batch."""
+    global DEVICE_PACK_FALLBACKS
     imgs = encoder._normalize_image(imgs)
     if imgs.ndim != 4 or imgs.shape[-1] != 3:
         raise ValueError(f"expected (B, H, W, 3), got {imgs.shape}")
@@ -142,7 +137,8 @@ def encode_batch(
             optimize_tables=optimize_tables)
         if out is not None:
             return out
-        _count_fallback()  # fall through to the host pack
+        with _COUNT_LOCK:  # fall through to the host pack
+            DEVICE_PACK_FALLBACKS += 1
 
     y, cb, cr, hists = shard.sharded_encode_blocks(
         grid, qy, qc, mesh, mode, stripe_restart=stripe_restart)

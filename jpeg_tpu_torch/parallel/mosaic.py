@@ -17,11 +17,11 @@ import numpy as np
 import torch
 
 from jpeg_tpu_torch.config import EncodeConfig
-from jpeg_tpu_torch.entropy import huffman, native
+from jpeg_tpu_torch.entropy import huffman
 from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import encoder as E
 from jpeg_tpu_torch.ops import pack, quant, tile
-from jpeg_tpu_torch.parallel.batch import _count_fallback, encode_batch
+from jpeg_tpu_torch.parallel.batch import encode_batch
 from jpeg_tpu_torch.parallel.mesh import make_mesh
 
 
@@ -88,7 +88,7 @@ def encode_mosaic_stream(
     group), so it is packed on the device (kernel A + the scan pass, its
     RSTn numbered from the stripe's first segment); a stripe whose pack
     overflows the per-block budget takes the native host packer instead
-    (counted in batch.DEVICE_PACK_FALLBACKS).
+    (encoder's one spill rule, counted in encoder.HOST_PACK_SPILLS).
     The stream is byte-identical to encode(image, quality, subsampling,
     restart_interval=rst_rows*mcu_cols, optimize_tables=...) on the whole
     image."""
@@ -167,16 +167,9 @@ def encode_mosaic_stream(
         scan, status = pack.pack_scan(
             *E._level1_segments(blocks, tbl, luts, n_mcu, r), rst_base=seg)
         status = status.cpu().numpy()
-        nseg = status.shape[0] // 2
-        if status[nseg:2 * nseg].all():
-            chunk = scan[:int(status[-1])].cpu().numpy().tobytes()
-        else:
-            _count_fallback()
-            chunk = native.encode_scan(
-                blocks.cpu().numpy(), tbl.cpu().numpy(), htables,
-                restart_interval=r, blocks_per_mcu=bpm, rst_base=seg)
-        seg += nseg
-        emit(chunk)
+        emit(E._scan_or_spill(scan, status, blocks, tbl, htables, r, bpm,
+                              bytes, rst_base=seg))
+        seg += status.shape[0] // 2
         if seg < total_segs:  # splice marker between stripes
             emit(bytes([0xFF, 0xD0 + ((seg - 1) & 7)]))
     emit(b"\xff\xd9")  # EOI

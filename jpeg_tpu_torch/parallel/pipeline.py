@@ -25,10 +25,8 @@ import numpy as np
 import torch
 
 from jpeg_tpu_torch.config import EncodeConfig
-from jpeg_tpu_torch.entropy import huffman
-from jpeg_tpu_torch.io import jfif
 from jpeg_tpu_torch.models import encoder as E
-from jpeg_tpu_torch.ops import quant, tile
+from jpeg_tpu_torch.ops import quant
 from jpeg_tpu_torch.utils.trace import span
 
 
@@ -118,18 +116,14 @@ def encode_stream(
     device_pack=False encodes image by image through the host pack."""
     cfg = EncodeConfig(quality=quality, subsampling=subsampling,
                        optimize_tables=optimize_tables)
-    mode = cfg.subsampling
     device = torch.device(device)
     if device_pack is None:
         device_pack = True
-    on_card = device.type == "cuda"
     depth = max(0, int(depth))
-    htables = huffman.standard_tables()
     qy_np = quant.luma_table(cfg.quality)
     qc_np = quant.chroma_table(cfg.quality)
-    hv = mode.h_factor * mode.v_factor
     slots = [_Slot(device) for _ in range(depth + 1)] if (
-        on_card and device_pack) else None
+        device.type == "cuda" and device_pack) else None
 
     def on_stream(slot):
         return torch.cuda.stream(slot.stream) if slot is not None else (
@@ -140,65 +134,39 @@ def encode_stream(
         if img.ndim != 3 or img.shape[2] != 3:
             raise ValueError(f"expected (H, W, 3), got {img.shape}")
         if not device_pack:
-            return ("host", img)
+            return img
         slot = slots[index % len(slots)] if slots else None
         with span("jt.encode.dispatch"), on_stream(slot):
-            if slot is not None:
+            if slot is None:
+                with span("jt.wait.upload"):
+                    dev = torch.as_tensor(np.ascontiguousarray(img),
+                                          device=device)
+            else:
                 # The slot's image before was finished (its event waited
                 # for), so its staging buffer is free.
                 with span("jt.encode.stage"):
                     dev = slot.stage(img).to(device, non_blocking=True)
-            else:
-                with span("jt.wait.upload"):
-                    dev = torch.as_tensor(np.ascontiguousarray(img),
-                                          device=device)
-            with span("jt.encode.transform"):
-                padded = tile.pad_to_multiple(dev, mode.mcu_height,
-                                              mode.mcu_width)
-            blocks, tbl, n_mcu, _ = E._interleaved_blocks(
-                padded, qy_np, qc_np, mode, 0)
-            with span("jt.encode.pack"):
-                if optimize_tables:
-                    packed = None
-                    host = torch.stack(E._color_hists(blocks, n_mcu, hv))
-                else:
-                    packed = E._scan_device(
-                        blocks, tbl, E._device_luts(htables, device), n_mcu,
-                        0)
-                    host = packed[1]
-                done = None
-                if slot is not None:
-                    host = slot.fetch(host)
-                    done = torch.cuda.Event()
-                    done.record()
-        return ("device", img.shape[:2], slot, done, blocks, tbl, n_mcu,
-                packed, host)
+            rec = E._enqueue(dev, cfg, qy_np, qc_np)
+            host, done = rec.readback, None
+            if slot is not None:
+                host = slot.fetch(host)
+                done = torch.cuda.Event()
+                done.record()
+        return slot, done, rec, host
 
     def finish(item) -> bytes:
-        if item[0] == "host":
-            return E._encode_color(item[1], cfg, None, None, device, False,
-                                   False)
-        _, (h0, w0), slot, done, blocks, tbl, n_mcu, packed, host = item
+        if isinstance(item, np.ndarray):
+            return E.encode(item, quality, cfg.subsampling,
+                            optimize_tables=optimize_tables,
+                            device_pack=False, device=device)
+        slot, done, rec, host = item
         with span("jt.encode.finish"):
             if done is not None:
                 with span("jt.wait.slot"):
                     done.synchronize()
             with on_stream(slot):
-                tables = htables
-                if optimize_tables:
-                    tables = E._optimal_tables(host)
-                    with span("jt.encode.pack"):
-                        packed = E._scan_device(
-                            blocks, tbl, E._device_luts(tables, device),
-                            n_mcu, 0)
-                    with span("jt.wait.status"):
-                        host = packed[1].cpu()
-                return E._finish_device_pack(
-                    packed[0], host.numpy(), blocks, tbl, tables, 0, hv + 2,
-                    lambda scan: jfif.write_jpeg(
-                        w0, h0, E._color_components(mode),
-                        {0: qy_np, 1: qc_np}, tables, scan),
-                    fetch=slot.download if slot is not None else None)
+                return E._finish(rec, host, fetch=(
+                    slot.download if slot is not None else None))
 
     pending: collections.deque = collections.deque()
     for index, img in enumerate(images):

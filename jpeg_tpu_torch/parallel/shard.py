@@ -33,7 +33,7 @@ import torch
 
 from jpeg_tpu_torch.config import Subsampling
 from jpeg_tpu_torch.models import decoder, encoder
-from jpeg_tpu_torch.ops import finish, mcu_conv, subsample, symbols
+from jpeg_tpu_torch.ops import finish, mcu_conv, pack, subsample, symbols
 from jpeg_tpu_torch.parallel import mesh as mesh_mod
 from jpeg_tpu_torch.parallel.mesh import Mesh, grid_map, ppermute, psum
 
@@ -139,8 +139,8 @@ def _stripe_step_packed(imgs, qy, qc, luts, *, mode: Subsampling):
     the 288-bit budget (bitpack.BLOCK_WORDS)."""
     blocks, tbl, n_mcu = _stripe_blocks(imgs, qy, qc, mode)
     b = imgs.shape[0]
-    words, totals, ok = encoder._pack_device(blocks, tbl, luts, b * n_mcu,
-                                             n_mcu)
+    words, totals, ok = pack.pack_level2(
+        *encoder._level1_segments(blocks, tbl, luts, b * n_mcu, n_mcu))
     return words, totals[:, None], ok[:, None]
 
 

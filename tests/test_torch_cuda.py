@@ -490,11 +490,14 @@ def test_encode_batched_on_card(mode, shape, restart, k):
     per_image = [jpeg_tpu_torch.encode(im, device="cuda", **kw)
                  for im in imgs]
     spills, before = encoder.HOST_PACK_SPILLS, _counts()
+    scans = pack.SCAN_LAUNCHES
     got = jpeg_tpu_torch.encode_batched(imgs, device="cuda", **kw)
     torch.cuda.synchronize()
-    # One launch of kernel A for the batch; restart 7 does not divide the
-    # MCU count, so that batch is host-packed image by image.
+    # One launch of kernel A for the batch and the scan pass (four launches)
+    # per image; restart 7 does not divide the MCU count, so that batch is
+    # host-packed image by image.
     assert _since(before) == ((0 if restart == 7 else 1), 0, 0, 0, 0)
+    assert pack.SCAN_LAUNCHES == scans + (0 if restart == 7 else 4 * k)
     assert encoder.HOST_PACK_SPILLS == spills
     assert got == per_image
     assert got == jpeg_tpu_torch.encode_batched(imgs, device="cpu", **kw)

@@ -19,8 +19,9 @@ from jpeg_tpu.parallel.mosaic import encode_mosaic_stream as jax_stream
 
 import jpeg_tpu_torch
 from jpeg_tpu_torch.config import Subsampling
+from jpeg_tpu_torch.models import encoder as PE
 from jpeg_tpu_torch.ops import pack as PP
-from jpeg_tpu_torch.parallel import batch as PB, mosaic as PMo
+from jpeg_tpu_torch.parallel import mosaic as PMo
 
 from torch_port_util import jax_exact_transform  # noqa: F401
 
@@ -57,10 +58,10 @@ def test_stream_matches_whole_image_encode(jax_exact_transform, rng, sub,
                                         restart_interval=r, device="cpu")
     assert got == jax_stream(lambda a, b: img[a:b], h, w, **kw)
     _all_stripes_spill(monkeypatch)
-    before = PB.DEVICE_PACK_FALLBACKS
+    before = PE.HOST_PACK_SPILLS
     assert _stream(img, **kw) == got
     stripes = -(-h // kw["stripe_rows"])
-    assert PB.DEVICE_PACK_FALLBACKS == before + stripes
+    assert PE.HOST_PACK_SPILLS == before + stripes
 
 
 def test_stream_optimized_tables_two_pass(jax_exact_transform, rng):

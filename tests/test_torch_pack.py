@@ -493,12 +493,13 @@ def test_finish_takes_the_spill_when_a_segment_is_not_ok():
     tbl = torch.zeros(20, dtype=torch.int32)
     htables = PH.standard_tables()
     luts = PE._device_luts(htables, "cpu")
-    scan, status = PE._scan_device(blocks, tbl, luts, 20, 10)
+    scan, status = PP.pack_scan(*PE._level1_segments(blocks, tbl, luts, 20,
+                                                     10))
     status = status.numpy()
     assert status[2:4].tolist() == [1, 0] and status[-1] == 0
     spills = PE.HOST_PACK_SPILLS
-    got = PE._finish_device_pack(scan, status, blocks, tbl, htables, 10, 1,
-                                 lambda b: b)
+    got = PE._scan_or_spill(scan, status, blocks, tbl, htables, 10, 1,
+                            lambda b: b)
     assert PE.HOST_PACK_SPILLS == spills + 1
     assert got == PN.encode_scan(blocks.numpy(), tbl.numpy(), htables,
                                  restart_interval=10, blocks_per_mcu=1)
