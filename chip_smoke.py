@@ -202,8 +202,8 @@ HEIGHT, WIDTH = 2160, 3840  # bench.py's 4K image
 QUALITY, SUBSAMPLING = 75, "420"
 WARM, RUNS = 2, 7
 DIFF_SHARE = 0.005  # decoded samples allowed to differ by 1 from the CPU path
-KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "prefix_index",
-           "finish_color", "pack_scan")
+KERNELS = ("pack_level1", "idct8", "dct8", "ac_indexed", "finish_color",
+           "pack_scan", "scan_decode")
 KERNEL_LAUNCHES = 20  # launches per timed replay of kernel_only_us
 COLD_BYTES = 200_000_000  # moved between two uses of a buffer; the L2 holds 50 MB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -494,11 +494,13 @@ def reset_counts():
     entropy_decode.SEGMENT_LAUNCHES = 0
     entropy_decode.PREFIX_LAUNCHES = 0
     entropy_decode.PREFIX_STAGE_LAUNCHES = 0
+    entropy_decode.NATIVE_SCANS = 0
+    entropy_decode.DC_SUM_LAUNCHES = 0
 
 
 def read_counts():
-    """((A, B, C, B2, H), (D, E, F, F's separate launches)) since the
-    reset."""
+    """((A, B, C, B2, H), (D, E, F, F's separate launches, native scan
+    calls, DC-sum launches)) since the reset."""
     import torch
 
     from jpeg_tpu_torch.ops import entropy_decode, finish, fused, pack
@@ -508,7 +510,8 @@ def read_counts():
              fused.ZZ_LAUNCHES, finish.LAUNCHES),
             (entropy_decode.AC_LAUNCHES, entropy_decode.SEGMENT_LAUNCHES,
              entropy_decode.PREFIX_LAUNCHES,
-             entropy_decode.PREFIX_STAGE_LAUNCHES))
+             entropy_decode.PREFIX_STAGE_LAUNCHES,
+             entropy_decode.NATIVE_SCANS, entropy_decode.DC_SUM_LAUNCHES))
 
 
 def hash_streams(streams) -> str:
@@ -684,6 +687,76 @@ def skewed_tables(blocks, huffman, symbols, torch):
             skew[sym] = max(1, int(2 ** 40 * 0.55 ** rank))
         t = huffman.optimal_table(skew)
         out[(is_ac, 0)] = out[(is_ac, 1)] = t
+    return out
+
+
+def profiled_kernel_us(fn, name: str, torch) -> float:
+    """Median device time in us of the kernel `name` over RUNS calls of
+    fn(), by the profiler's trace (after WARM calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARM):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(RUNS):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = [float(e["dur"]) for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel" and name in e.get("name", "")]
+    return statistics.median(durs) if durs else float("nan")
+
+
+# Phase 5e's shapes: (MCUs, blocks per MCU of each component, restart
+# interval): the camera cell's frame, a 500x375 4:2:0 image (its MCU row as
+# the interval when anchored), the 4K 4:2:0 frame and that frame at restart 1.
+DC_SUM_SHAPES = {"camera": (16200, [2, 1, 1], 120),
+                 "imagenet": (768, [4, 1, 1], 32),
+                 "4k": (32400, [4, 1, 1], 240),
+                 "4k restart 1": (32400, [4, 1, 1], 1)}
+
+
+def dc_sum_phase(dev, card: str, torch) -> dict:
+    """Phase 5e: the DC sums' one launch (csrc/scan_decode.cu) against its
+    twin, the torch sums it replaced, in both modes at the driven shapes,
+    0 apart; its kernel time by the profiler and its bytes."""
+    from jpeg_tpu_torch.ops import entropy_decode
+
+    out = {}
+    for shape, (n_mcu, comp_bpm, interval) in DC_SUM_SHAPES.items():
+        bpm = sum(comp_bpm)
+        rng = np.random.default_rng(n_mcu + interval)
+        diff = torch.as_tensor(rng.integers(-2047, 2048, size=n_mcu * bpm,
+                                            dtype=np.int32), device=dev)
+        ac_off = torch.as_tensor(rng.integers(0, 2**30, size=(n_mcu, bpm),
+                                              dtype=np.int32), device=dev)
+        seq = torch.as_tensor(rng.integers(0, 8, size=(bpm, 3),
+                                           dtype=np.int32), device=dev)
+        for anchored in (True, False):
+            d = diff if anchored else diff.view(n_mcu, bpm)
+            args = (d, ac_off, seq, comp_bpm, interval, n_mcu, anchored)
+            got = entropy_decode.dc_sums(*args)
+            want = entropy_decode.dc_sums_reference(*args)
+            err = max(int_err(g, w) for g, w in zip(got, want)
+                      if w is not None)
+            us = profiled_kernel_us(lambda: entropy_decode.dc_sums(*args),
+                                    "dc_sum_kernel", torch)
+            nbytes = n_mcu * bpm * (12 if anchored else 20)
+            mode = "anchored" if anchored else "from bit 0"
+            print(f"phase 5e: DC sums, {shape} {mode}: {n_mcu * bpm} blocks; "
+                  f"vs plain: max |err| {err}; kernel {us:.2f} us (profiler, "
+                  f"median of {RUNS}); {nbytes} bytes, bound "
+                  f"{bound_us(nbytes):.2f} us [{card}]", flush=True)
+            check(err == 0, f"DC sums {shape} {mode}: max |err| {err}")
+            out[f"{shape} {mode}"] = {"blocks": n_mcu * bpm, "kernel_us": us,
+                                      "bytes": nbytes,
+                                      "bound_us": bound_us(nbytes)}
     return out
 
 
@@ -1033,15 +1106,17 @@ def run(card: str) -> dict:
 
     def e_alone_us(e_in):
         """E's route alone, kernel only: the anchored program, the DC sums
-        and kernel D (_launch_segments), on rotating buffers."""
-        nblocks, nseg = e_in[6], e_in[1].shape[0]
-        sets = [(e_in[0].clone(),
-                 torch.empty((nblocks, 64), dtype=torch.int32, device=dev),
-                 torch.empty((2, nseg), dtype=torch.int32, device=dev))
-                for _ in range(rotation(nblocks * 256))]
+        and kernel D (scan_decode on words already on the card: the control
+        words' memset, no upload), on rotating buffers."""
+        words, seg_off, interval, n_mcu, seq, tables, nblocks = e_in
+        comps = seq[:, 0].tolist()
+        comp_bpm = [comps.count(c) for c in sorted(set(comps))]
+        sets = [words.clone() for _ in range(rotation(nblocks * 256))]
         return kernel_only_us(
-            lambda i: entropy_decode._launch_segments(
-                sets[i][0], *e_in[1:6], *sets[i][1:]), len(sets), torch)
+            lambda i: entropy_decode.scan_decode(
+                dev, True, sets[i].numel(), seg_off.numel(), interval, n_mcu,
+                seq, tables, comp_bpm, words=sets[i], seg_off=seg_off),
+            len(sets), torch)
 
     sync_runs = {}  # frame -> (route, segments, blocks, passes, kernel us)
     frames_4k = {}
@@ -1088,6 +1163,8 @@ def run(card: str) -> dict:
     check(err_d == 0 and err_e == 0 and err_f == 0,
           f"a device Huffman decoder disagrees with its plain twin "
           f"(D {err_d}, E {err_e}, F {err_f})")
+
+    dc_sum = dc_sum_phase(dev, card, torch)
 
     lap("5d")
     # Phase 5d: kernels B2 (zig-zag blocks in, uint8 samples out) and H (the
@@ -1283,8 +1360,8 @@ def run(card: str) -> dict:
           f"cases, max |err| {err_b2} / {err_h}", flush=True)
 
     # Every path of the JSON line's "launches_per": its counts as they were
-    # read just after it ran, ((A, B, C, B2, H), (D, E, F, F's separate
-    # launches)).
+    # read just after it ran, read_counts()'s ((A, B, C, B2, H), (D, E, F,
+    # F's separate launches, native scan calls, DC-sum launches)).
     path_counts = {}
     # Per path, the scan -> raster reorders (layout.SCAN_TO_RASTER_CALLS)
     # read just after it ran.
@@ -1292,9 +1369,8 @@ def run(card: str) -> dict:
 
     def counted_all(fn, path=None, images=1):
         """fn() with every kernel's count set to 0 just before and read just
-        after: (result, (A, B, C, B2, H) launches, (D, E, F, F's separate
-        launches)). `path` keeps the counts read under that name, divided
-        by the `images` the call took."""
+        after: (result, *read_counts()). `path` keeps the counts read under
+        that name, divided by the `images` the call took."""
         reset_counts()
         out = fn()
         abc, huffman_n = read_counts()
@@ -1333,11 +1409,12 @@ def run(card: str) -> dict:
     check(per_decode == COLOUR_N,
           "a colour decode is one launch of kernel B2 and one of H")
     f_launches = len(entropy_decode._SYNC_STEPS)
-    check(huffman_encode == (0, 0, 0, 0),
+    check(huffman_encode == (0, 0, 0, 0, 0, 0),
           f"an encode launched a Huffman decoder: {huffman_encode}")
-    check(huffman_main == (1, 0, 1, f_launches),
-          f"a default decode is program F ({f_launches} launches) and kernel "
-          f"D once each, not {huffman_main}")
+    check(huffman_main == (1, 0, 1, f_launches, 1, 1),
+          f"a default decode is program F ({f_launches} launches), the DC "
+          f"sums and kernel D once each from one native scan call, not "
+          f"{huffman_main}")
     check(spills == 0, f"{spills} host-pack spills on the main path")
     check(jpg == jpg_cpu, "CUDA encode bytes differ from the CPU encode")
     check(px.shape == (HEIGHT, WIDTH, 3) and px.dtype == np.uint8,
@@ -1587,19 +1664,20 @@ def run(card: str) -> dict:
         px_sparse = jpeg_tpu_torch.decode(stream, device=dev,
                                           entropy="sparse")
         for backend, want in (
-                ("indexed", (1, 0, 0, 0)),
-                ("device", (1, 1, 0, f_launches) if restarts else None)):
+                ("indexed", (1, 0, 0, 0, 0, 0)),
+                ("device", (1, 1, 0, f_launches, 1, 1) if restarts else None)):
             got, abc, huffman_n = counted_all(lambda: jpeg_tpu_torch.decode(
                 stream, device=dev, entropy=backend),
                 path=huffman_path.get((label, backend)))
             same = np.array_equal(got, px_sparse)
             print(f"phase 6f: {label} 4K decode, entropy {backend!r}: "
                   f"launches (A, B, C, B2, H) {abc}, (D, E, F, F's separate "
-                  f"launches) {huffman_n}; == sparse: {same}", flush=True)
+                  f"launches, native scan calls, DC sums) {huffman_n}; == "
+                  f"sparse: {same}", flush=True)
             check(same, f"{label}: {backend!r} pixels differ from sparse")
             check(abc == nb, f"{label} {backend!r}: launches {abc}")
-            if want is None:  # no markers: program F once, then kernel D
-                check(huffman_n == (1, 0, 1, f_launches),
+            if want is None:  # no markers: program F, DC sums, kernel D
+                check(huffman_n == (1, 0, 1, f_launches, 1, 1),
                       f"{label} 'device': launches {huffman_n}")
             else:
                 check(huffman_n == want,
@@ -1933,7 +2011,7 @@ def run(card: str) -> dict:
           f"{got == want_px}; launches {abc}, {huffman_n}", flush=True)
     check(got == want_px, "decode_stream with 'indexed' differs from decode()")
     check(abc == times(STREAM_DECODE, COLOUR_N)
-          and huffman_n == (STREAM_DECODE, 0, 0, 0),
+          and huffman_n == (STREAM_DECODE, 0, 0, 0, 0, 0),
           f"decode_stream with 'indexed' launched {abc}, {huffman_n}")
     odd = jpgs16[:2] + [small_jpg, jpg_g] + jpgs16[2:4]
     got, n_b = counted(lambda: list(jpeg_tpu_torch.decode_stream(
@@ -3132,9 +3210,21 @@ def run(card: str) -> dict:
     # ran (path_counts); decode_batched's "auto" mode is one of the other two.
     check(set(path_counts) - {"decode_batched_auto_k4"} == set(launch_paths),
           f"paths counted: {sorted(path_counts)}")
-    # (A, B, C, B2, H, D, E, F) = per[0..7].
+    # (A, B, C, B2, H, D, E, F, F's launches, native scan calls, DC sums)
+    # = per[0..10].
     per = [[(path_counts[p][0] + path_counts[p][1])[k] for p in launch_paths]
-           for k in range(8)]
+           for k in range(11)]
+    # The DC sums run once per native scan call and nowhere else: once per
+    # image on the device-route paths, never on the indexed one.
+    scans = dict(zip(launch_paths, zip(per[9], per[10])))
+    print(f"phase 8: (native scan calls, DC-sum launches) per path: {scans}",
+          flush=True)
+    check(all(n == d for n, d in scans.values())
+          and all(scans[p] == (1, 1) for p in (
+              "default_decode", "device_decode", "device_decode_restarts",
+              "decode_stream_per_image"))
+          and scans["indexed_decode"] == (0, 0),
+          f"native scan calls and DC-sum launches per path: {scans}")
     # Every path of this process that went through kernel B2 read the scan
     # order in place: no scan -> raster reorder.
     b2_reorders = {p: path_reorders[p] for p in launch_paths
@@ -3222,6 +3312,14 @@ def run(card: str) -> dict:
          "launches_per": {"default_encode": scan_per_encode,
                           "encode_stream_per_image": scan_per_stream_image},
          "covers": "the memset and the three kernels, one launch each"},
+        {"name": "dc_sum", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/scan_decode.cu",
+         "replaces": "the torch DC sums between the block-start program and "
+                     "kernel D (10 operations anchored, 16 from bit 0)",
+         "launches": main_launches[10],
+         "launches_per": dict(zip(launch_paths, per[10])),
+         "native_scans_per": dict(zip(launch_paths, per[9])),
+         "by_shape": dc_sum},
     ]}
 
 

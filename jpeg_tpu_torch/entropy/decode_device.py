@@ -26,9 +26,13 @@ kernel D decodes every block's AC coefficients in parallel.
 "device" (decode_scan): the host only splits the scan at its restart markers
 and removes the byte stuffing. The card finds every block's start with one
 chunked, self-synchronizing program (csrc/prefix_index.cu): anchored at every
-segment's first byte with markers (decode_segments, which also sums the DCs
-and runs kernel D), from bit 0 without (decode_scan_prefix: program F, then a
-cumulative sum gives the DCs, and kernel D decodes the blocks). The kernels, their twins and their table format are
+segment's first byte with markers, from bit 0 without (program F,
+decode_scan_prefix); one launch sums the DCs, and kernel D decodes the
+blocks. On a card the host half is native code that holds no GIL: the split
+(csrc/scan_decode.cu's jt_split_scan, into the thread's pinned buffer) and
+one C call that enqueues the words' upload and every launch
+(entropy_decode.scan_decode). On the CPU unstuffed_segments and the kernels'
+plain twins run. The kernels, their twins and their table format are
 ops/entropy_decode's; the reference's canonical-code tables and its second
 LUT form are not carried over, since a GPU thread indexes one table.
 
@@ -43,6 +47,7 @@ the plain code widens once to int64 and masks to 32 bits.
 from __future__ import annotations
 
 import collections
+import ctypes
 import threading
 
 import numpy as np
@@ -533,64 +538,76 @@ def decode_scan_prefix(
     """Restart-free decode on the device: program F finds every block's AC
     offset and DC difference, a cumulative sum per component gives the DCs,
     kernel D decodes the blocks. Same output contract as
-    decode_scan_indexed."""
-    with span("jt.decode.unstuff"):
-        unstuffed = decode_np.unstuff(scan)
-        words = _guarded_words(unstuffed)
-    return _decode_prefix(words, len(unstuffed) * 8, mcu_count, mcu_layout,
-                          htables, torch.device(device))
+    decode_scan_indexed; a scan with restart markers is refused."""
+    return _decode(scan, mcu_count, mcu_layout, htables, 0,
+                   torch.device(device), prefix=True)
 
 
-def _decode_prefix(host_words: np.ndarray, true_bits: int, mcu_count: int,
-                   mcu_layout: list, htables: dict, device: torch.device):
-    """decode_scan_prefix on the unstuffed scan's words."""
-    # Program F is given no more words than these blocks can span: a walk
-    # that raises no flag ends inside them, and what a file carries behind
-    # them is never read, nor chunked.
-    keep = (mcu_count * sum(bpm for (_, bpm, _, _) in mcu_layout)
-            * MAX_BLOCK_BITS + 31) // 32
-    if keep + _GUARD // 4 < len(host_words):
-        host_words = np.concatenate(
-            [host_words[:keep], np.zeros(_GUARD // 4, dtype=np.int32)])
-        true_bits = min(true_bits, keep * 32)
-    slots, slot_of = _scan_slots(mcu_layout)
-    pairs = [(slot_of[(0, dc)], slot_of[(1, ac)])
-             for (_, bpm, dc, ac) in mcu_layout for _ in range(bpm)]
-    classes = sorted(set(pairs))
-    seq, cls = _cached(("prefix", tuple(pairs)), device, lambda: (
-        np.array([(d, a, classes.index((d, a))) for d, a in pairs],
-                 dtype=np.int32),
-        np.array(classes, dtype=np.int32)))
-    tables = _device_luts(htables, slots, device)
-    slot_dev = _cached_slot_array(
-        tuple((bpm, slot_of[(1, ac)]) for (_, bpm, _, ac) in mcu_layout),
-        mcu_count, device)
+# The host side of a card's scan: each thread's pinned buffer (the words,
+# the segments' offsets behind them and room for the DC sums' control
+# words), its event and the segments' lengths. The buffer is written again
+# only once the event, recorded behind its last upload, has completed: a
+# decode that raised after its upload was enqueued leaves it in flight.
+_host = threading.local()
 
-    with span("jt.wait.upload"):
-        words = torch.from_numpy(host_words).to(device)
-    with span("jt.decode.entropy"):
-        ac_off, diff, status = entropy_decode.prefix_index(
-            words, mcu_count, seq, cls, tables)
-        # Component-major order (kernel D's and native.decode_scan's): all
-        # blocks of component 0 in scan order, then component 1, ...
-        off_parts, dc_parts, base = [], [], 0
-        for (_comp, bpm, _dc, _ac) in mcu_layout:
-            off_parts.append(ac_off[:, base:base + bpm].reshape(-1))
-            dc_parts.append(torch.cumsum(
-                diff[:, base:base + bpm].reshape(-1), dim=0).to(torch.int32))
-            base += bpm
-        # Kernel D is enqueued before the flags come back: on a corrupt
-        # stream it reads clamped garbage and its rows are dropped below.
-        rows = entropy_decode.decode_ac_indexed(
-            words, torch.cat(off_parts), torch.cat(dc_parts), slot_dev,
-            tables)
-    with span("jt.wait.status"):
-        end_pos, err = status.cpu().tolist()
-    if err:
-        raise ScanDecodeError("invalid Huffman code (device prefix index)")
-    if end_pos > true_bits:
-        raise ScanDecodeError("bit cursor ran past segment end")
-    return _split_components(rows, mcu_layout, mcu_count)
+
+class _Held:
+    """A thread's host buffer for one device: pinned on a card, with the
+    event recorded behind its last upload."""
+
+    def __init__(self, device: torch.device, nbytes: int, nseg: int):
+        card = device.type == "cuda"
+        self.buf = torch.empty(-(-nbytes // 4), dtype=torch.int32,
+                               pin_memory=card)
+        self.words = self.buf.numpy()
+        self.lens = np.empty(nseg, dtype=np.int64)
+        self.event = torch.cuda.Event() if card else None
+        if card:
+            self.event.record(torch.cuda.current_stream(device))
+
+
+def _held(device: torch.device, nbytes: int, nseg: int) -> _Held:
+    """This thread's host buffer for `device`, with room for `nbytes` and
+    `nseg` segments, once its last upload is done."""
+    held = getattr(_host, "held", None)
+    if held is None:
+        held = _host.held = {}
+    h = held.get(str(device))
+    if h is not None and h.event is not None and not h.event.query():
+        with span("jt.wait.slot"):
+            h.event.synchronize()
+    if h is None or h.buf.numel() * 4 < nbytes or h.lens.shape[0] < nseg:
+        # Grown at least twofold, so that a stream of growing scans
+        # allocates a few times only.
+        old = (0, 0) if h is None else (h.buf.numel() * 4, h.lens.shape[0])
+        h = held[str(device)] = _Held(device, max(nbytes, 2 * old[0]),
+                                      max(nseg, 2 * old[1]))
+    return h
+
+
+def _split_native(scan: bytes, device: torch.device, lib=None):
+    """unstuffed_segments' (words, seg_off, lens) by the native split
+    (csrc/scan_decode.cu; `lib` another build of it), written into this
+    thread's host buffer: views of it, and the buffer with the word where
+    seg_off starts."""
+    data = scan if isinstance(scan, bytes) else bytes(scan)
+    n = len(data)
+    words_cap = (n + _GUARD + 3) // 4
+    seg_cap = n // 2 + 1
+    lib = lib or _cuda.load("scan_decode")
+    # The DC sums' control words go behind: a scan of n bytes is refused
+    # beyond 4n blocks (two bits a block).
+    h = _held(device, 4 * (words_cap + seg_cap) + 8
+              + entropy_decode.dc_control_bytes(4 * n, lib), seg_cap)
+    lib.jt_split_scan.restype = ctypes.c_long
+    ptr = h.buf.data_ptr()
+    nseg = lib.jt_split_scan(data, ctypes.c_long(n), ctypes.c_void_p(ptr),
+                             ctypes.c_void_p(ptr + 4 * words_cap),
+                             ctypes.c_void_p(h.lens.ctypes.data))
+    lens = h.lens[:nseg]
+    nwords = (int(lens.sum()) + _GUARD + 3) // 4
+    return (h.words[:nwords], h.words[words_cap:words_cap + nseg], lens,
+            (h, words_cap))
 
 
 def decode_scan(
@@ -603,16 +620,35 @@ def decode_scan(
 ):
     """Device twin of decode_np.decode_scan (same contract, tables not LUTs,
     tensors on `device`): the host splits the scan at its restart markers and
-    removes the byte stuffing (unstuffed_segments); the Huffman walk runs on
-    the device.
+    removes the byte stuffing; the Huffman walk runs on the device.
 
     A stream with restart markers takes the block-start program anchored at
-    every segment (decode_segments); one without (and more than one MCU)
-    takes program F (decode_scan_prefix). Only the segments' end positions
-    and error flags come back to the host."""
-    device = torch.device(device)
+    every segment; one without (and more than one MCU) takes program F. On a
+    card the split is native (into the thread's pinned buffer) and one C
+    call (entropy_decode.scan_decode) enqueues the upload, the program, the
+    DC sums and kernel D; on the CPU unstuffed_segments and the kernels'
+    plain twins run. Only the segments' end positions and error flags come
+    back to the host."""
+    return _decode(scan, mcu_count, mcu_layout, htables, restart_interval,
+                   torch.device(device), prefix=False)
+
+
+def _decode(scan: bytes, mcu_count: int, mcu_layout: list, htables: dict,
+            restart_interval: int, device: torch.device, prefix: bool,
+            lib=None):
+    """decode_scan; `prefix`: program F whatever the MCU count. `lib`, a
+    host build of csrc/scan_decode.cu, runs the card's route on the CPU."""
+    native = device.type == "cuda" or lib is not None
     with span("jt.decode.unstuff"):
-        host_words, seg_off, seg_bytes = unstuffed_segments(scan)
+        if native:
+            host_words, seg_off, seg_bytes, held = _split_native(
+                scan, device, lib)
+        else:
+            host_words, seg_off, seg_bytes = unstuffed_segments(scan)
+    if len(host_words) > entropy_decode.MAX_WORDS:
+        raise ScanDecodeError(
+            f"scan of {int(seg_bytes.sum())} bytes is too long for int32 bit "
+            f"offsets")
     r = restart_interval if restart_interval else mcu_count
     expected = (mcu_count + r - 1) // r
     if len(seg_bytes) != expected:
@@ -625,39 +661,78 @@ def decode_scan(
     nblocks = mcu_count * sum(bpm for (_, bpm, _, _) in mcu_layout)
     if 2 * nblocks > 8 * int(seg_bytes.sum()):
         raise ScanDecodeError("bit cursor ran past segment end")
-    if expected == 1 and mcu_count > 1:
-        return _decode_prefix(host_words, int(seg_bytes[0]) * 8, mcu_count,
-                              mcu_layout, htables, device)
-
+    anchored = not prefix and (expected > 1 or mcu_count == 1)
+    true_bits = int(seg_bytes[0]) * 8
+    if not anchored:
+        # Program F is given no more words than these blocks can span: a
+        # walk that raises no flag ends inside them, and what a file
+        # carries behind them is never read, nor chunked.
+        keep = (nblocks * MAX_BLOCK_BITS + 31) // 32
+        if keep + _GUARD // 4 < len(host_words):
+            host_words = host_words[:keep + _GUARD // 4]
+            host_words[keep:] = 0
+            true_bits = min(true_bits, keep * 32)
     slots, slot_of = _scan_slots(mcu_layout)
     tables = _device_luts(htables, slots, device)
-    layout_key = tuple((bpm, slot_of[(0, dc)], slot_of[(1, ac)])
-                       for (_, bpm, dc, ac) in mcu_layout)
+    if anchored:
+        layout_key = tuple((bpm, slot_of[(0, dc)], slot_of[(1, ac)])
+                           for (_, bpm, dc, ac) in mcu_layout)
 
-    def sequence():
-        out, base = [], 0
-        for ci, (bpm, dc_slot, ac_slot) in enumerate(layout_key):
-            out += [(ci, dc_slot, ac_slot, base + occ, bpm)
-                    for occ in range(bpm)]
-            base += bpm * mcu_count
-        return (np.array(out, dtype=np.int32),)
+        def sequence():
+            out, base = [], 0
+            for ci, (bpm, dc_slot, ac_slot) in enumerate(layout_key):
+                out += [(ci, dc_slot, ac_slot, base + occ, bpm)
+                        for occ in range(bpm)]
+                base += bpm * mcu_count
+            return (np.array(out, dtype=np.int32),)
 
-    seq = _cached(("segments", layout_key, mcu_count), device, sequence)[0]
-
-    # The words and the segments' offsets go up as one tensor.
-    nwords = len(host_words)
-    host = np.concatenate([host_words, seg_off])
-    with span("jt.wait.upload"):
-        dev = torch.from_numpy(host).to(device)
+        seq = _cached(("segments", layout_key, mcu_count), device, sequence)[0]
+    else:
+        pairs = [(slot_of[(0, dc)], slot_of[(1, ac)])
+                 for (_, bpm, dc, ac) in mcu_layout for _ in range(bpm)]
+        classes = sorted(set(pairs))
+        seq, cls = _cached(("prefix", tuple(pairs)), device, lambda: (
+            np.array([(d, a, classes.index((d, a))) for d, a in pairs],
+                     dtype=np.int32),
+            np.array(classes, dtype=np.int32)))
+    comp_bpm = [bpm for (_, bpm, _, _) in mcu_layout]
+    if not native:
+        # The twins' upload; on a card the chain's copy does not block.
+        with span("jt.wait.upload"):
+            words = torch.from_numpy(host_words).to(device)
+            seg_off = torch.from_numpy(seg_off).to(device)
     with span("jt.decode.entropy"):
-        rows, status = entropy_decode.decode_segments(
-            dev[:nwords], dev[nwords:], r, mcu_count, seq, tables, nblocks)
+        if native:
+            h, words_cap = held
+            rows, status = entropy_decode.scan_decode(
+                device, anchored, len(host_words), len(seg_bytes), r,
+                mcu_count, seq, tables, comp_bpm, host=h.buf,
+                host_seg=words_cap if anchored else len(host_words),
+                event=h.event, lib=lib)
+        elif anchored:
+            rows, status = entropy_decode.decode_segments(
+                words, seg_off, r, mcu_count, seq, tables, nblocks)
+        else:
+            ac_off, diff, status = entropy_decode.prefix_index(
+                words, mcu_count, seq, cls, tables)
+            dc, off, slot = entropy_decode.dc_sums(
+                diff, ac_off, seq, comp_bpm, r, mcu_count, False)
+            rows = entropy_decode.decode_ac_indexed(
+                words, off, dc, slot, tables)
     with span("jt.wait.status"):
         end_pos, err = status.cpu().numpy()
+    # Kernel D ran before the flags came back: on a corrupt stream it read
+    # clamped garbage, and its rows are dropped here.
     if err.any():
+        if not anchored:
+            raise ScanDecodeError("invalid Huffman code (device prefix index)")
         raise ScanDecodeError(
             f"invalid Huffman code in segment(s) {np.nonzero(err)[0].tolist()}"
         )
-    if (end_pos.astype(np.int64) > seg_bytes * 8).any():
+    if anchored:
+        past = (end_pos.astype(np.int64) > seg_bytes * 8).any()
+    else:
+        past = int(end_pos) > true_bits
+    if past:
         raise ScanDecodeError("bit cursor ran past segment end")
     return _split_components(rows, mcu_layout, mcu_count)

@@ -13,6 +13,7 @@ import ctypes
 import fcntl
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -45,14 +46,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _included(src: pathlib.Path) -> list:
+    """The .cu files beside `src` that it includes."""
+    names = re.findall(r'^#include "([^"]+\.cu)"', src.read_text(), re.M)
+    return [src.parent / n for n in names if (src.parent / n).exists()]
+
+
 def _build(name: str, src: pathlib.Path, lib_path: pathlib.Path,
            flags=()) -> None:
     with open(_BUILD_DIR / f"{name}.lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         # A source includes the headers beside it (csrc/*.cuh next to the
-        # package's kernels): an edit to any of them rebuilds it too.
+        # package's kernels) and may include other kernels' sources: an
+        # edit to any of them rebuilds it too.
         newest = max(p.stat().st_mtime
-                     for p in (src, *src.parent.glob("*.cuh")))
+                     for p in (src, *src.parent.glob("*.cuh"),
+                               *_included(src)))
         if lib_path.exists() and lib_path.stat().st_mtime >= newest:
             return
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")

@@ -9,13 +9,18 @@ Pallas) as hand-written CUDA kernels:
     F, for `_jit_prefix_index` (:866): every block's start in a scan without
     restart markers (prefix_index); anchored, E's route, for `_decode_block`
     under `_jit_segments` (:71, :117): the block starts of every restart
-    segment from its first byte, then a DC sum per component and segment
-    and kernel D (decode_segments).
+    segment from its first byte.
+A scan's whole decode on a card is one C call (csrc/scan_decode.cu,
+scan_decode): the words' upload, the block-start program in either mode,
+one DC-sum launch (the absolute DCs, and without markers kernel D's offsets
+in component-major order) and kernel D, enqueued without the GIL;
+decode_segments is that chain on words already on the card.
 On a CUDA tensor a wrapper launches its kernel, on a CPU tensor it runs the
 plain twin, and nothing else decides. The twins are second formulations: D's
 steps all blocks together in torch ops until the slowest is done, E's is a
 NumPy/Python walk like entropy/decode_np's, F's is the reference's table
-program (one symbol per bit position, pointer doubling) in torch indexing.
+program (one symbol per bit position, pointer doubling) in torch indexing,
+the DC sums' the torch sums the launch replaced (dc_sums_reference).
 All results are integers and a kernel equals its twin exactly.
 
 Bit streams are big-endian 32-bit words carried as int32 (torch has no uint32
@@ -36,17 +41,20 @@ from jpeg_tpu_torch.ops import _cuda
 
 # Launches since the last reset (plus one per wrapper call that launches its
 # kernel, nowhere else). The block-start program counts once per
-# prefix_index call (PREFIX_LAUNCHES) or decode_segments call
-# (SEGMENT_LAUNCHES, which launches kernel D too); its five launches add up
-# in PREFIX_STAGE_LAUNCHES either way. RESTART_SEGMENTS sums the restart
-# segments that decode_segments walked, on either device. SYNC_PASSES (a
-# module attribute read through __getattr__ below) is the resolve rounds of
-# the last call.
+# prefix_index call or scan without markers (PREFIX_LAUNCHES) or anchored
+# scan (SEGMENT_LAUNCHES, which launches kernel D too); its five launches add
+# up in PREFIX_STAGE_LAUNCHES either way. NATIVE_SCANS counts the scans
+# whose whole chain one scan_decode call enqueued, DC_SUM_LAUNCHES the DC
+# sums' launches. RESTART_SEGMENTS sums the restart segments that
+# decode_segments walked, on either device. SYNC_PASSES (a module attribute
+# read through __getattr__ below) is the resolve rounds of the last call.
 AC_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 RESTART_SEGMENTS = 0
 PREFIX_LAUNCHES = 0
 PREFIX_STAGE_LAUNCHES = 0
+NATIVE_SCANS = 0
+DC_SUM_LAUNCHES = 0
 _last_passes = None
 # Worker threads launch too (parallel/pipeline), so the increments hold a lock.
 _COUNT_LOCK = threading.Lock()
@@ -58,6 +66,7 @@ SLOT_STRIDE = FULL_SIZE + FIRST_SIZE
 MAX_SLOTS = 8
 SEQ_FIELDS = 5  # anchored: comp, dc slot, ac slot, row base, rows per MCU
 MAX_BPM = 10  # blocks per MCU at most (T.81 B.2.3)
+MAX_COMPS = 4  # components of a scan at most
 # Bit offsets are int32: a stream of 2^26 words or more is refused.
 MAX_WORDS = (1 << 26) - 1
 _M32 = 0xFFFFFFFF
@@ -301,40 +310,6 @@ def decode_segments_reference(words, seg_off, interval: int, mcu_count: int,
             torch.as_tensor(status, device=dev))
 
 
-def _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
-                     status, lib=None, ac_lib=None) -> None:
-    """Enqueue the anchored block-start program (csrc/prefix_index.cu, five
-    launches), the DC sums per component and segment, and kernel D on
-    PyTorch's current stream, into the prepared `rows` and `status`. No
-    checks; allocates the program's scratch and its per-block outputs.
-    `lib` and `ac_lib` are the two programs' builds (the CUDA ones unless
-    given). Counts one segment call, its segments, the program's launches
-    and kernel D's."""
-    global SEGMENT_LAUNCHES, RESTART_SEGMENTS, PREFIX_STAGE_LAUNCHES
-    lib = lib or _cuda.load("prefix_index")
-    dev, nblocks = words.device, rows.shape[0]
-    per_block = torch.empty((4, nblocks), dtype=torch.int32, device=dev)
-    ac_off, diff, slot, group = per_block
-    scratch = sync_scratch(words.numel(), seg_off.numel(), seq.shape[0],
-                           mcu_count, dev, lib)
-    steps = _sync_steps(lib, words, seg_off, interval, mcu_count, seq, tables,
-                        scratch, ac_off, diff, status, slot, group)
-    for _name, enqueue in steps:
-        enqueue()
-    _note_passes(scratch)
-    with _COUNT_LOCK:
-        SEGMENT_LAUNCHES += 1
-        RESTART_SEGMENTS += seg_off.numel()
-        PREFIX_STAGE_LAUNCHES += len(steps)
-    # Absolute DCs: a running sum of the differences, less its value just
-    # before the first row of the block's component in its segment. A
-    # flagged stream's rows are unspecified, so its rows only stay in bounds.
-    sums = torch.cumsum(diff, 0, dtype=torch.int64)
-    before = torch.cat([sums.new_zeros(1), sums])[group.clamp(0, nblocks)]
-    dc = (sums - before).to(torch.int32)
-    _launch_ac_indexed(words, ac_off, dc, slot, tables, rows, ac_lib)
-
-
 def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
                     tables, nblocks: int):
     """words: (W,) int32, the unstuffed restart segments one after another
@@ -343,14 +318,15 @@ def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
     [s * interval, min((s + 1) * interval, mcu_count)). seq: (blocks per
     MCU, SEQ_FIELDS) int32, per block of the MCU its component, its DC and
     AC rows in `tables`, and where its rows go: row base + MCU index * rows
-    per MCU. -> (rows (nblocks, 64) int32 with the DC predictors undone per
+    per MCU, the components' rows one after another (decode_scan's layout).
+    -> (rows (nblocks, 64) int32 with the DC predictors undone per
     component from 0 at every segment start, status (2, S) int32: each
     segment's length in bits as walked, then its error flag). The rows of a
     flagged segment are unspecified (decoders raise on any flag).
 
-    CUDA tensors run the anchored mode of the chunked block-start program
-    (csrc/prefix_index.cu) and kernel D; CPU tensors run the plain twin.
-    Either adds S to RESTART_SEGMENTS."""
+    CUDA tensors run scan_decode's chain on them (the anchored mode of the
+    chunked block-start program, the DC sums and kernel D; no upload); CPU
+    tensors run the plain twin. Either adds S to RESTART_SEGMENTS."""
     global RESTART_SEGMENTS
     dev = words.device
     if dev.type == "cpu":
@@ -364,21 +340,222 @@ def decode_segments(words, seg_off, interval: int, mcu_count: int, seq,
            tables=tables)
     _check_tables("decode_segments", tables)
     if words.ndim != 1 or seg_off.ndim != 1 or seq.ndim != 2 or (
-            seq.shape[1] != SEQ_FIELDS):
+            seq.shape[1] != SEQ_FIELDS) or nblocks != mcu_count * seq.shape[0]:
         raise ValueError(
             f"decode_segments: words {tuple(words.shape)}, seg_off "
-            f"{tuple(seg_off.shape)}, seq {tuple(seq.shape)}")
+            f"{tuple(seg_off.shape)}, seq {tuple(seq.shape)}, {nblocks} "
+            f"blocks of {mcu_count} MCUs")
     nseg = seg_off.shape[0]
     if interval < 1 or nseg < 1 or (nseg - 1) * interval >= max(mcu_count, 1):
         raise ValueError(
             f"decode_segments: {nseg} segments of {interval} MCUs for "
             f"{mcu_count} MCUs")
     _check_words("decode_segments", words.numel())
-    rows = torch.empty((nblocks, 64), dtype=torch.int32, device=dev)
-    status = torch.empty((2, nseg), dtype=torch.int32, device=dev)
-    _launch_segments(words, seg_off, interval, mcu_count, seq, tables, rows,
-                     status)
-    return rows, status
+    return scan_decode(dev, True, words.numel(), nseg, interval, mcu_count,
+                       seq, tables, (), words=words, seg_off=seg_off)
+
+
+# ---------------------------------------------------------------------------
+# A scan's chain in one C call, and the DC sums.
+# ---------------------------------------------------------------------------
+
+
+class _ScanArgs(ctypes.Structure):
+    """csrc/scan_decode.cu's ScanArgs, field for field."""
+    _fields_ = [
+        ("anchored", ctypes.c_int), ("nwords", ctypes.c_int),
+        ("nseg", ctypes.c_int), ("bpm", ctypes.c_int),
+        ("interval", ctypes.c_long), ("n_mcu", ctypes.c_long),
+        ("ncomp", ctypes.c_int), ("comp_bpm", ctypes.c_int * MAX_COMPS),
+        ("nslots", ctypes.c_int), ("seq", ctypes.c_void_p),
+        ("tables", ctypes.c_void_p), ("host", ctypes.c_void_p),
+        ("host_seg", ctypes.c_long), ("host_cap", ctypes.c_long),
+        ("words", ctypes.c_void_p), ("seg_off", ctypes.c_void_p),
+        ("event", ctypes.c_void_p), ("workspace", ctypes.c_void_p),
+        ("rows", ctypes.c_void_p),
+    ]
+
+
+class _DcArgs(ctypes.Structure):
+    """csrc/scan_decode.cu's DcArgs, field for field."""
+    _fields_ = [
+        ("anchored", ctypes.c_int), ("nblocks", ctypes.c_long),
+        ("n_mcu", ctypes.c_long), ("bpm", ctypes.c_int),
+        ("ncomp", ctypes.c_int), ("comp_bpm", ctypes.c_int * MAX_COMPS),
+        ("diff", ctypes.c_void_p), ("group", ctypes.c_void_p),
+        ("ac_off", ctypes.c_void_p), ("seq", ctypes.c_void_p),
+        ("dc", ctypes.c_void_p), ("off", ctypes.c_void_p),
+        ("slot", ctypes.c_void_p), ("ctl", ctypes.c_void_p),
+    ]
+
+
+def scan_decode(dev, anchored: bool, nwords: int, nseg: int, interval: int,
+                n_mcu: int, seq, tables, comp_bpm, *, words=None, seg_off=None,
+                host=None, host_seg: int = 0, event=None, lib=None):
+    """Enqueue a scan's whole device Huffman decode on PyTorch's current
+    stream of `dev` with one C call that holds no GIL (csrc/scan_decode.cu):
+    the words' upload, the block-start program (anchored at each of `nseg`
+    segments of `interval` MCUs, or from bit 0), the DC sums and kernel D.
+
+    The scan is `host`, a CPU int32 tensor (pinned, on a card) with its
+    `nwords` words at 0, the segments' first bytes at word `host_seg` and
+    room behind them for the DC sums' control words, which the call zeroes
+    and uploads with them; `event` (a recorded torch.cuda.Event) is recorded
+    again behind the upload. Or `words` and `seg_off` on `dev` (no upload).
+    seq: the program's (bpm, SEQ_FIELDS) rows when anchored, program F's
+    (bpm, 3) from bit 0; comp_bpm: from bit 0, the scan's components' blocks
+    per MCU in order (anchored, the program's groups give the DC sums'
+    resets). One workspace holds everything else. `lib` is the build (the
+    CUDA one unless a host build is given, with CPU tensors).
+
+    -> (rows (n_mcu * bpm, 64) int32, status): anchored (2, nseg), each
+    segment's bits as walked and its flag; from bit 0 (2,), the end position
+    and the flag. Nothing is read back. Counts the scan, its launches and
+    segments."""
+    global NATIVE_SCANS, SEGMENT_LAUNCHES, PREFIX_LAUNCHES, RESTART_SEGMENTS
+    global PREFIX_STAGE_LAUNCHES, DC_SUM_LAUNCHES, AC_LAUNCHES
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    _check("scan_decode", dev, seq=seq, tables=tables,
+           **({} if words is None else {"words": words}),
+           **({} if seg_off is None else {"seg_off": seg_off}))
+    _check_tables("scan_decode", tables)
+    if host is not None and (host.dtype != torch.int32 or host.device.type
+                             != "cpu" or not host.is_contiguous()):
+        raise ValueError(
+            f"scan_decode: host must be a contiguous int32 CPU tensor, got "
+            f"{host.dtype} on {host.device}")
+    if (host is None) == (words is None) or seq.ndim != 2 or len(
+            comp_bpm) > MAX_COMPS:
+        raise ValueError(
+            f"scan_decode: host or words, not both; seq "
+            f"{tuple(seq.shape)}; blocks per MCU {tuple(comp_bpm)}")
+    lib = lib or _cuda.load("scan_decode")
+    bpm = seq.shape[0]
+    args = _ScanArgs(
+        int(anchored), nwords, nseg, bpm, interval, n_mcu, len(comp_bpm),
+        (ctypes.c_int * MAX_COMPS)(*comp_bpm), tables.shape[0],
+        seq.data_ptr(), tables.data_ptr(),
+        None if host is None else host.data_ptr(), host_seg,
+        0 if host is None else host.numel() * host.element_size(),
+        None if words is None else words.data_ptr(),
+        None if seg_off is None else seg_off.data_ptr(),
+        None if event is None else event.cuda_event)
+    at = (ctypes.c_long * 3)()
+    lib.jt_scan_workspace.restype = ctypes.c_long
+    nbytes = lib.jt_scan_workspace(ctypes.byref(args), at)
+    if nbytes <= 0:
+        raise ValueError(
+            f"scan_decode: refused {nseg} segments of {interval} MCUs, "
+            f"{n_mcu} MCUs, blocks per MCU {comp_bpm} of {bpm}, {nwords} "
+            f"words, {tables.shape[0]} tables")
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rows = torch.empty((n_mcu * bpm, 64), dtype=torch.int32, device=dev)
+    args.workspace, args.rows = workspace.data_ptr(), rows.data_ptr()
+    # seq and tables are read on the stream after the call returns: the
+    # caller keeps them (decode_device's cache records the stream on them).
+    _call("scan decode", lib.jt_scan_decode, dev, ctypes.byref(args))
+    nstat = nseg if anchored else 1
+    status = workspace[at[0]:at[0] + 8 * nstat].view(torch.int32)
+    _note_passes(workspace[at[1]:at[1] + 4])
+    with _COUNT_LOCK:
+        NATIVE_SCANS += 1
+        DC_SUM_LAUNCHES += 1
+        AC_LAUNCHES += 1
+        PREFIX_STAGE_LAUNCHES += len(_SYNC_STEPS)
+        if anchored:
+            SEGMENT_LAUNCHES += 1
+            RESTART_SEGMENTS += nseg
+        else:
+            PREFIX_LAUNCHES += 1
+    return rows, status.view(2, nseg) if anchored else status
+
+
+def dc_sums_reference(diff, ac_off, seq, comp_bpm, interval: int, n_mcu: int,
+                      anchored: bool):
+    """Plain twin of the DC-sum launch (dc_sums): the torch sums it
+    replaced, on any device. Anchored: diff (B,) in component-major order ->
+    (dc, None, None), each block's difference summed from its component's
+    first row in its segment (the row the program writes as its group). From
+    bit 0: diff and ac_off (n_mcu, bpm) in MCU order, seq program F's rows
+    -> (dc, off, slot) in component-major order, kernel D's inputs, DCs
+    summed per component over the whole scan."""
+    dev = diff.device
+    if anchored:
+        nblocks = diff.shape[0]
+        group = _dc_groups(comp_bpm, interval, n_mcu, dev)
+        sums = torch.cumsum(diff, 0, dtype=torch.int64)
+        before = torch.cat([sums.new_zeros(1), sums])[group.clamp(0, nblocks)]
+        return (sums - before).to(torch.int32), None, None
+    # Component-major order (kernel D's and native.decode_scan's): all
+    # blocks of component 0 in scan order, then component 1, ...
+    off_parts, dc_parts, slot_parts, base = [], [], [], 0
+    for per in comp_bpm:
+        off_parts.append(ac_off[:, base:base + per].reshape(-1))
+        dc_parts.append(torch.cumsum(
+            diff[:, base:base + per].reshape(-1), dim=0).to(torch.int32))
+        slot_parts.append(seq[base:base + per, 1].repeat(n_mcu))
+        base += per
+    return (torch.cat(dc_parts), torch.cat(off_parts),
+            torch.cat(slot_parts).to(torch.int32))
+
+
+def dc_control_bytes(nblocks: int, lib=None) -> int:
+    """Bytes of the DC sums' control words for `nblocks` blocks (a tile
+    counter and a word per tile), which the launch wants zeroed."""
+    lib = lib or _cuda.load("scan_decode")
+    lib.jt_dc_control_bytes.restype = ctypes.c_long
+    return lib.jt_dc_control_bytes(ctypes.c_long(nblocks))
+
+
+def _dc_groups(comp_bpm, interval: int, n_mcu: int, dev) -> torch.Tensor:
+    """The anchored block-start program's groups: per block, component-major,
+    its component's first block in its restart segment (the DC predictor's
+    reset)."""
+    group, first = [], 0
+    for per in comp_bpm:
+        span = interval * per
+        rel = torch.arange(n_mcu * per, device=dev)
+        group.append(first + rel // span * span)
+        first += n_mcu * per
+    return torch.cat(group)
+
+
+def dc_sums(diff, ac_off, seq, comp_bpm, interval: int, n_mcu: int,
+            anchored: bool, lib=None):
+    """The DC-sum launch alone, as scan_decode's chain runs it
+    (csrc/scan_decode.cu), with the contract of dc_sums_reference; anchored,
+    it is given the groups the block-start program would write. CUDA
+    tensors (or CPU ones with a host build as `lib`) launch it; CPU tensors
+    without `lib` run the twin. Counts the launch."""
+    global DC_SUM_LAUNCHES
+    dev = diff.device
+    if dev.type == "cpu" and lib is None:
+        return dc_sums_reference(diff, ac_off, seq, comp_bpm, interval,
+                                 n_mcu, anchored)
+    lib = lib or _cuda.load("scan_decode")
+    nblocks = diff.numel()
+    dc = torch.empty(nblocks, dtype=torch.int32, device=dev)
+    off = slot = group = None
+    if anchored:
+        group = _dc_groups(comp_bpm, interval, n_mcu, dev).to(torch.int32)
+    else:
+        off = torch.empty(nblocks, dtype=torch.int32, device=dev)
+        slot = torch.empty(nblocks, dtype=torch.int32, device=dev)
+    ctl = torch.zeros(dc_control_bytes(nblocks, lib) // 8, dtype=torch.int64,
+                      device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = _DcArgs(int(anchored), nblocks, n_mcu, sum(comp_bpm),
+                   len(comp_bpm), (ctypes.c_int * MAX_COMPS)(*comp_bpm),
+                   ptr(diff), ptr(group), ptr(ac_off), ptr(seq), ptr(dc),
+                   ptr(off), ptr(slot), ptr(ctl))
+    _call("dc sum", lib.jt_dc_sum, dev, ctypes.byref(args))
+    with _COUNT_LOCK:
+        DC_SUM_LAUNCHES += 1
+    return dc, off, slot
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +704,7 @@ def sync_scratch(nwords: int, nseg: int, bpm: int, n_mcu: int, dev,
     for `nseg` segments of `n_mcu` MCUs in all in `nwords` words. `lib` (the
     CUDA build unless a host build is given) sizes it: the chunk size goes
     by the bits per MCU."""
-    lib = lib or _cuda.load("prefix_index")
+    lib = lib or _cuda.load("scan_decode")
     lib.jt_sync_scratch_bytes.restype = ctypes.c_long
     nbytes = lib.jt_sync_scratch_bytes(ctypes.c_int(nwords),
                                        ctypes.c_int(nseg), ctypes.c_int(bpm),
@@ -557,7 +734,7 @@ def prefix_launches(words, n_mcu, seq, classes, tables, ac_off, diff, status,
     checks and no allocation. `classes` is the contract's and goes unused:
     the walks read each block's own tables. A measurement may run one launch
     alone."""
-    lib = lib or _cuda.load("prefix_index")
+    lib = lib or _cuda.load("scan_decode")
     return _sync_steps(lib, words, None, n_mcu, n_mcu, seq, tables, scratch,
                        ac_off, diff, status)
 

@@ -29,8 +29,9 @@ than once.
 --previous-only times the previous sources and the package's kernel
 C and nothing else (for a tree whose own A and B do not build yet).
 
-The block-start program (csrc/prefix_index.cu: program F, and E's route
-with the DC sums and kernel D) is timed on the eight 4K frames of
+The block-start program (csrc/prefix_index.cu, built inside
+csrc/scan_decode.cu: program F, and E's route with the DC sums and kernel D
+enqueued by one C call) is timed on the eight 4K frames of
 chip_smoke.sync_frames, held to its plain twins first, with its resolve
 rounds, its scratch and each of its launches alone. --previous-ef DIR names
 a directory that holds prefix_index.cu and segment_walk.cu as they were
@@ -142,11 +143,13 @@ def compare_ef(args, torch, card, dev, img, build, results):
     import torch_port_util as port_util
 
     stream = lambda: _cuda.stream_handle(dev)  # noqa: E731
-    # Every source builds at once, one nvcc each.
-    jobs = {"chunked": ("prefix_index", None, ())}
+    # Every source builds at once, one nvcc each. The package's program and
+    # its --flags-f builds come in csrc/scan_decode.cu, which includes it,
+    # so that the whole route (the chain of one C call) runs on each.
+    jobs = {"chunked": ("scan_decode", None, ())}
     for i, flags in enumerate(args.flags_f):
-        jobs[f"chunked {flags}"] = (f"flags{i}_prefix_index",
-                                    _cuda._CSRC / "prefix_index.cu",
+        jobs[f"chunked {flags}"] = (f"flags{i}_scan_decode",
+                                    _cuda._CSRC / "scan_decode.cu",
                                     shlex.split(flags))
     if args.previous_ef:
         prev = pathlib.Path(args.previous_ef)
@@ -296,22 +299,19 @@ def compare_ef(args, torch, card, dev, img, build, results):
             note("E", case, "previous", torch.equal(sets[0][0], t_rows)
                  and torch.equal(sets[0][1], t_status))
             contenders["previous"] = (old_e_launch, nsets)
+        comps = seq[:, 0].tolist()
+        comp_bpm = [comps.count(c) for c in sorted(set(comps))]
         for name, lib in new.items():
-            route = [(torch.empty((nblocks, 64), dtype=torch.int32,
-                                  device=dev),
-                      torch.empty((2, nseg), dtype=torch.int32, device=dev))
-                     for _ in range(nsets)]
+            def route_launch(i, lib=lib):
+                return ED.scan_decode(dev, True, words.numel(), nseg, interval,
+                                      n_mcu, seq, tables, comp_bpm,
+                                      words=words, seg_off=seg_off, lib=lib)
 
-            def route_launch(i, route=route, lib=lib):
-                ED._launch_segments(words, seg_off, interval, n_mcu, seq,
-                                    tables, *route[i], lib=lib)
-
-            route_launch(0)
+            rows, status = route_launch(0)
             torch.cuda.synchronize()
             passes = ED.SYNC_PASSES
             note("E", case, f"{name} + sums + D",
-                 torch.equal(route[0][0], t_rows)
-                 and torch.equal(route[0][1], t_status),
+                 torch.equal(rows, t_rows) and torch.equal(status, t_status),
                  f"; repair passes {passes}")
             results.append({"kernel": "E", "case": case, "version": name,
                             "sync_passes": passes})

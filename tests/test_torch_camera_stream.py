@@ -14,7 +14,10 @@ camera's width), seeded, on the CPU.
 - the bounds are tight: the reference with TF32 operands, one precision
   below the float32 that the configuration states, falls outside them;
 - entropy_decode.RESTART_SEGMENTS counts the segments that decode_segments
-  walked, and program F adds none."""
+  walked, and program F adds none;
+- on a card (marked `cuda`), decode_stream at depth 1, 2 and 4 gives the CPU
+  twins' arrays, each scan's chain enqueued by one native call
+  (entropy_decode.NATIVE_SCANS)."""
 
 import functools
 
@@ -27,7 +30,7 @@ from jpeg_tpu_torch.ops import entropy_decode as ED
 
 from torch_port_util import (
     make_image, outside_bounds, plain_streams, plainjpeg, prefix_inputs,
-    segment_inputs)
+    require_cuda, segment_inputs)
 
 SIZES = [(130, 70), (250, 187), (1920, 16)]  # width, height
 RESTARTS = [1, 7, "row"]
@@ -130,3 +133,19 @@ def test_program_f_adds_no_restart_segment(size):
     ED.prefix_index(*f_in)
     jpeg_tpu_torch.decode(data, device="cpu", entropy="device")
     assert ED.RESTART_SEGMENTS == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_decode_stream_on_the_card_equals_the_twins(depth):
+    dev = require_cuda()
+    datas = [camera(s, r, sub)[2] for s in SIZES
+             for r, sub in [(0, "420")] + [(r, "422") for r in RESTARTS]]
+    want = [jpeg_tpu_torch.decode(d, device="cpu", entropy="device")
+            for d in datas]
+    before = ED.NATIVE_SCANS
+    got = list(jpeg_tpu_torch.decode_stream(iter(datas), depth=depth,
+                                            device=dev))
+    assert ED.NATIVE_SCANS - before == len(datas)
+    for out, w in zip(got, want):
+        np.testing.assert_array_equal(out, w)

@@ -980,6 +980,107 @@ def test_camera_frames_take_the_anchored_route_on_card():
         assert outside_bounds(out, c, 1080, 1920, "422") == 0
 
 
+# (n_mcu, blocks per MCU of each component, restart interval): a camera
+# frame, a 500x375 4:2:0 image, a 4K 4:2:0 frame, the 4K frame at restart 1.
+DC_SHAPES = {"camera": (16200, [2, 1, 1], 120),
+             "imagenet": (768, [4, 1, 1], 32),
+             "4k": (32400, [4, 1, 1], 240),
+             "4k-restart1": (32400, [4, 1, 1], 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anchored", [True, False])
+@pytest.mark.parametrize("shape", list(DC_SHAPES))
+def test_dc_sum_launch_matches_its_twin(shape, anchored):
+    """The DC sums' one launch (csrc/scan_decode.cu) against the torch sums
+    it replaced, per (segment, component) anchored and per component from
+    bit 0, on random differences (the sums wrap as int32)."""
+    dev = require_cuda()
+    n_mcu, comp_bpm, interval = DC_SHAPES[shape]
+    bpm = sum(comp_bpm)
+    rng = np.random.default_rng(bpm * n_mcu + interval)
+    diff = torch.as_tensor(rng.integers(-2**31, 2**31, size=n_mcu * bpm,
+                                        dtype=np.int64).astype(np.int32),
+                           device=dev)
+    ac_off = torch.as_tensor(rng.integers(0, 2**30, size=(n_mcu, bpm),
+                                          dtype=np.int32), device=dev)
+    seq = torch.as_tensor(rng.integers(0, 8, size=(bpm, 3), dtype=np.int32),
+                          device=dev)
+    if not anchored:
+        diff = diff.view(n_mcu, bpm)
+    before = entropy_decode.DC_SUM_LAUNCHES
+    for _ in range(3):  # tiles race differently from launch to launch
+        got = entropy_decode.dc_sums(diff, ac_off, seq, comp_bpm, interval,
+                                     n_mcu, anchored)
+        want = entropy_decode.dc_sums_reference(
+            diff, ac_off, seq, comp_bpm, interval, n_mcu, anchored)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert g.dtype == torch.int32 and torch.equal(g, w)
+    assert entropy_decode.DC_SUM_LAUNCHES == before + 3
+
+
+def _card_streams():
+    """Camera frames (1080p 4:2:2, a restart every MCU row) and ImageNet
+    shapes (q90 4:2:0 without markers), from the plain encoder."""
+    cams, _ = plain_streams([make_image(1080, 1920, seed=k) for k in range(2)],
+                            "422", 120)
+    nets = []
+    for k, (h, w) in enumerate(((375, 500), (333, 500), (500, 375),
+                                (500, 333), (500, 500))):
+        (data,), _ = plain_streams([make_image(h, w, seed=10 + k)], "420", 0,
+                                   quality=90)
+        nets.append(data)
+    return cams + nets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_decode_stream_takes_one_native_call_per_scan(depth):
+    """decode_stream over camera frames and ImageNet shapes: the CPU twins'
+    arrays exactly, and every scan's chain enqueued by one C call
+    (NATIVE_SCANS), from depth worker threads."""
+    dev = require_cuda()
+    jpgs = _card_streams() * 2
+    want = [jpeg_tpu_torch.decode(j, device="cpu", entropy="device")
+            for j in jpgs]
+    before = (entropy_decode.NATIVE_SCANS, entropy_decode.DC_SUM_LAUNCHES)
+    got = list(jpeg_tpu_torch.decode_stream(iter(jpgs), depth=depth,
+                                            device=dev))
+    assert (entropy_decode.NATIVE_SCANS - before[0],
+            entropy_decode.DC_SUM_LAUNCHES - before[1]) == (len(jpgs),
+                                                            len(jpgs))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_a_corrupt_segment_raises_and_the_next_decode_is_right():
+    """A corrupt restart segment raises ScanDecodeError on the card, and the
+    next decode on the same thread, which reuses the thread's pinned
+    buffer, is right; so is a wrong segment count."""
+    require_cuda()
+    for jpg in _card_streams()[:3]:
+        scan, n_mcu, mcu_layout, htables, r = scan_args(jpg)
+        want = native.decode_scan(scan, n_mcu, mcu_layout, htables, r)
+        bad = bytearray(scan)
+        for i in range(len(bad) // 3, len(bad) // 3 + 64):
+            if 0xFF not in (bad[i - 1], bad[i], bad[i + 1]):
+                bad[i] = 0xFE  # a run of 1-bits: no Huffman code is that long
+        with pytest.raises(ScanDecodeError):
+            decode_device.decode_scan(bytes(bad), n_mcu, mcu_layout, htables,
+                                      r, device="cuda")
+        with pytest.raises(ScanDecodeError, match="restart segments"):
+            decode_device.decode_scan(scan, n_mcu, mcu_layout, htables,
+                                      r + 1 if r else 7, device="cuda")
+        for _ in range(2):
+            got = decode_device.decode_scan(scan, n_mcu, mcu_layout, htables,
+                                            r, device="cuda")
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
 @pytest.mark.cuda
 def test_corrupt_scans_on_card_raise_or_decode():
     """Flipped scan bytes and a cut scan: the kernels return, the host

@@ -36,8 +36,8 @@ from jpeg_tpu_torch.ops import entropy_decode as ED
 import torch_port_fixtures as fixtures
 from test_torch_decode_streams import remap_huffman_ids
 from torch_port_util import (
-    ac_indexed_inputs, make_image, prefix_inputs, regroup_prefix, scan_args,
-    segment_inputs)
+    ac_indexed_inputs, make_image, plain_streams, prefix_inputs,
+    regroup_prefix, scan_args, segment_inputs)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "jpeg_tpu_torch", "csrc")
@@ -241,15 +241,20 @@ def test_undefined_huffman_table_is_a_format_error(entropy):
 
 
 def test_wrong_segment_count_raises():
+    """On the CPU; on a card the native split counts the segments
+    (test_native_split_equals_unstuffed_segments holds its counts,
+    tests/test_torch_cuda.py the error there)."""
     scan, n_mcu, mcu_layout, htables, r = scan_args(stream("420", 3, False))
-    for fn, interval in ((PD.decode_scan, 0), (PD.decode_scan, 5),
-                         (JD.decode_scan, 0)):
+    cpu = dict(device="cpu")
+    for fn, interval, kw in ((PD.decode_scan, 0, cpu),
+                             (PD.decode_scan, 5, cpu),
+                             (JD.decode_scan, 0, {})):
         with pytest.raises(ValueError) as e:
-            fn(scan, n_mcu, mcu_layout, htables, interval)
+            fn(scan, n_mcu, mcu_layout, htables, interval, **kw)
         assert type(e.value).__name__ == "ScanDecodeError"
     with pytest.raises(ScanDecodeError, match="restart segments"):
         PD.decode_scan(scan_args(stream("420", 0, False))[0], n_mcu,
-                       mcu_layout, htables, 3)
+                       mcu_layout, htables, 3, device="cpu")
 
 
 @pytest.mark.parametrize("mode,restart", [("420", 0), ("420", 3), ("gray", 0),
@@ -363,6 +368,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         PD._guarded_words(np.zeros(4 * ED.MAX_WORDS, dtype=np.uint8))
 
 
+def test_scan_decode_refuses_what_it_cannot_pass_to_c():
+    """scan_decode hands raw addresses to C: it checks every tensor's dtype,
+    layout and device first, and the host buffer's, as the other wrappers
+    do, before it loads any build."""
+    cpu = torch.device("cpu")
+    seq = torch.zeros((3, ED.SEQ_FIELDS), dtype=torch.int32)
+    tables = torch.zeros((2, ED.SLOT_STRIDE), dtype=torch.int32)
+    words = torch.zeros(8, dtype=torch.int32)
+    seg_off = torch.zeros(1, dtype=torch.int32)
+    host = torch.zeros(64, dtype=torch.int32)
+
+    def call(**kw):
+        args = dict(dev=cpu, anchored=True, nwords=8, nseg=1, interval=1,
+                    n_mcu=1, seq=seq, tables=tables, comp_bpm=())
+        args.update(kw)
+        dev, anchored, nwords, nseg, interval, n_mcu, sq, tb, bpm = (
+            args.pop(k) for k in ("dev", "anchored", "nwords", "nseg",
+                                  "interval", "n_mcu", "seq", "tables",
+                                  "comp_bpm"))
+        return ED.scan_decode(dev, anchored, nwords, nseg, interval, n_mcu,
+                              sq, tb, bpm, **args)
+
+    for kw, match in (
+            (dict(seq=seq.long(), host=host), "seq must be"),
+            (dict(tables=tables[:, :-1].contiguous(), host=host), "tables"),
+            (dict(tables=tables.t().contiguous().t(), host=host), "tables"),
+            (dict(words=words.long(), seg_off=seg_off), "words must be"),
+            (dict(words=words, seg_off=seg_off[:0].long()), "seg_off"),
+            (dict(host=host.long()), "host must be"),
+            (dict(host=host[::2]), "host must be"),
+            (dict(host=host.to("meta")), "host must be"),
+            (dict(), "host or words"),
+            (dict(host=host, words=words, seg_off=seg_off), "host or words"),
+            (dict(anchored=False, comp_bpm=(1,) * 5, host=host),
+             "blocks per MCU")):
+        with pytest.raises(ValueError, match=match):
+            call(**kw)
+
+
 # ---------------------------------------------------------------------------
 # The kernels' per-thread code, compiled for the host.
 # ---------------------------------------------------------------------------
@@ -373,8 +417,7 @@ _STANDIN = r"""
 #include <vector>
 #define __device__
 #define __forceinline__ inline
-#include "ac_indexed.cu"
-#include "prefix_index.cu"
+#include "scan_decode.cu"
 
 using namespace jt;
 typedef const int32_t* I32;
@@ -485,6 +528,69 @@ extern "C" int jt_sync_write(const SyncArgs* a, void*) {
   if (a->anchored) write_all<1>(s); else write_all<0>(s);
   return 0;
 }
+
+// The DC sums: every tile takes its number, loads and scans its blocks and
+// publishes its run (as each does before it waits); then the tiles finish,
+// the odd ones from the last down (each sees only the runs of the tiles
+// before it) and then the even ones in order (each sees the complete run
+// its odd neighbour left), each reading the runs before it kDcThreads at a
+// time and nearest first as the kernel does, its threads one by one between
+// the kernel's barriers.
+struct DcTile {
+  uint32_t sh[kDcShared];
+  bool heads[kDcShared];
+  unsigned long long excl[kDcThreads];
+  unsigned long long incl;
+};
+
+extern "C" int jt_dc_sum(const DcArgs* a, void*) {
+  const long ntiles = dc_tiles(a->nblocks);
+  std::vector<DcTile> tiles(ntiles);
+  for (long n = 0; n < ntiles; ++n) {
+    const long tile = static_cast<long>(a->ctl[0]++);
+    DcTile& d = tiles[tile];
+    for (int t = 0; t < kDcThreads; ++t)
+      dc_load(*a, tile * kDcTile, t, d.sh, d.heads);
+    unsigned long long run = 0;
+    for (int t = 0; t < kDcThreads; ++t) {
+      d.excl[t] = run;
+      run = dc_combine(run, dc_thread_run(t, d.sh, d.heads));
+    }
+    d.incl = run;
+    a->ctl[1 + tile] = run | kDcReady;
+  }
+  std::vector<long> order;
+  for (long tile = ntiles - 1; tile >= 0; --tile)
+    if (tile % 2) order.push_back(tile);
+  for (long tile = 0; tile < ntiles; tile += 2) order.push_back(tile);
+  for (long tile : order) {
+    DcTile& d = tiles[tile];
+    long head = -1;
+    uint32_t carry = 0;
+    for (long hi = tile; hi > 0 && head < 0; hi -= kDcThreads) {
+      unsigned long long v[kDcThreads];
+      for (int t = 0; t < kDcThreads; ++t) {
+        const long q = hi - 1 - t;
+        if (q < 0) continue;
+        v[t] = a->ctl[1 + q];
+        if (!(v[t] & kDcReady)) return 1;
+        if ((v[t] & kDcHead) && q > head) head = q;
+      }
+      for (int t = 0; t < kDcThreads; ++t) {
+        const long q = hi - 1 - t;
+        if (q >= 0 && q >= head) carry += static_cast<uint32_t>(v[t]);
+      }
+    }
+    const unsigned long long in = kDcHead | carry;
+    a->ctl[1 + tile] = dc_combine(in, d.incl) | kDcHead | kDcReady;
+    for (int t = 0; t < kDcThreads; ++t)
+      dc_thread_write(t, static_cast<uint32_t>(dc_combine(in, d.excl[t])),
+                      d.sh, d.heads);
+    for (int t = 0; t < kDcThreads; ++t)
+      dc_store(*a, tile * kDcTile, t, d.sh);
+  }
+  return 0;
+}
 """
 
 
@@ -502,19 +608,23 @@ def build_standin(directory, flags=()):
 
 @pytest.fixture(scope="module")
 def standins(tmp_path_factory):
-    """standins(chunk_bits=None, lanes=None): the host build of the kernels
-    at that chunk size (None: the size the program picks from the bits per
-    MCU) and lane cap, built once per module."""
+    """standins(chunk_bits=None, lanes=None, dc_tile=None): the host build
+    of the kernels at that chunk size (None: the size the program picks
+    from the bits per MCU), lane cap and DC-sum tile (threads, blocks a
+    thread), built once per module."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     built = {}
 
-    def get(chunk_bits=None, lanes=None):
-        key = (chunk_bits, lanes)
+    def get(chunk_bits=None, lanes=None, dc_tile=None):
+        key = (chunk_bits, lanes, dc_tile)
         if key not in built:
             flags = [f"-DJT_CHUNK_BITS={chunk_bits}"] if chunk_bits else []
             if lanes:
                 flags.append(f"-DJT_LANES={lanes}")
+            if dc_tile:
+                flags += [f"-DJT_DC_THREADS={dc_tile[0]}",
+                          f"-DJT_DC_ITEMS={dc_tile[1]}"]
             built[key] = build_standin(
                 tmp_path_factory.mktemp("huffman_standin"), flags)
         return built[key]
@@ -558,16 +668,18 @@ def test_kernel_d_body_on_host_standins(standin, mode, restart, optimal):
 
 def run_segments_standin(lib, words, seg_off, interval, n_mcu, seq, tables,
                          nblocks):
-    rows = torch.full((nblocks, 64), -7, dtype=torch.int32)
-    status = torch.full((2, seg_off.shape[0]), -1, dtype=torch.int32)
-    before = (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES,
-              ED.RESTART_SEGMENTS)
-    ED._launch_segments(words, seg_off, interval, n_mcu, seq, tables, rows,
-                        status, lib=lib, ac_lib=lib)
-    assert (ED.SEGMENT_LAUNCHES, ED.PREFIX_STAGE_LAUNCHES, ED.AC_LAUNCHES,
-            ED.RESTART_SEGMENTS) == (before[0] + 1, before[1] + 5,
-                                     before[2] + 1,
-                                     before[3] + seg_off.shape[0])
+    """The anchored chain (scan_decode, no upload) through the host build."""
+    comps = seq[:, 0].tolist()
+    names = ("SEGMENT_LAUNCHES", "PREFIX_STAGE_LAUNCHES", "AC_LAUNCHES",
+             "RESTART_SEGMENTS", "NATIVE_SCANS", "DC_SUM_LAUNCHES")
+    before = [getattr(ED, n) for n in names]
+    rows, status = ED.scan_decode(
+        words.device, True, words.numel(), seg_off.shape[0], interval, n_mcu,
+        seq, tables, [comps.count(c) for c in sorted(set(comps))],
+        words=words, seg_off=seg_off, lib=lib)
+    assert rows.shape == (nblocks, 64)
+    assert [getattr(ED, n) - b for n, b in zip(names, before)] == [
+        1, 5, 1, seg_off.shape[0], 1, 1]
     return rows, status
 
 
@@ -774,28 +886,175 @@ def test_flat_streams_ran_repair_passes(standins):
     assert max(max(v) for v in FLAT_PASSES.values()) > 2, FLAT_PASSES
 
 
-def test_unstuffed_segments_equal_the_per_segment_functions():
-    """The whole-scan split + unstuff in array operations against
-    decode_np's two functions applied segment by segment."""
+def geometry_stream(kind):
+    """A camera frame (1080p 4:2:2, a restart every MCU row) or a 500x375
+    q90 4:2:0 ImageNet image, from the benchmark's plain encoder."""
+    if kind == "camera":
+        (data,), _ = plain_streams([make_image(1080, 1920, seed=2)], "422",
+                                   120)
+    else:
+        (data,), _ = plain_streams([make_image(375, 500, seed=3)], "420", 0,
+                                   quality=90)
+    return data
+
+
+def split_cases():
     rng = np.random.default_rng(0)
     cases = [b"", b"\xff", b"\xff\xd0", b"\x00\xff\xd1", b"\xff\xd0\xff\xd1",
              b"\xff\x00", b"\xff\xff\xd0\x00", b"\xff\x00\xff\xd3\x00\xff\x00",
+             b"\x12\xff", b"\xff\xd7\x34\xff\xd0", b"\xff\xd2" * 5 + b"\xff",
+             b"\xff\x00" * 40 + b"\xff", b"\xff\xff\xff\x00\xff\xd5\xff",
              scan_args(stream("420", 3, False))[0],
              scan_args(stream("444", 0, True))[0]]
+    for kind in ("camera", "imagenet"):
+        cases.append(scan_args(geometry_stream(kind))[0])
     for _ in range(500):
         n = int(rng.integers(0, 60))
         cases.append(bytes(rng.choice(
             [0xFF, 0x00, 0xD0, 0xD7, 0x12, 0xFF, 0x00], size=n).astype(
                 np.uint8)))
-    for scan in cases:
+    for _ in range(40):  # long scans with dense 0xFF00 runs and markers
+        body = rng.integers(0, 256, size=int(rng.integers(100, 4000)),
+                            dtype=np.uint8)
+        body[body == 0xFF] = 0x7F
+        at = rng.random(body.shape[0])
+        body[at < 0.2] = 0xFF
+        out = bytearray()
+        for b, u in zip(body.tolist(), at.tolist()):
+            out.append(b)
+            if b == 0xFF:
+                out.append(0xD0 + int(u * 40) % 8 if u < 0.02 else 0x00)
+        cases.append(bytes(out))
+    return cases
+
+
+@pytest.mark.parametrize("split", ["numpy", "native"])
+def test_unstuffed_segments_equal_the_per_segment_functions(split, request):
+    """The whole-scan split + unstuff against decode_np's two functions
+    applied segment by segment: in array operations (unstuffed_segments,
+    the CPU's) and in one byte pass of csrc/scan_decode.cu (jt_split_scan,
+    the card's, built here with g++) into a reused buffer."""
+    lib = request.getfixturevalue("standin") if split == "native" else None
+    cpu = torch.device("cpu")
+    for scan in split_cases():
         parts = [PD.decode_np.unstuff(s)
                  for s in PD.decode_np.split_restart_segments(scan)]
         flat = np.concatenate(parts)
-        words, seg_off, lens = PD.unstuffed_segments(scan)
+        if lib is None:
+            words, seg_off, lens = PD.unstuffed_segments(scan)
+        else:
+            words, seg_off, lens, _ = PD._split_native(scan, cpu, lib)
+            assert lens.dtype == np.int64
         np.testing.assert_array_equal(words, PD._guarded_words(flat))
         assert lens.tolist() == [len(u) for u in parts]
         assert seg_off.tolist() == np.cumsum([0] + lens.tolist())[:-1].tolist()
         assert words.dtype == seg_off.dtype == np.int32
+
+
+def test_the_card_route_raises_as_the_cpu_route(standin):
+    """The card's route run on the CPU through the host build (the native
+    split into a reused buffer, the chain in one call): the segment-count
+    and bit-cursor errors of unstuffed_segments and the twins."""
+    cpu = torch.device("cpu")
+    scan, n_mcu, mcu_layout, htables, r = scan_args(stream("420", 3, False))
+    plain = scan_args(stream("420", 0, False))[0]
+    for lib in (None, standin):
+        for data, interval, match in (
+                (scan, 0, "restart segments"), (scan, 5, "restart segments"),
+                (plain, 3, "restart segments"),
+                (scan[: len(scan) // 2], r, "restart segments|past segment"),
+                (plain[: len(plain) // 3], 0, "past segment end")):
+            with pytest.raises(ScanDecodeError, match=match):
+                PD._decode(data, n_mcu, mcu_layout, htables, interval, cpu,
+                           prefix=False, lib=lib)
+        with pytest.raises(ScanDecodeError, match="past segment end"):
+            PD._decode(plain, len(plain) * 4, mcu_layout, htables, 0, cpu,
+                       prefix=False, lib=lib)
+
+
+@pytest.mark.parametrize("mode,restart,optimal", [
+    ("420", 0, False), ("420", 3, True), ("422", 7, False), ("444", 0, True),
+    ("gray", 3, False), ("gray", 0, False), ("444", 1, False)])
+def test_the_card_route_on_host_standins(standin, mode, restart, optimal):
+    """decode_scan's card route on the CPU through the host build: the rows
+    of native.decode_scan, one native scan and one DC sum per decode; a
+    corrupt scan raises where the CPU route raises, and the next decode
+    from the same buffer is right again."""
+    cpu = torch.device("cpu")
+    args = scan_args(stream(mode, restart, optimal))
+    want = native.decode_scan(*args)
+    for prefix in (False, True) if restart == 0 else (False,):
+        before = (ED.NATIVE_SCANS, ED.DC_SUM_LAUNCHES)
+        got = PD._decode(*args, cpu, prefix=prefix, lib=standin)
+        assert (ED.NATIVE_SCANS, ED.DC_SUM_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        assert_blocks_equal(got, want)
+    rng = np.random.default_rng(11)
+    scan = args[0]
+    for _ in range(6):
+        bad = bytearray(scan)
+        i = int(rng.integers(1, len(bad)))
+        while 0xFF in (bad[i - 1], bad[i]):
+            i = int(rng.integers(1, len(bad)))
+        bad[i] = (bad[i] ^ int(rng.integers(1, 255))) & 0xFE
+        outs = []
+        for lib in (None, standin):
+            try:
+                outs.append(PD._decode(bytes(bad), *args[1:], cpu,
+                                       prefix=False, lib=lib))
+            except ScanDecodeError:
+                outs.append(None)
+        assert (outs[0] is None) == (outs[1] is None)
+        if outs[0] is not None:
+            assert_blocks_equal(outs[1], outs[0])
+        assert_blocks_equal(PD._decode(*args, cpu, prefix=False, lib=standin),
+                            want)
+
+
+# (n_mcu, blocks per MCU of each component, restart interval) of the sizes
+# the program takes: a camera frame, a 500x375 4:2:0 image, a 4K 4:2:0
+# frame, the 4K frame at restart 1; and small ones whose components and
+# resets fall inside a thread's blocks.
+DC_SHAPES = {"camera": (16200, [2, 1, 1], 120),
+             "imagenet": (768, [4, 1, 1], 32),
+             "4k": (32400, [4, 1, 1], 240),
+             "4k-restart1": (32400, [4, 1, 1], 1),
+             "gray": (7, [1], 3), "odd-420": (77, [4, 1, 1], 5),
+             "odd-422": (13, [2, 1, 1], 3)}
+
+
+@pytest.mark.parametrize("dc_tile", [None, (32, 2)], ids=["tile", "small"])
+@pytest.mark.parametrize("anchored", [True, False])
+@pytest.mark.parametrize("shape", list(DC_SHAPES))
+def test_dc_sums_on_host_standins(standins, shape, anchored, dc_tile):
+    """The DC-sum launch (csrc/scan_decode.cu) built with g++ and driven
+    tile by tile against the torch sums it replaced, in both modes: random
+    differences, so that the sums wrap as int32. Also built with tiles of
+    64 blocks, so that a tile reads the runs before it in many rounds of
+    32 (from bit 0, back to its component's first block)."""
+    standin = standins(dc_tile=dc_tile)
+    n_mcu, comp_bpm, interval = DC_SHAPES[shape]
+    bpm = sum(comp_bpm)
+    rng = np.random.default_rng(bpm * n_mcu + interval)
+    diff = torch.as_tensor(rng.integers(-2**31, 2**31, size=n_mcu * bpm,
+                                        dtype=np.int64).astype(np.int32))
+    ac_off = torch.as_tensor(rng.integers(0, 2**30, size=(n_mcu, bpm),
+                                          dtype=np.int32))
+    seq = torch.as_tensor(rng.integers(0, 8, size=(bpm, 3), dtype=np.int32))
+    if not anchored:
+        diff = diff.view(n_mcu, bpm)
+    before = ED.DC_SUM_LAUNCHES
+    got = ED.dc_sums(diff, ac_off, seq, comp_bpm, interval, n_mcu, anchored,
+                     lib=standin)
+    assert ED.DC_SUM_LAUNCHES == before + 1
+    want = ED.dc_sums_reference(diff, ac_off, seq, comp_bpm, interval, n_mcu,
+                                anchored)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 def test_auto_takes_the_device_decoders_on_a_card():
@@ -840,8 +1099,10 @@ def test_program_f_is_given_no_more_than_the_blocks_can_span(mode,
 
 def test_a_header_edit_rebuilds_the_kernels_that_include_it(tmp_path,
                                                             monkeypatch):
-    """Kernels D, E and F share csrc/huff_decode.cuh: a library older than
-    any header beside its source is built again."""
+    """Kernels D, E and F share csrc/huff_decode.cuh, and scan_decode.cu
+    includes prefix_index.cu and ac_indexed.cu: a library older than any
+    header beside its source, or than a source it includes, is built
+    again; a source it does not include changes nothing."""
     from jpeg_tpu_torch.ops import _cuda
     fake = tmp_path / "nvcc"
     fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
@@ -868,3 +1129,13 @@ def test_a_header_edit_rebuilds_the_kernels_that_include_it(tmp_path,
     assert builds() == 2
     os.utime(src, (6e9, 6e9))
     assert builds() == 3
+    inner, other = tmp_path / "inner.cu", tmp_path / "other.cu"
+    inner.write_text("")
+    other.write_text("")
+    src.write_text('#include "shared.cuh"\n#include "inner.cu"\n')
+    for p in (src, header, inner, other, lib):
+        os.utime(p, (7e9, 7e9))
+    os.utime(other, (8e9, 8e9))
+    assert builds() == 3
+    os.utime(inner, (9e9, 9e9))
+    assert builds() == 4
