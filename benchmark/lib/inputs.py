@@ -8,7 +8,10 @@ configuration makes one such image and rolls it by k * roll columns for
 frame k; a "mix" configuration gives every image a shape from a fixed list
 in fixed proportions, in an order drawn from the seed, so every seed does the
 same work. The decode cells' streams are written by the benchmark's own
-plain encoder (lib/plainjpeg), never by the codec under test.
+plain encoders, never by the codec under test: baseline with the Annex K.3
+tables or, with "optimize_tables", each image's Annex K.2 tables
+(lib/plainjpeg); with "progressive", libjpeg's 10-scan progression with each
+scan's Annex K.2 tables (lib/plainprogressive).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from lib import plainjpeg
+from lib import plainjpeg, plainprogressive
 from metrics import work_bytes
 
 # Frames of one shape encoded together (bounds the plain encoder's memory).
@@ -34,7 +37,8 @@ class Inputs:
     streams: list
     pixels: list  # width * height of each image
     blocks: list  # 8x8 blocks of the scan at the configuration's sampling
-    scan_bytes: list  # entropy-coded bytes of each stream (0 without one)
+    scan_bytes: list  # entropy-coded bytes of each stream, all its scans
+    # (0 without one)
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -85,6 +89,9 @@ def make_images(config: dict, n: int, seed: int, device) -> list:
             for w, h in image_shapes(config, n, seed)]
 
 
+ANNEX_K3 = "ITU-T T.81 Annex K.3"
+ANNEX_K2 = "ITU-T T.81 Annex K.2"
+
 # What the plain encoder and reference implement, and why nothing else: a
 # configuration that states anything else, or a key not named here, is
 # refused rather than run as something it does not say.
@@ -92,10 +99,12 @@ IMPLEMENTED = {
     "subsampling": (plainjpeg.SAMPLING, "the plain codec has 2x2, 2x1 and "
                     "1x1 luma sampling with 1x1 chroma only"),
     "restart_interval": (range(1 << 16), "DRI states it in 16 bits, in MCUs"),
-    "optimize_tables": ((False,), "the plain encoder writes the Annex K "
-                        "tables only"),
-    "huffman_tables": (("ITU-T T.81 Annex K.3",), "the plain encoder writes "
-                       "the Annex K tables only"),
+    "optimize_tables": ((False, True), "a boolean: Annex K.2 tables built "
+                        "from each scan's own symbol counts"),
+    "huffman_tables": ((ANNEX_K3, ANNEX_K2), "the plain encoder writes the "
+                       "Annex K.3 tables or builds them by Annex K.2"),
+    "progressive": ((False, True), "a boolean: the 10-scan script of libjpeg's "
+                    "jpeg_simple_progression"),
     "kind": (("frames", "mix"), "lib/inputs makes rolled frames or a mix of "
              "shapes only"),
 }
@@ -126,6 +135,24 @@ def check_config(config: dict) -> None:
                               or value not in allowed):
             raise ValueError(f"configuration {key}={value!r} is not "
                              f"implemented: {why}")
+    optimize = config.get("optimize_tables", False)
+    tables = config.get("huffman_tables", ANNEX_K3)
+    if optimize != (tables == ANNEX_K2):
+        raise ValueError(
+            f"configuration optimize_tables={optimize!r} contradicts "
+            f"huffman_tables={tables!r}: Annex K.2 tables are the optimized "
+            "ones, Annex K.3's the fixed ones")
+    if config.get("progressive", False):
+        if not optimize:
+            raise ValueError(
+                "configuration progressive=True needs optimize_tables=true "
+                "and Annex K.2 tables: libjpeg builds each progressive scan's "
+                "tables from its own counts")
+        if config.get("restart_interval", 0):
+            raise ValueError(
+                f"configuration progressive=True with restart_interval="
+                f"{config['restart_interval']!r} is not implemented: the "
+                "plain progressive writer codes each scan in one interval")
 
 
 def build(config: dict, n_frames: int, n_streams: int, seed: int,
@@ -136,6 +163,13 @@ def build(config: dict, n_frames: int, n_streams: int, seed: int,
     imgs = make_images(config, max(n_frames, n_streams), seed, device)
     q = config["quality"]
     sub, rst = config["subsampling"], config.get("restart_interval", 0)
+    if config.get("progressive", False):
+        def write(coefs, hh, ww):
+            return plainprogressive.streams(coefs, hh, ww, q, sub)
+    else:
+        def write(coefs, hh, ww):
+            return plainjpeg.streams(coefs, hh, ww, q, sub, rst,
+                                     config.get("optimize_tables", False))
     streams, scan_bytes = [], []
     by_shape: dict = {}
     for i in range(n_streams):
@@ -145,11 +179,9 @@ def build(config: dict, n_frames: int, n_streams: int, seed: int,
         for c in range(0, len(idx), _CHUNK):
             part = idx[c:c + _CHUNK]
             batch = torch.stack([imgs[i] for i in part])
-            hh, ww = batch.shape[1:3]
-            head = plainjpeg.jfif_header(ww, hh, q, sub, rst)
-            for i, s in zip(part, plainjpeg.scans(
-                    plainjpeg.coefficients(batch, q, subsampling=sub), rst)):
-                out[i] = (head + s + b"\xff\xd9", len(s))
+            coefs = plainjpeg.coefficients(batch, q, subsampling=sub)
+            for i, made in zip(part, write(coefs, *batch.shape[1:3])):
+                out[i] = made
     for i in range(n_streams):
         streams.append(out[i][0])
         scan_bytes.append(out[i][1])

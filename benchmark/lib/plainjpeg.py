@@ -8,16 +8,18 @@ definition, so a change to the port cannot change what is compared.
 
 Encode: RGB uint8 -> the exact fixed-point transform (colour, chroma
 averaged over the luma sampling's box, DCT, quantize) -> DC DPCM, reset at
-every restart -> Huffman coding with the Annex K tables -> byte stuffing,
-each restart interval 1-padded and followed by RSTn -> one baseline JFIF
-stream at 4:2:0, 4:2:2 or 4:4:4 (SAMPLING). The transform is the one that
+every restart -> Huffman coding with the Annex K tables, or with each
+image's own built by Annex K.2 (optimal_table) -> byte stuffing, each
+restart interval 1-padded and followed by RSTn -> one baseline JFIF stream
+at 4:2:0, 4:2:2 or 4:4:4 (SAMPLING). The transform is the one that
 the port states as its contract: the composed linear map of the float32
 DCT basis and JFIF matrix held in 2^15 fixed point, evaluated in exact
 integer arithmetic, quantized with round half away from zero. Every step
 runs as whole-tensor operations on any device (the card in a run, the CPU in
 the tests); each field of the scan is placed by a prefix sum and the bits
 are merged by adding fields that never overlap, so the result does not
-depend on the order of the sums.
+depend on the order of the sums (place, which lib/plainprogressive's
+progressive writer shares).
 
 Decode (the reference of the decode cells): quantized coefficients ->
 dequantize -> 2-D IDCT in float64 -> +128, round, clip -> libjpeg's
@@ -30,8 +32,10 @@ serial parser and Huffman decoder at the end of this file are for the tests
 
 from __future__ import annotations
 
+import heapq
 import math
 import struct
+import typing
 
 import numpy as np
 import torch
@@ -260,11 +264,57 @@ def _bit_length(v: torch.Tensor) -> torch.Tensor:
     return size
 
 
-def _tables(dev):
-    luts = [huffman_codes(s) for s in (DC_LUMA, DC_CHROMA, AC_LUMA, AC_CHROMA)]
+def _code_tensors(specs, dev):
+    """(BITS, HUFFVAL) tables -> (code, length) tensors (n_tables, 256) on
+    `dev`; an absent table (None) is all zero."""
+    luts = [huffman_codes(s) if s is not None else (np.zeros(256, np.int64),) * 2
+            for s in specs]
     code = torch.as_tensor(np.stack([t[0] for t in luts]), device=dev)
     length = torch.as_tensor(np.stack([t[1] for t in luts]), device=dev)
-    return code, length  # rows: DC Y, DC C, AC Y, AC C
+    return code, length
+
+
+ANNEX_K = (DC_LUMA, DC_CHROMA, AC_LUMA, AC_CHROMA)  # rows: DC Y, DC C, AC Y, AC C
+
+
+def optimal_table(counts) -> tuple[list, list]:
+    """Symbol counts (256) -> (BITS, HUFFVAL) by T.81 Annex K.2: code sizes
+    from the counts (Figure K.1) with one code point reserved so that no code
+    is all ones, counted by size (K.2) and cut to 16 bits (K.3), symbols in
+    order of size, then value. Two least counts are merged as libjpeg's
+    jpeg_gen_optimal_table merges them (of equal counts the higher value
+    first, the merged node keeping the first's value), so the tables are
+    cjpeg -optimize's. The walk is over at most 257 symbols."""
+    heap = [(int(c), -s) for s, c in enumerate(counts) if c] + [(1, -256)]
+    heapq.heapify(heap)
+    under = {-s: [-s] for _, s in heap}  # node -> symbols under it
+    size = dict.fromkeys(under, 0)
+    while len(heap) > 1:
+        f1, n1 = heapq.heappop(heap)
+        f2, n2 = heapq.heappop(heap)
+        for s in under[-n1] + under[-n2]:
+            size[s] += 1
+        under[-n1] += under.pop(-n2)
+        heapq.heappush(heap, (f1 + f2, n1))
+    bits = [0] * (max(size.values()) + 1)
+    for n in size.values():
+        bits[n] += 1
+    for i in range(len(bits) - 1, 16, -1):  # Figure K.3
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    bits = (bits + [0] * 17)[:17]
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the reserved code point
+    vals = sorted((s for s in size if s != 256), key=lambda s: (size[s], s))
+    return bits[1:], vals
 
 
 def _dc_differences(dc: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
@@ -275,98 +325,63 @@ def _dc_differences(dc: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
     return dc - prev.masked_fill(resets, 0)
 
 
-def scans(coefs: torch.Tensor, restart_interval: int = 0) -> list[bytes]:
-    """(K, n_mcu, h * v + 2, 64) quantized coefficients -> the K
-    entropy-coded scans, one baseline interleaved scan each. With a restart
-    interval of r MCUs every r MCUs start an interval: the DC predictors
-    restart at 0, and each interval's bits are 1-padded to the byte and
-    byte-stuffed, then followed by RSTn (n = interval number mod 8), but
-    for the last interval, which may be short."""
-    k, n_mcu, nbm = coefs.shape[:3]
-    hv = nbm - 2
-    dev = coefs.device
-    code, length = _tables(dev)
-    blocks = coefs.reshape(k * n_mcu * nbm, 64).clone()
-    # DC differences per image and component, in scan order.
-    per_seg = restart_interval or n_mcu
-    n_seg = -(-n_mcu // per_seg)
-    mcu = torch.arange(n_mcu, device=dev)
-    starts = mcu % per_seg == 0
-    dc = coefs[..., 0]
-    first_luma = (starts[:, None] & (torch.arange(hv, device=dev) == 0))
-    dy = _dc_differences(dc[:, :, :hv].reshape(k, -1), first_luma.reshape(-1))
-    dc_ = _dc_differences(dc[:, :, hv:], starts[:, None])
-    blocks[:, 0] = torch.cat([dy.reshape(k, n_mcu, hv), dc_], dim=2).reshape(-1)
-    nb = blocks.shape[0]
-    chroma = (torch.arange(nb, device=dev) % nbm >= hv).to(torch.int64)
+def amplitude(v: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """The `size` extra bits of v (T.81 F.1.2.1): v itself, or for v < 0
+    v + 2^size - 1."""
+    return torch.where(v >= 0, v, v + (1 << size) - 1)
 
-    # DC field of every block.
-    dsize = _bit_length(blocks[:, 0])
-    dval = blocks[:, 0]
-    damp = torch.where(dval >= 0, dval, dval + (1 << dsize) - 1)
-    dc_len = length[chroma, dsize] + dsize
-    dc_bits = (code[chroma, dsize] << dsize) | damp
 
-    # AC fields: per nonzero its ZRLs (run // 16 of them) and its symbol.
-    ac = blocks[:, 1:]
-    rows, cols = torch.nonzero(ac, as_tuple=True)
-    vals = ac[rows, cols]
-    first = torch.ones_like(rows, dtype=torch.bool)
-    first[1:] = rows[1:] != rows[:-1]
-    prev = torch.where(first, torch.full_like(cols, -1),
-                       torch.cat([cols[:1], cols[:-1]]))
-    run = cols - prev - 1
-    zrl = run >> 4
-    vsize = _bit_length(vals)
-    sym = ((run & 15) << 4) | vsize
-    tab = 2 + chroma[rows]
-    amp = torch.where(vals >= 0, vals, vals + (1 << vsize) - 1)
-    sym_len = length[tab, sym] + vsize
-    sym_bits = (code[tab, sym] << vsize) | amp
-    zrl_len = length[tab, 0xF0]
-    group_len = zrl * zrl_len + sym_len
-    # EOB unless the block's last nonzero is coefficient 63.
-    last = torch.full((nb,), -1, dtype=torch.int64, device=dev).scatter_reduce(
-        0, rows, cols, reduce="amax")
-    has_eob = last < 62
-    eob_len = torch.where(has_eob, length[2 + chroma, 0], 0)
-    eob_bits = code[2 + chroma, 0]
+class Fields(typing.NamedTuple):
+    """Bit fields of entropy-coded segments, one entry each: segment `seg`,
+    order `key` in the scan (keys of one segment all below those of the
+    next; equal keys only for equal fields), the Huffman code of `sym` in
+    table `tab` (-1: no code) and then `elen` extra bits `extra`."""
 
-    # Bit offsets: blocks in scan order; each interval of each image (the
-    # whole image without restarts) starts at a byte of its own.
-    ac_sum = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(
-        0, rows, group_len)
-    blen = dc_len + ac_sum + eob_len
-    gm = torch.arange(nb, device=dev) // nbm  # MCU of each block, all images
-    seg = gm // n_mcu * n_seg + gm % n_mcu // per_seg
-    seg_bits = torch.zeros(k * n_seg, dtype=torch.int64,
-                           device=dev).index_add_(0, seg, blen)
+    seg: torch.Tensor
+    key: torch.Tensor
+    tab: torch.Tensor
+    sym: torch.Tensor
+    extra: torch.Tensor
+    elen: torch.Tensor
+
+
+def histograms(tab: torch.Tensor, sym: torch.Tensor, n_tables: int) -> np.ndarray:
+    """(n_tables, 256) counts of each table's symbols, on the host."""
+    on = tab >= 0
+    return torch.bincount(tab[on] * 256 + sym[on], minlength=256 * n_tables
+                          ).reshape(n_tables, 256).cpu().numpy()
+
+
+def place(f: Fields, code: torch.Tensor, length: torch.Tensor,
+          n_seg: int) -> list[bytes]:
+    """Bit fields -> the n_seg segments' bytes: each segment's fields in the
+    order of their keys, from a byte of its own, 1-padded to the byte and
+    byte-stuffed (a 0x00 after every 0xFF). Each field is placed by a prefix
+    sum of the lengths and the bits are merged by adding fields that never
+    overlap, so the result does not depend on the order of the sums."""
+    dev = code.device
+    order = torch.argsort(f.key)
+    seg, tab, sym, extra, elen = (x[order] for x in (f.seg, f.tab, f.sym,
+                                                     f.extra, f.elen))
+    has = tab >= 0
+    t = tab.clamp(min=0)
+    ln = torch.where(has, length[t, sym], 0) + elen
+    val = (torch.where(has, code[t, sym], 0) << elen) | extra
+    seg_bits = torch.zeros(n_seg, dtype=torch.int64, device=dev).index_add_(
+        0, seg, ln)
     seg_bytes = (seg_bits + 7) // 8
     seg_base = 8 * (torch.cumsum(seg_bytes, 0) - seg_bytes)  # bit offset
-    bstart = (seg_base[seg] + torch.cumsum(blen, 0) - blen
-              - (torch.cumsum(seg_bits, 0) - seg_bits)[seg])
-    gcum = torch.cumsum(group_len, 0) - group_len
-    blk_first = torch.cumsum(ac_sum, 0) - ac_sum
-    gstart = bstart[rows] + dc_len[rows] + gcum - blk_first[rows]
-
-    zidx = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), zrl)
-    zpos = torch.arange(zidx.numel(), device=dev) - torch.repeat_interleave(
-        torch.cumsum(zrl, 0) - zrl, zrl)
-    eob_at = torch.nonzero(has_eob, as_tuple=True)[0]
-    pad = (8 * seg_bytes - seg_bits)
+    off = (seg_base[seg] + torch.cumsum(ln, 0) - ln
+           - (torch.cumsum(seg_bits, 0) - seg_bits)[seg])
+    pad = 8 * seg_bytes - seg_bits
     pad_seg = torch.nonzero(pad > 0, as_tuple=True)[0]
-    off = torch.cat([
-        bstart, gstart + zrl * zrl_len, gstart[zidx] + zpos * zrl_len[zidx],
-        bstart[eob_at] + blen[eob_at] - eob_len[eob_at],
-        seg_base[pad_seg] + seg_bits[pad_seg]])
-    val = torch.cat([dc_bits, sym_bits, code[2 + chroma[rows[zidx]], 0xF0],
-                     eob_bits[eob_at], (1 << pad[pad_seg]) - 1])
-    ln = torch.cat([dc_len, sym_len, zrl_len[zidx], eob_len[eob_at],
-                    pad[pad_seg]])
+    off = torch.cat([off, seg_base[pad_seg] + seg_bits[pad_seg]])
+    val = torch.cat([val, (1 << pad[pad_seg]) - 1])
+    ln = torch.cat([ln, pad[pad_seg]])
     keep = ln > 0
     off, val, ln = off[keep], val[keep], ln[keep]
 
-    # Merge the fields into 32-bit big-endian words (a field <= 27 bits
+    # Merge the fields into 32-bit big-endian words (a field <= 32 bits
     # spans at most two words; fields never overlap, so adding is OR-ing).
     total_bytes = int(seg_bytes.sum())
     words = torch.zeros(total_bytes // 4 + 2, dtype=torch.int64, device=dev)
@@ -392,45 +407,173 @@ def scans(coefs: torch.Tensor, restart_interval: int = 0) -> list[bytes]:
     stuffed_ends = torch.cumsum(step, 0)[ends - 1]
     host = out.cpu().numpy().tobytes()
     cuts = [0] + stuffed_ends.cpu().tolist()
-    parts = [host[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
-    return [b"".join(p + bytes((0xFF, 0xD0 + j % 8))
-                     for j, p in enumerate(parts[i:i + n_seg - 1]))
-            + parts[i + n_seg - 1] for i in range(0, k * n_seg, n_seg)]
+    return [host[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def _sequential_fields(coefs: torch.Tensor, restart_interval: int
+                       ) -> tuple[Fields, torch.Tensor, int]:
+    """The fields of K baseline interleaved scans (tables as ANNEX_K's rows),
+    the image of each field, and the number of segments (restart intervals
+    of all images)."""
+    k, n_mcu, nbm = coefs.shape[:3]
+    hv = nbm - 2
+    dev = coefs.device
+    blocks = coefs.reshape(k * n_mcu * nbm, 64).clone()
+    # DC differences per image and component, in scan order.
+    per_seg = restart_interval or n_mcu
+    n_seg = -(-n_mcu // per_seg)
+    mcu = torch.arange(n_mcu, device=dev)
+    starts = mcu % per_seg == 0
+    dc = coefs[..., 0]
+    first_luma = (starts[:, None] & (torch.arange(hv, device=dev) == 0))
+    dy = _dc_differences(dc[:, :, :hv].reshape(k, -1), first_luma.reshape(-1))
+    dc_ = _dc_differences(dc[:, :, hv:], starts[:, None])
+    blocks[:, 0] = torch.cat([dy.reshape(k, n_mcu, hv), dc_], dim=2).reshape(-1)
+    nb = blocks.shape[0]
+    chroma = (torch.arange(nb, device=dev) % nbm >= hv).to(torch.int64)
+
+    dval = blocks[:, 0]
+    dsize = _bit_length(dval)
+
+    # AC fields: per nonzero its ZRLs (run // 16 of them) and its symbol.
+    ac = blocks[:, 1:]
+    rows, cols = torch.nonzero(ac, as_tuple=True)
+    vals = ac[rows, cols]
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    prev = torch.where(first, torch.full_like(cols, -1),
+                       torch.cat([cols[:1], cols[:-1]]))
+    run = cols - prev - 1
+    zrl = run >> 4
+    vsize = _bit_length(vals)
+    zidx = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), zrl)
+    # EOB unless the block's last nonzero is coefficient 63.
+    last = torch.full((nb,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, rows, cols, reduce="amax")
+    eob = torch.nonzero(last < 62, as_tuple=True)[0]
+
+    # Order in a block: DC (0), then per coefficient k its ZRLs (2k) and its
+    # symbol (2k + 1), then the EOB (128).
+    n_z, n_e = zidx.numel(), eob.numel()
+    zero = torch.zeros(n_z + n_e, dtype=torch.int64, device=dev)
+    owner = torch.cat([torch.arange(nb, device=dev), rows[zidx], rows, eob])
+    gm = owner // nbm  # MCU of each field's block, all images
+    f = Fields(
+        seg=gm // n_mcu * n_seg + gm % n_mcu // per_seg,
+        key=owner * 256 + torch.cat([
+            torch.zeros(nb, dtype=torch.int64, device=dev),
+            2 * cols[zidx] + 2, 2 * cols + 3,
+            torch.full((n_e,), 128, dtype=torch.int64, device=dev)]),
+        tab=torch.cat([chroma, 2 + chroma[owner[nb:]]]),
+        sym=torch.cat([dsize, torch.full((n_z,), 0xF0, device=dev),
+                       ((run & 15) << 4) | vsize, zero[:n_e]]),
+        extra=torch.cat([amplitude(dval, dsize), zero[:n_z],
+                         amplitude(vals, vsize), zero[:n_e]]),
+        elen=torch.cat([dsize, zero[:n_z], vsize, zero[:n_e]]))
+    return f, gm // n_mcu, k * n_seg
+
+
+def entropy_code(coefs: torch.Tensor, restart_interval: int = 0,
+                 optimize: bool = False) -> tuple[list, list[bytes]]:
+    """(K, n_mcu, h * v + 2, 64) quantized coefficients -> (each image's
+    Huffman tables as (BITS, HUFFVAL): DC Y, DC C, AC Y, AC C; the K
+    entropy-coded scans, one baseline interleaved scan each).
+
+    The tables are Annex K's, or with `optimize` each image's own, built
+    from its symbol counts by Annex K.2 (one luma and one chroma table of
+    each class, as libjpeg's optimize pass builds them). With a restart
+    interval of r MCUs every r MCUs start an interval: the DC predictors
+    restart at 0, and each interval's bits are 1-padded to the byte and
+    byte-stuffed, then followed by RSTn (n = interval number mod 8), but
+    for the last interval, which may be short."""
+    k = coefs.shape[0]
+    f, img, n_seg = _sequential_fields(coefs, restart_interval)
+    if optimize:
+        f = f._replace(tab=img * 4 + f.tab)
+        specs = [optimal_table(c) for c in histograms(f.tab, f.sym, 4 * k)]
+        tables = [specs[4 * i:4 * i + 4] for i in range(k)]
+    else:
+        specs = ANNEX_K
+        tables = [list(ANNEX_K)] * k
+    parts = place(f, *_code_tensors(specs, coefs.device), n_seg)
+    per = n_seg // k
+    return tables, [b"".join(p + bytes((0xFF, 0xD0 + j % 8))
+                             for j, p in enumerate(parts[i:i + per - 1]))
+                    + parts[i + per - 1] for i in range(0, n_seg, per)]
+
+
+def scans(coefs: torch.Tensor, restart_interval: int = 0) -> list[bytes]:
+    """The K entropy-coded scans of entropy_code with the Annex K tables."""
+    return entropy_code(coefs, restart_interval)[1]
 
 
 def _segment(marker: int, payload: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
 
 
-def jfif_header(width: int, height: int, quality: int,
-                subsampling: str = "420", restart_interval: int = 0) -> bytes:
-    """SOI, APP0 (JFIF 1.01), DQT (tables 0 and 1, zig-zag order), SOF0
-    (8-bit, 3 components, Y at the sampling's h x v and Cb, Cr 1x1), DHT
-    (the four Annex K tables), DRI where the restart interval is above 0,
-    and SOS of the interleaved scan."""
+def frame_header(width: int, height: int, quality: int,
+                 subsampling: str = "420", sof: int = 0xC0) -> bytes:
+    """SOI, APP0 (JFIF 1.01), DQT (tables 0 and 1, zig-zag order) and the
+    frame header SOFn (8-bit, 3 components, Y at the sampling's h x v and
+    Cb, Cr 1x1; SOF0 baseline, SOF2 progressive)."""
     h, v = SAMPLING[subsampling]
     out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
     for tid, base in ((0, QUANT_LUMA), (1, QUANT_CHROMA)):
         t = quality_table(base, quality)[ZIGZAG]
         out.append(_segment(0xDB, bytes([tid]) + bytes(int(v) for v in t)))
-    out.append(_segment(0xC0, struct.pack(">BHHB", 8, height, width, 3)
+    out.append(_segment(sof, struct.pack(">BHHB", 8, height, width, 3)
                         + bytes([1, h << 4 | v, 0, 2, 0x11, 1, 3, 0x11, 1])))
-    for tc_th, (bits, vals) in ((0x00, DC_LUMA), (0x10, AC_LUMA),
-                                (0x01, DC_CHROMA), (0x11, AC_CHROMA)):
-        out.append(_segment(0xC4, bytes([tc_th]) + bytes(bits) + bytes(vals)))
+    return b"".join(out)
+
+
+def dht(table_class: int, table_id: int, spec) -> bytes:
+    """One DHT segment holding one table (BITS, HUFFVAL)."""
+    bits, vals = spec
+    return _segment(0xC4, bytes([table_class << 4 | table_id]) + bytes(bits)
+                    + bytes(vals))
+
+
+def sos(components, ss: int = 0, se: int = 63, ah: int = 0,
+        al: int = 0) -> bytes:
+    """SOS of a scan of `components`, [(id, DC table, AC table)]."""
+    return _segment(0xDA, bytes([len(components)])
+                    + b"".join(bytes([c, td << 4 | ta]) for c, td, ta in components)
+                    + bytes([ss, se, ah << 4 | al]))
+
+
+def jfif_header(width: int, height: int, quality: int,
+                subsampling: str = "420", restart_interval: int = 0,
+                tables=ANNEX_K) -> bytes:
+    """frame_header with SOF0, DHT (the four tables, as ANNEX_K's rows:
+    Annex K's unless given), DRI where the restart interval is above 0, and
+    SOS of the interleaved scan."""
+    dc_y, dc_c, ac_y, ac_c = tables
+    out = [frame_header(width, height, quality, subsampling),
+           dht(0, 0, dc_y), dht(1, 0, ac_y), dht(0, 1, dc_c), dht(1, 1, ac_c)]
     if restart_interval:
         out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
-    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    out.append(sos([(1, 0, 0), (2, 1, 1), (3, 1, 1)]))
     return b"".join(out)
+
+
+def streams(coefs: torch.Tensor, height: int, width: int, quality: int,
+            subsampling: str = "420", restart_interval: int = 0,
+            optimize: bool = False) -> list[tuple[bytes, int]]:
+    """(K, n_mcu, h * v + 2, 64) quantized coefficients of K images of one
+    shape -> K baseline JFIF streams, each with its entropy-coded bytes."""
+    tables, coded = entropy_code(coefs, restart_interval, optimize)
+    return [(jfif_header(width, height, quality, subsampling,
+                         restart_interval, t) + s + b"\xff\xd9", len(s))
+            for t, s in zip(tables, coded)]
 
 
 def encode(rgb: torch.Tensor, quality: int, subsampling: str = "420",
            restart_interval: int = 0) -> list[bytes]:
     """(K, H, W, 3) uint8 RGB of one shape -> K baseline JFIF streams."""
     hh, ww = rgb.shape[1:3]
-    head = jfif_header(ww, hh, quality, subsampling, restart_interval)
     coefs = coefficients(rgb, quality, subsampling=subsampling)
-    return [head + s + b"\xff\xd9" for s in scans(coefs, restart_interval)]
+    return [s for s, _ in streams(coefs, hh, ww, quality, subsampling,
+                                  restart_interval)]
 
 
 # ---------------------------------------------------------------------------

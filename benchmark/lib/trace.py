@@ -26,13 +26,18 @@ _DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy",
 
 @contextlib.contextmanager
 def profiled(out: dict):
-    """Profile the block; on exit put the trace's events in out["events"]
-    (a list of dicts with cat, name, ts, dur, tid)."""
+    """Profile the block, every thread of the process (the program decodes
+    and stages on threads of its own); on exit put the trace's events in
+    out["events"] (a list of dicts with cat, name, ts, dur, tid)."""
     import torch
+    from torch._C._profiler import _ExperimentalConfig
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=acts,
+            experimental_config=_ExperimentalConfig(profile_all_threads=True)
+    ) as prof:
         yield
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)

@@ -16,13 +16,17 @@ SMALL = {"width": 256, "height": 160}
 MIX = {"shapes": [[250, 187, 40], [250, 166, 25], [187, 250, 15],
                   [166, 250, 10], [250, 250, 10]]}
 # The cells' configurations at other samplings and with restart intervals
-# (16 MCUs: one MCU row of the 250-pixel widths at 4:2:2).
+# (16 MCUs: one MCU row of the 250-pixel widths at 4:2:2), and as
+# progressive streams.
 FORMS = [("ilsvrc-decode-stream", dict(MIX, subsampling="422",
                                        restart_interval=16)),
          ("ilsvrc-decode-stream", dict(MIX, subsampling="444",
                                        restart_interval=7)),
          ("uhd-encode-stream", dict(SMALL, subsampling="444")),
-         ("uhd-encode-stream", dict(SMALL, subsampling="422"))]
+         ("uhd-encode-stream", dict(SMALL, subsampling="422")),
+         ("ilsvrc-decode-stream", dict(
+             MIX, progressive=True, optimize_tables=True,
+             huffman_tables="ITU-T T.81 Annex K.2"))]
 
 
 def readings(cell, seed, device, override=None, seconds=0.5):

@@ -29,11 +29,16 @@ def small_cells(frames, mix):
     return out
 
 
+K2 = {"optimize_tables": True, "huffman_tables": "ITU-T T.81 Annex K.2"}
 # Every cell, and a cell's configuration at another sampling with restart
-# intervals.
+# intervals, with each image's Annex K.2 tables, and as progressive streams.
 CELLS = small_cells(SMALL, MIX) + [
-    ("ilsvrc-decode-stream", dict(MIX, subsampling="422", restart_interval=4))]
-IDS = [c + ("" if "subsampling" not in o else
+    ("ilsvrc-decode-stream", dict(MIX, subsampling="422", restart_interval=4)),
+    ("ilsvrc-decode-stream", dict(MIX, **K2)),
+    ("ilsvrc-decode-stream", dict(MIX, progressive=True, **K2))]
+IDS = [c + ("-progressive" if o.get("progressive") else
+            "-optimized" if o.get("optimize_tables") else
+            "" if "subsampling" not in o else
             f"-{o['subsampling']}-rst{o['restart_interval']}")
        for c, o in CELLS]
 

@@ -14,8 +14,8 @@ import pytest
 BENCH = pathlib.Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "jpeg_tpu"}
-REFERENCE = ["lib/plainjpeg.py", "lib/check.py", "lib/inputs.py",
-             "metrics/work_bytes.py"]
+REFERENCE = ["lib/plainjpeg.py", "lib/plainprogressive.py", "lib/check.py",
+             "lib/inputs.py", "metrics/work_bytes.py"]
 
 
 def top_level_imports(path: pathlib.Path) -> set:

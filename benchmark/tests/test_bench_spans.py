@@ -1,8 +1,10 @@
 """The readers of the program's own spans (lib/spans and the metrics
-wait_ms_per_image, enqueue_ms_per_image, finalize_ms_per_image and
-spill_share) on hand-made profiler events (times in microseconds): a window
-of two frames, their leaves on two threads, a parent, spans that straddle
-the window's edges, and a trace without any program span."""
+wait_ms_per_image, enqueue_ms_per_image, finalize_ms_per_image, spill_share,
+parse_ms_per_image and unstuff_ms_per_image) on hand-made profiler events
+(times in microseconds): a window of two frames, their leaves on two threads,
+a parent, spans that straddle the window's edges, two decodes on two worker
+threads, and a trace without any program span; and the profiler's own events
+of a span on a worker thread."""
 
 import pytest
 
@@ -102,3 +104,70 @@ def test_a_trace_without_program_spans_reads_nothing(name):
     assert read(name, trace(window())) is None
     # Spans but no finished image: nothing to divide by.
     assert read(name, trace(window() + frames(), images=0)) is None
+
+
+def decodes():
+    """Two images decoded on two worker threads (tids 7 and 8) in [100,
+    1100], as decode_stream runs them; the harness's stream_next is on
+    thread 1. Image 2's finish wait ends 40 us after the window."""
+    return [
+        ev("jt.decode", 110, 400, tid=7),
+        ev("jt.decode.parse", 110, 60, tid=7),
+        ev("jt.decode.unstuff", 170, 30, tid=7),
+        ev("jt.decode.entropy", 200, 50, tid=7),
+        ev("jt.wait.status", 250, 90, tid=7),
+        ev("jt.decode.finish", 340, 70, tid=7),
+        ev("jt.decode", 600, 540, tid=8),
+        ev("jt.decode.parse", 600, 80, tid=8),
+        ev("jt.decode.unstuff", 680, 20, tid=8),
+        ev("jt.decode.entropy", 700, 40, tid=8),
+        ev("jt.wait.upload", 740, 10, tid=8),
+        ev("jt.decode.finish", 750, 50, tid=8),
+        ev("jt.wait.stream", 1060, 80, tid=8),  # 40 us inside
+    ]
+
+
+@pytest.mark.parametrize("name,us", [
+    ("parse_ms_per_image.decode", 60 + 80),
+    ("unstuff_ms_per_image.decode", 30 + 20),
+    # entropy 50 + finish 70 + entropy 40 + finish 50
+    ("enqueue_ms_per_image.decode", 210),
+    # status 90 + upload 10 + stream 40 (clipped)
+    ("wait_ms_per_image.decode", 140),
+])
+def test_decode_leaves_on_worker_threads(name, us):
+    assert read(name, trace(window() + decodes())) == pytest.approx(
+        us / 1000 / 2)
+    assert read(name, trace(window())) is None
+
+
+def test_a_gap_is_named_by_a_worker_thread_span():
+    # The card idles from 350 to 1100 but for kernel_a at 300-350; at the
+    # gap's middle (725) worker 8 is inside jt.decode.entropy.
+    b = trace(window() + decodes()).breakdown()
+    assert b["idle_gaps"][0][0] == "jt.decode.entropy"
+
+
+def test_the_traced_stretch_records_every_thread():
+    """A span opened on a thread that the program starts, inside
+    trace.profiled(), is among the events, on a thread of its own."""
+    import threading
+
+    import torch
+
+    out = {}
+
+    def worker():
+        with torch.profiler.record_function("jt.decode.parse"):
+            torch.ones(8).sum()
+
+    with tr.profiled(out):
+        with torch.profiler.record_function("main_side"):
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join(timeout=60)
+    assert not t.is_alive()
+    tids = {e["name"]: e["tid"] for e in out["events"]
+            if e["cat"] == "user_annotation"}
+    assert "jt.decode.parse" in tids and "main_side" in tids
+    assert tids["jt.decode.parse"] != tids["main_side"]

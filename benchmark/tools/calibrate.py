@@ -6,9 +6,10 @@ below the stated one (decode: the IDCT and colour map with TF32 operands;
 encode: the transform in float32 instead of exact integers).
 
     python3 benchmark/tools/calibrate.py --workload <cell> --seeds 1,2,3 \
-        --seconds 2 --json calib.json
+        --seconds 2 --json calib.json [--override '{"progressive": true}']
 
-Runs on the card only, in one process for all seeds.
+Runs on the card only, in one process for all seeds. --override replaces
+keys of the cell's configuration, as a configuration file would state them.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ def main() -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--json", default="")
+    ap.add_argument("--override", default="{}")
     args = ap.parse_args()
     import torch
 
@@ -41,9 +43,11 @@ def main() -> int:
     rows = []
     for seed in (int(s) for s in args.seeds.split(",")):
         r = harness.run_cell(spec, args.workload, seed, args.seconds, False,
+                             config_override=json.loads(args.override),
                              control=True)
         info = r["_info"]
         row = {"seed": seed, "correct": r["correct"],
+               "inputs_s": info["inputs_s"],
                "program": {k: v["value"] for k, v in r["checks"].items()},
                "control": info["control"], "kept": info["kept"],
                "images": info["images"], "error": info["error"],

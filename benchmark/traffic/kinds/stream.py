@@ -3,8 +3,10 @@ encode_stream by the traffic file's "direction", fed an endless cycle of the
 cell's "distinct" inputs. The file's "args" are passed to the entry as they
 are (depth, entropy, device_output, ...); an encode stream also gets the
 configuration's quality and subsampling, and refuses a configuration with
-restart intervals, which encode_stream cannot write. One client takes each answer as it
-comes and stops at the first answer after the window's end."""
+restart intervals, which encode_stream cannot write, and one with progressive
+scans or optimized tables, which the reference's encode does not hold the
+program to. One client takes each answer as it comes and stops at the first
+answer after the window's end."""
 
 from __future__ import annotations
 
@@ -40,6 +42,14 @@ def _open(port, traffic: dict, config: dict, device):
             f"configuration restart_interval={config['restart_interval']!r} "
             "cannot be encoded as stated: encode_stream takes no restart "
             "interval")
+    if config.get("progressive", False):
+        raise ValueError("configuration progressive=True cannot be encoded as "
+                         "stated: encode_stream writes no progressive stream")
+    if config.get("optimize_tables", False):
+        raise ValueError(
+            "configuration optimize_tables=True cannot be encoded as stated: "
+            "the reference's encode has no Annex K.2 tables held to the "
+            "program's")
     args.update(quality=config["quality"], subsampling=config["subsampling"])
     return "frames", lambda it: port.encode_stream(it, **args)
 
